@@ -131,23 +131,24 @@ def test_camera_errors_match(args):
 
 def test_public_api_errors_match(tmp_path):
     assert vt.colormap_supported() == vf.colormap_supported()
+    # The port's calls name the CPU (device=None means "cuda").
     cases = [
-        (lambda m: m.Scene(16, 16, 4, "plasma"),),
-        (lambda m: m.make_terrain(0, 10),),
-        (lambda m: m.make_terrain(10, 10, grid=1),),
-        (lambda m: m.make_terrain(10, 10, grid=5000),),
-        (lambda m: m.render_triangle_rgba(8193, 10),),
-        (lambda m: m.render_triangle_png(str(tmp_path / "x.jpg"), 8, 8),),
-        (lambda m: m.Scene(16, 16, 4).set_height_from_r32f(np.zeros((2, 2))),),
-        (lambda m: m.Scene(16, 16, 4).set_height_from_r32f(
+        (lambda m, **d: m.Scene(16, 16, 4, "plasma", **d),),
+        (lambda m, **d: m.make_terrain(0, 10, **d),),
+        (lambda m, **d: m.make_terrain(10, 10, grid=1, **d),),
+        (lambda m, **d: m.make_terrain(10, 10, grid=5000, **d),),
+        (lambda m, **d: m.render_triangle_rgba(8193, 10, **d),),
+        (lambda m, **d: m.render_triangle_png(str(tmp_path / "x.jpg"), 8, 8, **d),),
+        (lambda m, **d: m.Scene(16, 16, 4, **d).set_height_from_r32f(np.zeros((2, 2))),),
+        (lambda m, **d: m.Scene(16, 16, 4, **d).set_height_from_r32f(
             np.zeros((4, 4), np.float32)[:, ::2]),),
-        (lambda m: m.TerrainSpike(16, 16, 4).set_camera_look_at(
+        (lambda m, **d: m.TerrainSpike(16, 16, 4, **d).set_camera_look_at(
             (0, 5, 0), (0, 0, 0), (0, 1, 0), 45, 0.1, 10),),
     ]
     for (fn,) in cases:
         want = _error_of(fn, vf)
         assert want is not None
-        assert _error_of(fn, vt) == want
+        assert _error_of(lambda m: fn(m, device="cpu"), vt) == want
 
 
 def test_scene_defaults_match():
@@ -189,6 +190,20 @@ def test_triangle_png_matches_rgba(tmp_path):
                                   vt.render_triangle_rgba(40, 24, device="cpu"))
 
 
+def test_resolve_device_none_raises_without_card(monkeypatch):
+    """None means "cuda": without a card it raises, and nothing falls back
+    to the CPU (public entry points included)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="is_available"):
+            tdev.resolve_device(device)
+    with pytest.raises(RuntimeError, match="is_available"):
+        vt.make_terrain(16, 16, 4)
+    with pytest.raises(RuntimeError, match="is_available"):
+        vt.render_triangle_rgba(16, 16)
+    assert tdev.resolve_device("cpu") == torch.device("cpu")
+
+
 def test_port_imports_without_jax():
     code = ("import sys, vulkan_forge_torch, vulkan_forge_torch._convert, "
             "vulkan_forge_torch._parity, vulkan_forge_torch._raster.kernels; "
@@ -202,7 +217,8 @@ def test_port_imports_without_jax():
 
 def test_device_resolution():
     assert tdev.resolve_device("cpu") == torch.device("cpu")
-    assert tdev.resolve_device(None).type == ("cuda" if torch.cuda.is_available() else "cpu")
+    if torch.cuda.is_available():
+        assert tdev.resolve_device(None).type == "cuda"
     with pytest.raises(ValueError):
         tdev.resolve_device("meta")
     info = tdev.device_info("cpu")

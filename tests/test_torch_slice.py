@@ -140,11 +140,16 @@ def test_unported_modes_raise(monkeypatch):
         vt.make_terrain(16, 16, 4, device="cpu").render_rgba()
     monkeypatch.delenv("VF_FILL_RULE")
     s = vt.make_terrain(16, 16, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="extended"):
+    args = dict(spacing=1.0, exaggeration=1.0, h_min=-0.5, h_max=0.5, exposure=1.0,
+                sun_dir=s._globals.sun_dir, lut=s._lut, width=16, height=16, device="cpu")
+    # The extended shader is ported (tests/test_torch_vtx.py holds it to the
+    # reference); an unknown shader is refused.
+    img = tpipe.render_terrain_u8(s._xyuv, s._indices, s._heights, s._view, s._proj,
+                                  fs_mode="extended", **args)
+    assert img.shape == (16, 16, 4) and img.dtype == np.uint8
+    with pytest.raises(ValueError, match="fs_mode"):
         tpipe.render_terrain_u8(s._xyuv, s._indices, s._heights, s._view, s._proj,
-                                spacing=1.0, exaggeration=1.0, h_min=-0.5, h_max=0.5,
-                                exposure=1.0, sun_dir=s._globals.sun_dir, lut=s._lut,
-                                width=16, height=16, fs_mode="extended", device="cpu")
+                                fs_mode="fancy", **args)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="allow_tf32"):
         s.render_rgba()

@@ -2,15 +2,16 @@
 
 The same public API and error strings as ``vulkan_forge`` (the JAX/Pallas
 reference, ``vulkan_forge/__init__.py:120-129``) for the part ported so
-far, with an explicit ``device=`` argument ("cuda", "cpu", or None for
-CUDA when a card is visible). On a CUDA device the raster stage runs the
-hand-written kernels in ``csrc/raster.cu``; on the CPU it runs their plain
-PyTorch versions. This package imports torch and never jax.
+far, with an explicit ``device=`` argument ("cuda", "cpu", or None, which
+means "cuda" and raises without a card). On a CUDA device the raster stage
+runs the hand-written kernels in ``csrc/raster.cu`` (triangle records) and
+``csrc/vtx.cu`` (dense grid meshes); on the CPU it runs their plain PyTorch
+versions. This package imports torch and never jax.
 
 Ported: TerrainSpike, Scene, make_terrain, render_triangle_rgba/png,
 camera_look_at/perspective/view_proj, colormap_supported,
-grid_generate/generate_grid. Not yet: Renderer (extended shader),
-dem_stats/dem_normalize, device_probe/enumerate_adapters,
+grid_generate/generate_grid, the extended fragment shader. Not yet:
+Renderer, dem_stats/dem_normalize, device_probe/enumerate_adapters,
 render_spike_frames (ROADMAP queue 1).
 """
 from __future__ import annotations

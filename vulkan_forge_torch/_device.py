@@ -14,13 +14,11 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> CUDA when a card is visible, else the CPU.
+    """``None`` means ``"cuda"``; the CPU is taken only when asked for.
 
-    An explicit ``"cuda"`` without a card raises: nothing falls back.
+    ``None`` or ``"cuda"`` without a card raises: nothing falls back.
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}; expected 'cpu' or 'cuda'")
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -1,12 +1,16 @@
 """Fragment stages ("fragment shaders") as torch epilogues.
 
-Port of ``vulkan_forge/_raster/fragment.py:28-70, 203-214``:
+Port of ``vulkan_forge/_raster/fragment.py:28-70, 151-214``:
 
   - ``terrain_fs``: the SHIPPED shader (src/shaders/terrain.wgsl:68-91):
     bilinear LUT, analytic-derivative normals, ambient-floor Lambert,
     rgb*exposure*shade, no tonemap, sRGB encode, u32 pack. It is the plain
     version of the fused kernel ``vf_raster_shade_shipped``, whose epilogue
     runs the same ops in the same order per pixel.
+  - ``terrain_fs_extended``: the documented extended pipeline
+    (central-difference normals from the height texture, Reinhard tonemap).
+    It is XLA code in the JAX package, with no Pallas kernel, and plain
+    torch here on both devices.
   - ``triangle_fs``: the gradient triangle's shader.
 
 ``lut`` is the pre-decoded linear (256, 4) float32 table (_colormap).
@@ -61,6 +65,51 @@ def terrain_fs(h, x, z, mask, lut, h_range, exposure, sun_dir):
     shade = 0.15 + 0.85 * lambert  # mix(0.15, 1.0, lambert)
 
     rgb = lut_rgb * exposure * shade[..., None]
+
+    clear = torch.tensor([0.02, 0.02, 0.03], dtype=torch.float32, device=h.device)
+    rgb = torch.where(mask[..., None], rgb, clear)
+    srgb = srgb_encode(rgb)
+    one = torch.ones_like(srgb[..., 0])
+    return pack_rgba_u32(srgb[..., 0], srgb[..., 1], srgb[..., 2], one)
+
+
+def terrain_fs_extended(h, u, v, mask, lut, heights, h_min, h_max, exposure,
+                        sun_dir, spacing, exaggeration):
+    """Extended terrain shader: finite-difference normals + Reinhard tonemap.
+
+    h, u, v: (..., H, W) interpolated varyings (height, texture u, v);
+    heights: the (Ht, Wt) height texture; the scalars are 0-d f32 tensors.
+    Ops in the order of ``vulkan_forge/_raster/fragment.py:151-201``:
+    heights normalize into [0, 1] through [h_min, h_max], normals are
+    central differences of the texture at the pixel's uv (one-sided at the
+    borders), scaled by spacing and exaggeration; Reinhard in linear, then
+    the target's sRGB encode. Returns (..., H, W) uint32 packed RGBA.
+    """
+    ht, wt = heights.shape
+    t = torch.clamp((h - h_min) / torch.clamp_min(h_max - h_min, 1e-8), 0.0, 1.0)
+    lut_rgb = sample_lut_bilinear(lut, t)[..., :3]
+
+    tx = torch.clamp(torch.floor(u * wt), 0, wt - 1).to(torch.long)
+    ty = torch.clamp(torch.floor(v * ht), 0, ht - 1).to(torch.long)
+    txm = torch.clamp_min(tx - 1, 0)
+    txp = torch.clamp_max(tx + 1, wt - 1)
+    tym = torch.clamp_min(ty - 1, 0)
+    typ = torch.clamp_max(ty + 1, ht - 1)
+    step_x = (txp - txm).to(torch.float32)
+    step_z = (typ - tym).to(torch.float32)
+    sp = torch.clamp_min(spacing, 1e-8)
+    dhdx = ((heights[ty, txp] - heights[ty, txm]) * exaggeration
+            / (torch.clamp_min(step_x, 1.0) * sp))
+    dhdz = ((heights[typ, tx] - heights[tym, tx]) * exaggeration
+            / (torch.clamp_min(step_z, 1.0) * sp))
+    inv_len = 1.0 / torch.sqrt(dhdx * dhdx + 1.0 + dhdz * dhdz)
+    l = sun_dir / torch.sqrt(torch.sum(sun_dir * sun_dir))
+    lambert = torch.clamp((-dhdx * l[0] + l[1] - dhdz * l[2]) * inv_len, 0.0, 1.0)
+    shade = 0.15 + 0.85 * lambert
+
+    rgb = lut_rgb * shade[..., None]
+    rgb = rgb * exposure
+    rgb = rgb / (1.0 + rgb)
 
     clear = torch.tensor([0.02, 0.02, 0.03], dtype=torch.float32, device=h.device)
     rgb = torch.where(mask[..., None], rgb, clear)

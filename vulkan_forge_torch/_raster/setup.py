@@ -160,6 +160,30 @@ def setup_fields_core(c0, c1, c2, width: int, height: int):
     return cols, px0, px1, py0, py1, valid
 
 
+def grid_corners(fields, n: int):
+    """Corners of every triangle of the ``build_grid_xyuv(n)`` mesh.
+
+    fields: sequence of per-vertex tensors (..., n*n), row-major grid. Per
+    cell (r, c) the corners are A=(r,c), B=(r,c+1), C=(r+1,c),
+    D=(r+1,c+1); tri0 = [A, C, B] and tri1 = [B, C, D] (draw order,
+    ``vulkan_forge/_raster/setup.py:223-235`` without the split-row
+    permutation). Returns three lists (one per corner) of (..., T) tensors,
+    T = 2*(n-1)**2, triangle ``(r*(n-1) + c)*2 + k`` at position t: the
+    order of ``_mesh.build_grid_xyuv``'s indices.
+    """
+    def tri(f, k0, k1):
+        f2 = f.reshape(*f.shape[:-1], n, n)
+        return torch.stack([f2[..., k0[0], k0[1]], f2[..., k1[0], k1[1]]],
+                           dim=-1).reshape(*f.shape[:-1], -1)
+
+    a = (slice(None, -1), slice(None, -1))
+    b = (slice(None, -1), slice(1, None))
+    c = (slice(1, None), slice(None, -1))
+    d = (slice(1, None), slice(1, None))
+    return [[tri(f, k0, k1) for f in fields]
+            for k0, k1 in ((a, b), (c, c), (b, d))]
+
+
 def setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
                width: int, height: int):
     """Core triangle setup: returns (cols, bbox).

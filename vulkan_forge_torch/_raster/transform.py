@@ -3,6 +3,9 @@
 Port of ``vulkan_forge/_raster/transform.py``:
   - terrain_vs: src/shaders/terrain.wgsl:44-66 (height sample + analytic
     fallback + world/clip transform).
+  - terrain_vs_extended: the extended pipeline's vertex stage (no analytic
+    relief, varyings (h, u, v); ``vulkan_forge/_raster/pipeline.py:471-479,
+    551-568``).
   - triangle_vs: src/shaders/triangle.wgsl:6-16 (passthrough, z=0 w=1).
 
 Matrix convention: ``view``/``proj`` are row-major math-convention (4,4)
@@ -71,6 +74,26 @@ def terrain_vs(xyuv: torch.Tensor, heights: torch.Tensor, view: torch.Tensor,
     view_pos = _rows_times_mt(world, view.to(torch.float32))
     clip = torch.stack(_rows_times_mt(view_pos, proj.to(torch.float32)), dim=-1)
     varyings = torch.stack([h, x, z], dim=-1)
+    return clip, varyings
+
+
+def terrain_vs_extended(xyuv: torch.Tensor, heights: torch.Tensor,
+                        view: torch.Tensor, proj: torch.Tensor,
+                        spacing: torch.Tensor, exaggeration: torch.Tensor):
+    """Vertex stage of the extended pipeline (it renders the real DEM).
+
+    world = (x*sp, h*exaggeration, z*sp, 1) with h the nearest height
+    sample and no analytic relief. Returns (clip (..., N, 4), varyings
+    (N, 3) = [height, u, v]); shapes as ``terrain_vs``.
+    """
+    x = xyuv[:, 0]
+    z = xyuv[:, 1]
+    sp = torch.clamp_min(spacing, 1e-8)
+    h = sample_height_nearest(heights, xyuv[:, 2:4])
+    world = [x * sp, h * exaggeration, z * sp, torch.ones_like(x)]
+    view_pos = _rows_times_mt(world, view.to(torch.float32))
+    clip = torch.stack(_rows_times_mt(view_pos, proj.to(torch.float32)), dim=-1)
+    varyings = torch.stack([h, xyuv[:, 2], xyuv[:, 3]], dim=-1)
     return clip, varyings
 
 

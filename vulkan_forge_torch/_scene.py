@@ -4,7 +4,8 @@ Port of ``vulkan_forge/_scene.py:33-134``: the same defaults, error strings
 and the silent clamp ``grid = max(grid, 2)``. The scene state stays numpy
 on the host (mesh, camera matrices, height texture, LUT, globals); each
 render copies it to ``self.device`` and runs the shipped terrain pipeline
-there (``_raster/pipeline.py``).
+there (``_raster/pipeline.py``), naming its grid so that dense grids take
+the vertex-stream route (as ``vulkan_forge/_scene.py:100-101`` does).
 """
 from __future__ import annotations
 
@@ -83,13 +84,13 @@ class _TerrainObjectBase:
         """Shipped terrain pipeline -> (H, W, 4) uint8."""
         g = self._globals
         return _pipeline.render_terrain_u8(
-            self._xyuv, self._indices.astype(np.int64).reshape(-1, 3),
+            self._xyuv, self._indices,
             self._heights, self._view, self._proj,
             spacing=g.spacing, exaggeration=g.exaggeration,
             h_min=g.h_min, h_max=g.h_max,
             exposure=g.exposure, sun_dir=g.sun_dir,
             lut=self._lut, width=self.width, height=self.height,
-            fs_mode="shipped", device=self.device)
+            fs_mode="shipped", grid_n=self.grid, device=self.device)
 
     def render_png(self, path: str) -> None:
         save_png_rgba(str(path), self.render_rgba())

@@ -30,11 +30,14 @@
 // Numerics: built with -fmad=false (no contraction) and without fast math,
 // so every +, -, *, / and sqrtf rounds once, exactly as the plain PyTorch
 // version (_raster/tiles.py, _raster/fragment.py) rounds its eager ops;
-// the op order below is that of tiles.py:38-63 and fragment.py:105-148.
+// the per-pixel evaluation and the shader are in raster_common.cuh, shared
+// with vtx.cu, in the op order of tiles.py:79-97 and fragment.py:44-69.
 // Only sinf, cosf and powf may differ from the host library by ulps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "raster_common.cuh"
 
 namespace {
 
@@ -43,48 +46,6 @@ constexpr int kThreads = kTile * kTile;
 constexpr int kChunk = 64;                 // records staged per pass
 constexpr int kCols = 31;                  // live record columns 0..30
 constexpr int kColsPad = 32;
-
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  // torch.clamp semantics, NaN propagates.
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// Shipped terrain fragment shader for one pixel (fragment.terrain_fs /
-// K2 fragment.terrain_fs_tile). lut: (256, 3) linear RGB in shared memory.
-__device__ __forceinline__ int32_t shade_shipped(
-    float hh, float xx, float zz, bool cov, const float* lut,
-    float hr2, float exposure, float l0, float l1, float l2) {
-  const float t = clampf(0.5f + hh / hr2, 0.0f, 1.0f);
-  const float xf = t * 256.0f - 0.5f;
-  const float x0 = floorf(xf);
-  const float frac = xf - x0;
-  const int i0 = (int)clampf(x0, 0.0f, 255.0f);
-  const int i1 = (int)clampf(x0 + 1.0f, 0.0f, 255.0f);
-
-  const float dhdx = 1.3f * cosf(xx * 1.3f) * 0.25f;
-  const float dhdz = -1.1f * sinf(zz * 1.1f) * 0.25f;
-  const float inv_len = 1.0f / sqrtf(dhdx * dhdx + 1.0f + dhdz * dhdz);
-  const float lambert =
-      clampf((-dhdx * l0 + l1 - dhdz * l2) * inv_len, 0.0f, 1.0f);
-  const float shade = 0.15f + 0.85f * lambert;
-
-  const float inv_gamma = (float)(1.0 / 2.4);
-  const float clear[3] = {0.02f, 0.02f, 0.03f};
-  int32_t word = 0;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float lin = lut[i0 * 3 + c] * (1.0f - frac) + lut[i1 * 3 + c] * frac;
-    float v = lin * exposure * shade;
-    v = cov ? v : clear[c];
-    v = clampf(v, 0.0f, 1.0f);
-    const float lo = v * 12.92f;
-    const float hi = 1.055f * powf(fmaxf(v, 1e-12f), inv_gamma) - 0.055f;
-    const float s = v <= 0.0031308f ? lo : hi;
-    const int32_t u8 = (int32_t)floorf(clampf(s, 0.0f, 1.0f) * 255.0f + 0.5f);
-    word |= u8 << (8 * c);
-  }
-  return word | (int32_t)0xFF000000;  // alpha = 255
-}
 
 template <bool kShade>
 __global__ void __launch_bounds__(kThreads)
@@ -127,25 +88,12 @@ raster_kernel(const float* __restrict__ records, int rec_stride,
     }
     __syncthreads();
     for (int i = 0; i < n; ++i) {
-      const float* r = srec[i];
-      const float f0 = r[2] * (px - r[0]) - r[3] * (py - r[1]);
-      const float f1 = r[6] * (px - r[4]) - r[7] * (py - r[5]);
-      const float f2 = r[10] * (px - r[8]) - r[11] * (py - r[9]);
-      const float a0 = f0 * r[12] + f1 * r[13] + f2 * r[14];
-      const float a1 = f0 * r[15] + f1 * r[16] + f2 * r[17];
-      const float a2 = f0 * r[18] + f1 * r[19] + f2 * r[20];
-      const float aw = f0 * r[21] + f1 * r[22] + f2 * r[23];
-      // Clip-volume tests (near z>=0, camera-front w>0, far z<=w).
-      const float az = f0 * r[25] + f1 * r[26] + f2 * r[27];
-      const float asum = f0 * r[28] + f1 * r[29] + f2 * r[30];
-      const bool cov = (f0 >= 0.0f) & (f1 >= 0.0f) & (f2 >= 0.0f) &
-                       (r[24] > 0.0f) & (az >= 0.0f) & (aw > 0.0f) &
-                       (asum - az >= 0.0f);
-      if (cov) {
-        acc0 = a0;
-        acc1 = a1;
-        acc2 = a2;
-        accw = aw;
+      const vf::PixelEval e = vf::eval_pixel(srec[i], px, py);
+      if (e.cov) {
+        acc0 = e.a0;
+        acc1 = e.a1;
+        acc2 = e.a2;
+        accw = e.aw;
         covered = true;
       }
     }
@@ -153,13 +101,13 @@ raster_kernel(const float* __restrict__ records, int rec_stride,
   if (kShade) __syncthreads();              // slut ready even for empty tiles
 
   if (ix >= width || iy >= height) return;
-  const float rcp = 1.0f / (fabsf(accw) < 1e-20f ? 1.0f : accw);
+  const float rcp = vf::resolve_rcp(accw);
   const float v0 = acc0 * rcp;
   const float v1 = acc1 * rcp;
   const float v2 = acc2 * rcp;
   const size_t o = ((size_t)frame * height + iy) * width + ix;
   if (kShade) {
-    image[o] = shade_shipped(v0, v1, v2, covered, slut, par[0], par[1],
+    image[o] = vf::shade_shipped(v0, v1, v2, covered, slut, par[0], par[1],
                              par[2], par[3], par[4]);
   } else {
     out0[o] = v0;
