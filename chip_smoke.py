@@ -6,8 +6,8 @@ Usage, from the root of a checkout:  python3 chip_smoke.py [--profile]
 Phases, each printing one line, in order:
   0. card: name and power limit (nvidia-smi), torch/CUDA/nvcc versions, TF32
      flags; requires a CUDA device of compute capability 9.0.
-  1. build: compiles csrc/raster.cu and csrc/vtx.cu with nvcc (one process
-     per source, started together) and prints the seconds and, per kernel,
+  1. build: compiles csrc/raster.cu, csrc/vtx.cu and csrc/packed.cu with
+     nvcc (one process per source, started together) and prints the seconds and, per kernel,
      the registers, shared memory, stack and spills ptxas reports.
   2. kernel vs plain: each record-route kernel against its plain PyTorch
      version on the same CUDA tensors at the main path's shapes (triangle
@@ -21,6 +21,12 @@ Phases, each printing one line, in order:
      g-buffer and images under the same bounds. Then the vtx route against
      the record route (two independent kernels) at grid=1024, 800x600: the
      batch of 4 orbit cameras and the close-in + w-crossing pair.
+  2c. indexed kernel vs plain: each of the three indexed-mesh kernels
+     (csrc/packed.cu) against its plain version (packed.py) at 800x600: a
+     Renderer DEM-256 at its default camera, close in, and with w-crossing
+     triangles (asserted), a 50K-triangle soup made from a seed, and a
+     DEM-2048 at the default camera. Winners and lists exact, g-buffer
+     within 1e-5*max(1,|x|).
   3. main path, slice 1: the public API on device="cuda"
      (make_terrain(800,600,128) render_rgba/render_png,
      Scene(160,120,32,"magma") with a height upload -- both name their grid
@@ -34,6 +40,14 @@ Phases, each printing one line, in order:
      shader frame at grid=1024, all on device="cuda"; every vertex-stream
      kernel's counter must advance and no record kernel may launch. The
      single frames are held to device="cpu", the batch to the record route.
+  3c. main path, slice 3: Renderer(800,600) on device="cuda" with
+     add_terrain(DEM-2048, 30 m, x1.5, "terrain"), upload_height_r32f,
+     set_sun, set_exposure, render_rgba and render_png, then render_rgba of
+     a 3601^2 DEM (the SRTM 1" tile, T = 25.9M > 2^24); every indexed
+     kernel's counter must advance and no record or vtx kernel may launch.
+     Both frames' g-buffers are held bit for bit to the record route's on
+     the card (skipped if it cannot fit), a DEM-256 frame to device="cpu"
+     under the FS policy; render_metrics must be filled in.
   4. timing, slice 1: 32 orbit cameras at 800x600 g128 through the record
      kernel path (the batched entry without grid_n) and through the plain
      PyTorch path on the card (median of 5 batches, host clock after
@@ -52,12 +66,19 @@ Phases, each printing one line, in order:
      holds thousands of triangles. The kernels line reports
      vf_vtx_cover_big on that pair (at the orbit cameras its list is
      empty).
+  4c. timing, slice 3: render_rgba() latency at DEM-1024, DEM-2048 and
+     DEM-3601 (median and p80 of 20 calls, readback included), the stages of a
+     DEM-2048 frame (CUDA events), each indexed kernel and its plain
+     version over 5 turned cameras (vf_packed_cover_big on a close-in +
+     w-crossing pair, where its list is full), both routes on the DEM-2048
+     frame with their peak device memory, and the route sweep (DEMs 32^2 to
+     2048^2) that sets the indexed route's threshold.
   5. profile, only with --profile: torch.profiler over 3 batches of each
      headline path (32 cameras g128 on the record route, 4 cameras g1024 on
      the vtx route); the device's busy share and the ops with the most
      device time. It runs after the main paths' launch counts are read.
 
-Then one JSON line with the per-kernel record (all six kernels), and last
+Then one JSON line with the per-kernel record (all nine kernels), and last
 the line {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero. It imports nothing of JAX and nothing of the JAX package.
 """
@@ -78,11 +99,11 @@ import numpy as np
 import torch
 
 import vulkan_forge_torch as vt
-from vulkan_forge_torch import _camera, _colormap, _device, _formats, _mesh
+from vulkan_forge_torch import _camera, _colormap, _device, _formats, _mesh, _renderer
 from vulkan_forge_torch._parity import (FS_MAX_FRACTION, VARYING_RTOL,
                                         assert_fs_policy, assert_gbuffer_close)
-from vulkan_forge_torch._raster import (fragment, kernels, pipeline, setup, tiles,
-                                        transform, vtx)
+from vulkan_forge_torch._raster import (fragment, kernels, packed, pipeline, setup,
+                                        tiles, transform, vtx)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -94,13 +115,14 @@ SWEEP_GRIDS = (8, 16, 32, 64, 128, 256, 512, 1024)
 # f32 operations/s outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # f32 operations per unit of work, counted from the kernels' source
-# (add, sub, mul, div, min, max, compare, floor/ceil, conversions; selects
-# and predicate logic not counted; sinf/cosf/powf/sqrtf as one each):
-#   EVAL_OPS   one record at one pixel: 3 edge functions and 6 three-term
-#              sums (tiles.py:79-90), 7 compares;
-#   SETUP_OPS  setup_fields_core for one triangle (csrc/vtx.cu): ~159
+# (add, sub, mul, div, min, max, compare, floor/ceil, conversions; a fused
+# multiply-add as two; selects and predicate logic not counted;
+# sinf/cosf/powf/sqrtf as one each):
+#   EVAL_OPS   one record at one pixel (vf::eval_pixel): 3 edge functions
+#              and 6 three-term sums, 7 compares;
+#   SETUP_OPS  setup_fields_core for one triangle (raster_common.cuh): ~159
 #              arithmetic ops and ~60 compares;
-#   COVER_OPS  one bbox pixel of the cover walk (a0..a2 unused);
+#   COVER_OPS  one bbox pixel of a cover walk (a0..a2 not evaluated);
 #   RESOLVE_OPS the divide of tiles.py:97 at one pixel;
 #   SHADE_OPS  the shipped shader at one pixel (raster_common.cuh).
 EVAL_OPS, SETUP_OPS, COVER_OPS, RESOLVE_OPS, SHADE_OPS = 52, 220, 38, 5, 75
@@ -213,7 +235,10 @@ ENTRIES = (("raster_kernelILb0", "vf_raster_gbuffer"),
            ("vtx_cover_kernel", "vf_vtx_cover"),
            ("vtx_cover_big_kernel", "vf_vtx_cover_big"),
            ("vtx_resolve_kernelILb0", "vf_vtx_resolve_gbuffer"),
-           ("vtx_resolve_kernelILb1", "vf_vtx_resolve_shade_shipped"))
+           ("vtx_resolve_kernelILb1", "vf_vtx_resolve_shade_shipped"),
+           ("packed_cover_kernel", "vf_packed_cover"),
+           ("packed_cover_big_kernel", "vf_packed_cover_big"),
+           ("packed_resolve_kernel", "vf_packed_resolve_gbuffer"))
 
 
 def ptxas_summary(log):
@@ -726,11 +751,7 @@ def vtx_bounds(fields, winner, big, count, grid):
                                          covered * (SETUP_OPS + EVAL_OPS)
                                          + pixels * (RESOLVE_OPS + SHADE_OPS)),
     }
-    out = {}
-    for name, (nbytes, ops) in work.items():
-        tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-        out[name] = {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
-                     "bytes": nbytes, "ops": ops}
+    out = {name: bound_of(*w) for name, w in work.items()}
     data = {"triangles": B * T, "valid": int(valid.sum()), "pairs_small": pairs_small,
             "listed": listed, "pairs_big": pairs_big, "covered_pixels": covered,
             "distinct_winners": winners, "distinct_winner_vertices": won_vertices}
@@ -750,6 +771,14 @@ def distinct_vertices(entries, grid):
     return int(torch.unique(frame * grid * grid + verts).numel())
 
 
+def bound_of(nbytes, ops):
+    """The least time for a kernel's work: the larger of its bytes over
+    HBM's rate and its f32 operations over the peak rate; and what binds."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
 def record_bound(records, binning, n_frames, width, height, shade):
     """bound of a record-route kernel: records, rows and offsets read once,
     the output written once; EVAL_OPS per (pair, tile pixel) as the kernel
@@ -758,11 +787,8 @@ def record_bound(records, binning, n_frames, width, height, shade):
     out_bytes = pixels * (4 if shade else 13)
     nbytes = (records.numel() * 4 + binning.rows.numel() * 4 + binning.offsets.numel() * 4
               + out_bytes + (256 * 3 * 4 if shade else 0))
-    ops = (binning.rows.numel() * setup.TILE * setup.TILE * EVAL_OPS
-           + pixels * (RESOLVE_OPS + (SHADE_OPS if shade else 0)))
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
-            "bytes": nbytes, "ops": ops}
+    evals = binning.rows.numel() * setup.TILE * setup.TILE
+    return bound_of(nbytes, evals * EVAL_OPS + pixels * (RESOLVE_OPS + (SHADE_OPS if shade else 0)))
 
 
 def phase4b_vtx_timing(smi, dev):
@@ -889,6 +915,489 @@ def phase4b_vtx_timing(smi, dev):
     return rec
 
 
+# ---------------- slice 3: the Renderer and the indexed-mesh route ----------------
+
+PACKED_KERNELS = (("vf_packed_cover", kernels.packed_cover),
+                  ("vf_packed_cover_big", kernels.packed_cover_big),
+                  ("vf_packed_resolve_gbuffer", kernels.packed_resolve_gbuffer))
+DEM_SPACING, DEM_EXAG, DEM_RELIEF = (30.0, 30.0), 1.5, 1500.0
+DEM_CHECK, DEM_MAIN = 256, 2048    # phase 2c's small DEM; the main path's DEM
+SRTM = 3601                        # an SRTM 1-arc-second tile: T = 25,920,000
+LATENCY_DEMS = (1024, 2048, SRTM)
+SWEEP_DEMS = (32, 64, 128, 256, 512, 1024, 2048)
+
+
+def dem_heights(n, seed):
+    """An n x n DEM in metres: ``dem``'s smooth relief scaled to ~1.5 km."""
+    return dem(n, n, seed) * np.float32(DEM_RELIEF)
+
+
+def make_renderer(n, dev, seed=0):
+    """The Renderer's main path up to the frame: add_terrain of an n x n
+    DEM (30 m spacing, exaggeration 1.5, "terrain"), upload_height_r32f,
+    set_sun, set_exposure."""
+    r = vt.Renderer(W, H, device=dev)
+    r.add_terrain(dem_heights(n, seed), DEM_SPACING, DEM_EXAG, "terrain")
+    r.upload_height_r32f()
+    r.set_sun(35.0, 120.0)
+    r.set_exposure(1.1)
+    return r
+
+
+def rot_y(theta):
+    c, s = math.cos(theta), math.sin(theta)
+    return np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0], [0, 0, 0, 1]], np.float32)
+
+
+def renderer_frame(r, views=None, projs=None):
+    """(xyuv, int32 triangles, heights, views, projs) of a Renderer's frame
+    on its device: the mesh, texture and default camera render_rgba uses,
+    or the given cameras."""
+    terr = r._terrain
+    xyuv, tris = _renderer.grid_mesh(terr.width, terr.height, *terr.spacing, r.device)
+    if views is None:
+        view, proj = r._default_terrain_camera(terr)
+        views, projs = view[None], proj[None]
+    return xyuv, tris, r._height_tex, tensor(views, r.device), tensor(projs, r.device)
+
+
+def turned_cameras(r, k):
+    """The default camera turned by 0.3*k rad about the DEM's vertical axis."""
+    view, proj = r._default_terrain_camera(r._terrain)
+    return (view @ rot_y(0.3 * k))[None], proj[None]
+
+
+def special_dem_cameras(r, turn=0.0):
+    """A close-in camera (300 m above the DEM centre, near 0.1: 30 m cells
+    span tens of pixels) and a w-crossing one (5 m above it, near 0.001:
+    neighbouring triangles straddle the eye's plane and stay valid), both
+    fovy 60 and turned by ``turn`` about the vertical axis."""
+    terr = r._terrain
+    h0 = float(terr.heights[terr.height // 2, terr.width // 2])
+    aspect = np.float32(W) / np.float32(H)
+    views, projs = [], []
+    for above, near, target in ((300.0, 0.1, (-3000.0, h0 - 400.0, -2000.0)),
+                                (5.0, 0.001, (3000.0, h0 - 100.0, 2500.0))):
+        views.append(_camera.look_at_rh((0.0, h0 + above, 0.0), target, (0.0, 1.0, 0.0))
+                     @ rot_y(turn))
+        projs.append(_camera.perspective_wgpu(np.float32(math.radians(60.0)), aspect,
+                                              np.float32(near), np.float32(1e6)))
+    return np.stack(views), np.stack(projs)
+
+
+def frame_fields(xyuv, heights, views, projs):
+    one = tensor(1.0, xyuv.device)
+    return vtx.vs_fields(xyuv, heights, views, projs, one, one, W, H, "extended")
+
+
+def record_gbuffer(xyuv, tris, heights, views, projs):
+    """The record route's g-buffer of the same frames: the extended vertex
+    stage, setup_cols + bin_tiles, vf_raster_gbuffer (tris int64)."""
+    one = tensor(1.0, xyuv.device)
+    records, binning = pipeline.terrain_records(xyuv, tris, heights, views, projs, one, one,
+                                                W, H, fs_mode="extended")
+    return kernels.raster_gbuffer(records, binning, views.shape[0], W, H)
+
+
+def soup_frame(dev, n_tris=50_000, n_verts=20_000, seed=7):
+    """An arbitrary triangle soup, made from a seed: random vertices over
+    6 km x 6 km, a random height texture, a random index buffer."""
+    rng = np.random.default_rng(seed)
+    xyuv = np.concatenate([rng.uniform(-3000, 3000, (n_verts, 2)),
+                           rng.uniform(0, 1, (n_verts, 2))], axis=1)
+    tris = torch.as_tensor(rng.integers(0, n_verts, (n_tris, 3)), dtype=torch.int32, device=dev)
+    view = _camera.look_at_rh((-5000.0, 4000.0, 1000.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    proj = _camera.perspective_wgpu(np.float32(math.radians(45.0)), np.float32(W) / np.float32(H),
+                                    np.float32(1.0), np.float32(1e5))
+    return (tensor(xyuv, dev), tris, tensor(rng.uniform(-500, 500, (64, 64)), dev),
+            tensor(view[None], dev), tensor(proj[None], dev))
+
+
+def check_packed_passes(fields, tris, label):
+    """Each indexed kernel against its plain version on the same CUDA
+    tensors. Returns the per-kernel errors, the big-list length and the
+    g-buffer's bit equality."""
+    winner, big, count = kernels.packed_cover(fields, tris, W, H)
+    p_winner, p_big, p_count = packed.cover_plain(fields, tris, W, H)
+    k = int(count[0])
+    err = {"vf_packed_cover": int((winner - p_winner).abs().max())}
+    if err["vf_packed_cover"] or k != int(p_count[0]) \
+            or not torch.equal(torch.sort(big[:k]).values, p_big[:k]):
+        raise AssertionError(f"{label}: vf_packed_cover differs from its plain version")
+    kernels.packed_cover_big(fields, tris, winner, big, count)
+    packed.cover_big_plain(fields, tris, p_winner, p_big, p_count)
+    err["vf_packed_cover_big"] = int((winner - p_winner).abs().max())
+    if err["vf_packed_cover_big"]:
+        raise AssertionError(f"{label}: vf_packed_cover_big differs from its plain version")
+    got = kernels.packed_resolve_gbuffer(fields, tris, winner)
+    want = packed.resolve_gbuffer_plain(fields, tris, winner)
+    err["vf_packed_resolve_gbuffer"] = assert_gbuffer_close(got, want, label)
+    sync()
+    return err, k, all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def w_crossing_valid_indexed(fields, tris):
+    """Valid triangles with a vertex at w <= eps (full-screen bboxes)."""
+    corners = setup.indexed_corners([fields[:, f] for f in range(vtx.FIELDS)], tris)
+    valid = setup.setup_fields_core(*corners, W, H)[5]
+    clean = (corners[0][2] > 1e-8) & (corners[1][2] > 1e-8) & (corners[2][2] > 1e-8)
+    return int((valid & ~clean).sum())
+
+
+def phase2c_packed_kernels(dev):
+    """The indexed kernels against their plain versions at 800x600;
+    returns each kernel's max error over the cases."""
+    small = make_renderer(DEM_CHECK, dev, seed=2)
+    xyuv, tris, heights, _, _ = renderer_frame(small)
+    close, wcross = (tuple(tensor(a[i:i + 1], dev) for a in special_dem_cameras(small))
+                     for i in (0, 1))
+    cases = [(f"DEM-{DEM_CHECK} default camera", renderer_frame(small)),
+             (f"DEM-{DEM_CHECK} close-in", (xyuv, tris, heights, *close)),
+             (f"DEM-{DEM_CHECK} w-crossing", (xyuv, tris, heights, *wcross)),
+             ("soup 50K", soup_frame(dev)),
+             (f"DEM-{DEM_MAIN} default camera",
+              renderer_frame(make_renderer(DEM_MAIN, dev, seed=3)))]
+    errs, listed, bit_equal = {}, {}, {}
+    for label, (xyuv, tris, heights, views, projs) in cases:
+        fields = frame_fields(xyuv, heights, views, projs)
+        if "w-crossing" in label and w_crossing_valid_indexed(fields, tris) == 0:
+            raise AssertionError(f"{label}: no valid triangle crosses w = 0")
+        err, listed[label], bit_equal[label] = check_packed_passes(fields, tris,
+                                                                   f"{label} {W}x{H}")
+        for name, e in err.items():
+            errs[name] = max(errs.get(name, 0.0), float(e))
+        del fields
+    for label in (f"DEM-{DEM_CHECK} close-in", f"DEM-{DEM_CHECK} w-crossing"):
+        if listed[label] == 0:
+            raise AssertionError(f"{label}: the big-triangle pass got no triangle")
+    torch.cuda.empty_cache()
+    say("packed_kernel_vs_plain", tolerance=f"winners and lists exact; masks exact; varyings "
+        f"<= {VARYING_RTOL}*max(1,|x|)", cases=[c[0] for c in cases], max_err=errs,
+        big_listed=listed, gbuffer_bit_equal=bit_equal)
+    return errs
+
+
+def phase3c_renderer_main_path(dev):
+    """Slice 3's main path: the Renderer on the card at DEM-2048 and at the
+    3601^2 SRTM tile; returns the launch counts."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    png = os.path.join(OUT_DIR, f"renderer_dem{DEM_MAIN}_{W}x{H}.png")
+    main = make_renderer(DEM_MAIN, dev)
+    srtm = make_renderer(SRTM, dev, seed=1)
+    every = PACKED_KERNELS + VTX_KERNELS + RECORD_KERNELS
+    for _, fn in every:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    frame = main.render_rgba()
+    main.render_png(png)
+    metrics = main.render_metrics()
+    sync()
+    peak_main = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    frame_srtm = srtm.render_rgba()
+    sync()
+    peak_srtm = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in every}
+    for name, _ in PACKED_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"slice 3's main path never launched {name}")
+    for name, _ in VTX_KERNELS + RECORD_KERNELS:
+        if launches[name] != 0:
+            raise AssertionError(f"slice 3's main path launched {name}")
+
+    if set(metrics) != {"render_ms", "readback_ms", "total_ms", "bytes", "width", "height"} \
+            or not metrics["render_ms"] > 0 or metrics["bytes"] != W * H * 4:
+        raise AssertionError(f"render_metrics not filled in: {metrics}")
+    if not np.array_equal(png_pixels(png), frame):
+        raise AssertionError("PNG does not round-trip the Renderer's pixels")
+    clear = np.array([39, 39, 48], np.uint8)    # the clear colour in sRGB u8
+    covered = {}
+    for label, img in ((f"DEM-{DEM_MAIN}", frame), (f"DEM-{SRTM}", frame_srtm)):
+        if img.dtype != np.uint8 or img.shape != (H, W, 4):
+            raise AssertionError(f"{label}: bad image {img.dtype} {img.shape}")
+        covered[label] = float((img[..., :3] != clear).any(-1).mean())
+        if covered[label] < 0.2:
+            raise AssertionError(f"{label}: the terrain covers {covered[label]:.3f} of the frame")
+
+    # Two independent kernels on each frame: the indexed route's g-buffer
+    # against the record route's, on the card.
+    vs_record = {}
+    for label, r in ((f"DEM-{DEM_MAIN}", main), (f"DEM-{SRTM}", srtm)):
+        xyuv, tris, heights, views, projs = renderer_frame(r)
+        got = packed.render_gbuffer_packed_batch(frame_fields(xyuv, heights, views, projs),
+                                                 tris, W, H)
+        n_tris = tris.shape[0]
+        need = 492 * n_tris          # record-route bytes per triangle at peak (H100, g1024 x4)
+        free = torch.cuda.mem_get_info()[0]
+        if need > 0.8 * free:
+            vs_record[label] = {"skipped": f"needs ~{need} B, {free} B free"}
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        want = record_gbuffer(xyuv, tris.long(), heights, views, projs)
+        sync()
+        vs_record[label] = {
+            "triangles": n_tris,
+            "gbuffer_bit_equal": all(torch.equal(a, b) for a, b in zip(got, want)),
+            "gbuffer_max_abs_err": assert_gbuffer_close(got, want, f"{label}: indexed vs record"),
+            "record_route_peak_bytes": int(torch.cuda.max_memory_allocated())}
+        if not vs_record[label]["gbuffer_bit_equal"]:
+            raise AssertionError(f"{label}: the indexed g-buffer is not the record route's")
+        del got, want, xyuv, tris
+        torch.cuda.empty_cache()
+
+    small = {d: make_renderer(DEM_CHECK, d, seed=4).render_rgba() for d in (dev, "cpu")}
+    parity = assert_fs_policy(small[dev], small["cpu"], f"DEM-{DEM_CHECK} cuda vs cpu")
+    say("renderer_main_path", config=f"Renderer({W},{H}); add_terrain(DEM n x n, {DEM_SPACING}, "
+        f"{DEM_EXAG}, 'terrain'); upload_height_r32f; set_sun(35,120); set_exposure(1.1); "
+        f"render_rgba + render_png at n={DEM_MAIN}, render_rgba at n={SRTM}",
+        launches=launches, render_metrics=metrics, covered_share=covered,
+        peak_bytes={f"DEM-{DEM_MAIN}": int(peak_main), f"DEM-{SRTM}": int(peak_srtm)},
+        vs_record_route=vs_record,
+        small_cuda_vs_cpu={"dem": DEM_CHECK, "max_byte_delta": parity[0],
+                           "frac_bytes_differ": parity[1]},
+        sha256={f"DEM-{DEM_MAIN}": hashlib.sha256(frame.tobytes()).hexdigest(),
+                f"DEM-{SRTM}": hashlib.sha256(frame_srtm.tobytes()).hexdigest()})
+    return launches
+
+
+def packed_bounds(fields, tris, winner, big, count):
+    """bound_ms of each indexed kernel on these inputs, counted from this
+    run's data: the fields and indices read once, the winner plane written
+    once (cover); the listed triangles' indices and distinct vertices and
+    their covered pixels (cover_big); the winner plane, the winners'
+    indices and distinct vertices, the g-buffer written (resolve)."""
+    B, T = fields.shape[0], tris.shape[0]
+    corners = setup.indexed_corners([fields[:, f] for f in range(vtx.FIELDS)], tris)
+    _, px0, px1, py0, py1, valid = setup.setup_fields_core(*corners, W, H)
+    del corners
+    area = (px1 - px0 + 1).to(torch.long) * (py1 - py0 + 1).to(torch.long)
+    small = valid & (area <= vtx.BIG_PIXELS)
+    pairs_small = int(area[small].sum())
+    pairs_big = int(area[valid & ~small].sum())
+    listed = int(count[0])
+    pixels = B * H * W
+    covered = int((winner > 0).sum())
+    frame = torch.arange(B, device=winner.device)[:, None, None]
+    won = torch.unique((frame * T + winner - 1)[winner > 0])
+    nv = fields.shape[2]
+
+    def distinct_vertices(entries):
+        f, tri = torch.div(entries, T, rounding_mode="floor"), entries % T
+        return int(torch.unique(f[:, None] * nv + tris[tri].long()).numel())
+    vertex_bytes = vtx.FIELDS * 4
+    listed_e = big[:listed].to(torch.long)
+    work = {
+        "vf_packed_cover": (fields.numel() * 4 + tris.numel() * 4 + pixels * 4 + listed * 4 + 4,
+                            B * T * SETUP_OPS + pairs_small * COVER_OPS),
+        "vf_packed_cover_big": (listed * 16 + 4 + distinct_vertices(listed_e) * vertex_bytes
+                                + min(pairs_big, pixels) * 8,
+                                listed * SETUP_OPS + pairs_big * COVER_OPS),
+        "vf_packed_resolve_gbuffer": (pixels * 4 + won.numel() * 12
+                                      + distinct_vertices(won) * vertex_bytes + pixels * 13,
+                                      covered * (SETUP_OPS + EVAL_OPS) + pixels * RESOLVE_OPS),
+    }
+    data = {"triangles": B * T, "valid": int(valid.sum()), "pairs_small": pairs_small,
+            "listed": listed, "pairs_big": pairs_big, "covered_pixels": covered,
+            "distinct_winners": int(won.numel())}
+    return {name: bound_of(*w) for name, w in work.items()}, data
+
+
+def packed_route_fns(r, dev):
+    """Both routes over a Renderer's default frame, mesh and texture on the
+    card (as the Renderer keeps them), each returning the (1, H, W) u32
+    image: the indexed route (the pipeline) and the record route (its
+    stages composed with the same extended shader)."""
+    xyuv, tris, heights, views, projs = renderer_frame(r)
+    tris64 = tris.long()
+    g, meta = r._globals, r._terrain_meta
+    lut, _ = _colormap.build_lut(r._terrain.colormap)
+    shade = dict(lut=lut, h_min=meta.h_min, h_max=meta.h_max, exposure=g.exposure,
+                 sun_dir=g.sun_dir)
+    t = {k: tensor(v, dev) for k, v in shade.items()}
+    nsp = tensor(DEM_SPACING[0], dev)
+
+    def indexed():
+        return pipeline.render_terrain_batch_u32(
+            xyuv, tris, heights, views, projs, spacing=1.0, exaggeration=1.0,
+            normal_spacing=DEM_SPACING[0], width=W, height=H, fs_mode="extended",
+            device=dev, **shade)
+
+    def record():
+        gbuf = record_gbuffer(xyuv, tris64, heights, views, projs)
+        return fragment.terrain_fs_extended(*gbuf, t["lut"], heights, t["h_min"], t["h_max"],
+                                            t["exposure"], t["sun_dir"], nsp, tensor(1.0, dev))
+    return {"record": record, "indexed": indexed}
+
+
+def compare_dem_routes(r, dev, reps=REPS):
+    """Host ms per frame of each route (record, indexed, indexed, record;
+    ``reps`` timed calls each after a warm-up), and their images."""
+    fns = packed_route_fns(r, dev)
+    times = {"record": [], "indexed": []}
+    for name in ("record", "indexed", "indexed", "record"):
+        fns[name]()
+        sync()
+        times[name] += host_ms(fns[name], [()] * reps)
+    return {k: statistics.median(v) for k, v in times.items()}, times, fns
+
+
+def phase4c_packed_timing(smi, dev):
+    """Slice 3's times; returns the per-kernel record (ms, plain_ms, bound)."""
+    # Single-frame latency of render_rgba() (readback included), 20 calls
+    # after a warm-up call that builds the mesh; render_metrics beside it.
+    latency = {}
+    for n in LATENCY_DEMS:
+        r = make_renderer(n, dev)
+        r.render_rgba()
+        times, render, readback = [], [], []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            r.render_rgba()
+            times.append((time.perf_counter() - t0) * 1e3)
+            m = r.render_metrics()
+            render.append(m["render_ms"])
+            readback.append(m["readback_ms"])
+        q = np.percentile(times, [50, 80])
+        latency[f"DEM-{n}"] = {"median_ms": float(q[0]), "p80_ms": float(q[1]), "n": len(times),
+                               "render_ms_median": statistics.median(render),
+                               "readback_ms_median": statistics.median(readback),
+                               "triangles": 2 * (n - 1) ** 2}
+        del r
+    torch.cuda.empty_cache()
+
+    # Stages of one DEM-2048 frame (CUDA events), 5 frames after a warm-up.
+    r = make_renderer(DEM_MAIN, dev)
+    terr, meta, g = r._terrain, r._terrain_meta, r._globals
+    lut = tensor(_colormap.build_lut(terr.colormap)[0], dev)
+    names = ("mesh_build_upload", "vertex_stage", "vf_packed_cover", "vf_packed_cover_big",
+             "vf_packed_resolve_gbuffer", "extended_shader", "readback")
+    rows = []
+    for _ in range(REPS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        xyuv, tris = _renderer.grid_mesh(terr.width, terr.height, *terr.spacing, dev)
+        ev[1].record()
+        _, _, heights, views, projs = renderer_frame(r)
+        fields = frame_fields(xyuv, heights, views, projs)
+        ev[2].record()
+        w_, b_, c_ = kernels.packed_cover(fields, tris, W, H)
+        ev[3].record()
+        kernels.packed_cover_big(fields, tris, w_, b_, c_)
+        ev[4].record()
+        gbuf = kernels.packed_resolve_gbuffer(fields, tris, w_)
+        ev[5].record()
+        img = fragment.terrain_fs_extended(
+            *gbuf, lut, heights, tensor(meta.h_min, dev), tensor(meta.h_max, dev),
+            tensor(g.exposure, dev), tensor(g.sun_dir, dev), tensor(DEM_SPACING[0], dev),
+            tensor(1.0, dev))
+        ev[6].record()
+        _formats.u32_image_to_rgba_u8(img[0]).cpu().numpy()
+        ev[7].record()
+        sync()
+        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))])
+    split = {n: statistics.median(row[i] for row in rows[1:]) for i, n in enumerate(names)}
+    del fields, w_, b_, gbuf, img
+
+    # Each indexed kernel and its plain version at the main path's shape
+    # (DEM-2048, 800x600, one frame), 5 cameras turned about the DEM's
+    # axis (20 back-to-back launches each); medians.
+    runs = {name: {"ms": [], "plain_ms": [], "bound_ms": []} for name, _ in PACKED_KERNELS}
+    for k in range(REPS):
+        xyuv, tris, heights, views, projs = renderer_frame(r, *turned_cameras(r, k))
+        fields = frame_fields(xyuv, heights, views, projs)
+        winner, big, count = kernels.packed_cover(fields, tris, W, H)
+        kernels.packed_cover_big(fields, tris, winner, big, count)
+        per = {
+            "vf_packed_cover": (lambda: kernels.packed_cover(fields, tris, W, H),
+                                lambda: packed.cover_plain(fields, tris, W, H)),
+            "vf_packed_cover_big": (
+                lambda: kernels.packed_cover_big(fields, tris, winner, big, count),
+                lambda: packed.cover_big_plain(fields, tris, winner.clone(), big, count)),
+            "vf_packed_resolve_gbuffer": (
+                lambda: kernels.packed_resolve_gbuffer(fields, tris, winner),
+                lambda: packed.resolve_gbuffer_plain(fields, tris, winner)),
+        }
+        bounds, default_work = packed_bounds(fields, tris, winner, big, count)
+        for name, (kern, plain) in per.items():
+            runs[name]["ms"].append(cuda_ms(kern, reps=1, inner=KERNEL_INNER))
+            runs[name]["plain_ms"].append(cuda_ms(plain, reps=1, warmup=1))
+            runs[name]["bound_ms"].append(bounds[name]["bound_ms"])
+        del fields, winner, big
+    rec = {}
+    for name, run in runs.items():
+        rec[name] = {k: statistics.median(v) for k, v in run.items()}
+        rec[name]["bound_by"] = bounds[name]["bound_by"]
+        rec[name]["all"] = run
+
+    # The big-triangle pass under load: a close-in + w-crossing pair at
+    # DEM-2048, 5 turned sets. The kernels line reports vf_packed_cover_big
+    # here (at the default camera its list is near empty).
+    rec["vf_packed_cover_big_default"] = rec["vf_packed_cover_big"]
+    loaded = {"ms": [], "plain_ms": [], "bound_ms": []}
+    loaded_work = []
+    for k in range(REPS):
+        xyuv, tris, heights, views, projs = renderer_frame(
+            r, *special_dem_cameras(r, turn=0.1 * k))
+        fields = frame_fields(xyuv, heights, views, projs)
+        if w_crossing_valid_indexed(fields, tris) == 0:
+            raise AssertionError("loaded case: no valid triangle crosses w = 0")
+        winner, big, count = kernels.packed_cover(fields, tris, W, H)
+        kernels.packed_cover_big(fields, tris, winner, big, count)
+        bounds, data = packed_bounds(fields, tris, winner, big, count)
+        if data["listed"] == 0:
+            raise AssertionError("loaded case: the big-triangle list is empty")
+        loaded["ms"].append(cuda_ms(
+            lambda: kernels.packed_cover_big(fields, tris, winner, big, count),
+            reps=1, inner=KERNEL_INNER))
+        # ~8 s per call on an H100: its first call, timed alone, is the measurement.
+        loaded["plain_ms"].append(cuda_ms(
+            lambda: packed.cover_big_plain(fields, tris, winner.clone(), big, count),
+            reps=1, warmup=0))
+        loaded["bound_ms"].append(bounds["vf_packed_cover_big"]["bound_ms"])
+        loaded_work.append({**data, **{k: bounds["vf_packed_cover_big"][k]
+                                       for k in ("bytes", "ops", "bound_by")}})
+        del fields, winner, big
+    rec["vf_packed_cover_big"] = {k: statistics.median(v) for k, v in loaded.items()}
+    rec["vf_packed_cover_big"].update(bound_by=bounds["vf_packed_cover_big"]["bound_by"],
+                                      all=loaded)
+    torch.cuda.empty_cache()
+
+    # Both routes on the DEM-2048 frame: time and peak device memory.
+    routes, routes_all, fns = compare_dem_routes(r, dev)
+    peaks = {}
+    for name, fn in fns.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        img = fn()
+        sync()
+        peaks[name] = {"peak_bytes": int(torch.cuda.max_memory_allocated()),
+                       "above_resident_bytes": int(torch.cuda.max_memory_allocated() - base)}
+        peaks[name]["image"] = img
+    same = torch.equal(peaks["record"].pop("image"), peaks["indexed"].pop("image"))
+    if not same:
+        raise AssertionError("DEM-2048: the two routes' images differ")
+    del r, fns
+    torch.cuda.empty_cache()
+
+    # Route sweep: one Renderer frame per DEM size on both routes.
+    sweep = {}
+    for n in SWEEP_DEMS:
+        med, _, _ = compare_dem_routes(make_renderer(n, dev, seed=5), dev, reps=3)
+        sweep[f"DEM-{n}"] = {"triangles": 2 * (n - 1) ** 2, **med}
+    torch.cuda.empty_cache()
+    say("packed_timing", card=smi, config=f"Renderer({W},{H}), DEM n x n, 30 m, x1.5",
+        single_frame=latency, budget_ms={"render": 50.0, "readback": 30.0,
+                                         "source": "BASELINE.md:9-10, DEM-1024"},
+        dem2048_stage_ms=split, kernel_ms=rec, work=default_work,
+        loaded_config=f"DEM-2048, {W}x{H}, close-in + w-crossing pair, 5 turned sets",
+        loaded_work=loaded_work, dem2048_route_ms_median=routes, dem2048_route_ms_all=routes_all,
+        dem2048_route_peak=peaks, routes_images_equal=same, route_sweep_ms=sweep,
+        indexed_faster_at_every_sweep_point=all(v["indexed"] < v["record"]
+                                                for v in sweep.values()))
+    return rec
+
+
 def profile_window(render, cams, label, top=12):
     """torch.profiler over render(*c) for each camera set: the device's busy
     share (union of device-event intervals over the span from the first to
@@ -956,14 +1465,21 @@ def main() -> int:
     sync()
     vtx_err = phase2b_vtx_kernels(dev)
     sync()
+    packed_err = phase2c_packed_kernels(dev)
+    sync()
     launches = phase3_main_path()
     sync()
     vtx_launches = phase3b_vtx_main_path(dev)
     launches.update({name: vtx_launches[name] for name, _ in VTX_KERNELS})
     sync()
+    packed_launches = phase3c_renderer_main_path(dev)
+    launches.update({name: packed_launches[name] for name, _ in PACKED_KERNELS})
+    sync()
     phase4_batch(smi, dev)
     sync()
     vtx_rec = phase4b_vtx_timing(smi, dev)
+    sync()
+    packed_rec = phase4c_packed_timing(smi, dev)
     sync()
     if opts.profile:
         phase5_profile(dev)
@@ -989,6 +1505,16 @@ def main() -> int:
         line.append({"name": name, "route": "cuda", "source": vsrc, "replaces": replaces[name],
                      "launches": launches[name], "max_abs_err": vtx_err[name],
                      **{k: vtx_rec[name][k] for k in keys}, "library_ms": None})
+    # K6 (packed.py:580) computes the winner id, K5 (packed.py:222) the
+    # g-buffer; the cover passes and the resolve split that function so.
+    replaces = {"vf_packed_cover": "vulkan_forge/_raster/packed.py:580",
+                "vf_packed_cover_big": "vulkan_forge/_raster/packed.py:580",
+                "vf_packed_resolve_gbuffer": "vulkan_forge/_raster/packed.py:222"}
+    for name, _ in PACKED_KERNELS:
+        line.append({"name": name, "route": "cuda",
+                     "source": "vulkan_forge_torch/csrc/packed.cu", "replaces": replaces[name],
+                     "launches": launches[name], "max_abs_err": packed_err[name],
+                     **{k: packed_rec[name][k] for k in keys}, "library_ms": None})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

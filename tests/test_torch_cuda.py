@@ -5,9 +5,9 @@ This file imports no jax, so it runs on the card machine, which has none:
 ``python3 -m pytest -m gpu tests/test_torch_cuda.py``. Each kernel is held
 to its plain PyTorch version on the same CUDA tensors -- bit-equal, since
 the kernels are built with -fmad=false and use the plain version's op
-order -- the vertex-stream g-buffer to the record kernel's, and the public
-API on ``device="cuda"`` to the same call on ``device="cpu"``, byte for
-byte.
+order -- the vertex-stream and indexed-mesh g-buffers to the record
+kernel's, and the public API on ``device="cuda"`` to the same call on
+``device="cpu"``, byte for byte or under the FS policy.
 """
 import math
 
@@ -16,9 +16,9 @@ import pytest
 import torch
 
 import vulkan_forge_torch as vt
-from vulkan_forge_torch import _camera, _colormap, _mesh
+from vulkan_forge_torch import _camera, _colormap, _mesh, _renderer as trend
 from vulkan_forge_torch._parity import assert_fs_policy
-from vulkan_forge_torch._raster import fragment, kernels, pipeline, setup, tiles, vtx
+from vulkan_forge_torch._raster import fragment, kernels, packed, pipeline, setup, tiles, vtx
 
 
 @pytest.fixture
@@ -238,3 +238,142 @@ def test_vtx_public_api_cuda_equals_cpu(cuda, fs_mode):
     want = pipeline.render_terrain_u8(s._xyuv, s._indices, heights, s._view, s._proj,
                                       device="cpu", **args)
     assert_fs_policy(got, want, f"vtx route, {fs_mode}, cuda vs cpu")
+
+
+# ---------------- indexed-mesh route (csrc/packed.cu) ----------------
+
+def _dem(rows, cols, seed):
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:rows, 0:cols] / np.float32(max(rows, cols))
+    h = sum(rng.uniform(5, 30) * np.sin(2 * math.pi * (rng.uniform(1, 3) * x
+                                                       + rng.uniform(1, 3) * y + rng.uniform()))
+            for _ in range(5))
+    return h.astype(np.float32)
+
+
+def _indexed_inputs(case, dev):
+    """(fields (B, 7, N), int32 indices, W, H) of a Renderer DEM frame at
+    its default camera, close in, with w-crossing triangles, or a random
+    triangle soup."""
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+    if case == "soup":
+        rng = np.random.default_rng(5)
+        n, tris = 3000, 20000
+        xyuv = np.concatenate([rng.uniform(-60, 60, (n, 2)), rng.uniform(0, 1, (n, 2))], 1)
+        idx = torch.as_tensor(rng.integers(0, n, (tris, 3)), dtype=torch.int32, device=dev)
+        heights = rng.uniform(-20, 20, (9, 11))
+        W, H = 200, 150
+        view = _camera.look_at_rh((-150, 110, 40), (0, 0, 0), (0, 1, 0))
+        proj = _camera.perspective_wgpu(np.float32(math.radians(45)), np.float32(W / H),
+                                        np.float32(0.5), np.float32(1e4))
+        views, projs = view[None], proj[None]
+    else:
+        rows, cols, W, H = {"renderer": (64, 80, 160, 120), "close": (48, 48, 160, 120),
+                            "w_cross": (96, 96, 200, 150), "batch": (128, 128, 320, 240)}[case]
+        r = vt.Renderer(W, H, device="cpu")
+        r.add_terrain(_dem(rows, cols, rows), (10.0, 12.0), 1.5, "terrain")
+        xyuv, idx = trend.grid_mesh(cols, rows, 10.0, 12.0, "cpu")
+        idx = idx.to(dev)
+        heights = r._terrain.heights
+        view, proj = r._default_terrain_camera(r._terrain)
+        views, projs = view[None], proj[None]
+        if case in ("close", "w_cross"):
+            near = 0.1 if case == "close" else 0.001
+            eye, target = (((40, 60, 30), (-60, 0, -40)) if case == "close"
+                           else ((0, 15, 0), (100, -5, 90)))
+            views = _camera.look_at_rh(eye, target, (0, 1, 0))[None]
+            projs = _camera.perspective_wgpu(np.float32(math.radians(60)), np.float32(W / H),
+                                             np.float32(near), np.float32(1e4))[None]
+        if case == "batch":
+            views = np.stack([view, _camera.look_at_rh((300, 500, 200), (0, 0, 0), (0, 1, 0))])
+            projs = np.stack([proj, proj])
+    fields = vtx.vs_fields(t(xyuv), t(heights), t(views), t(projs), t(1.0), t(1.0), W, H,
+                           "extended")
+    return fields, idx, W, H
+
+
+PACKED_CASES = ["renderer", "close", "w_cross", "soup", "batch"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_kernels_match_plain(cuda, case):
+    fields, idx, W, H = _indexed_inputs(case, cuda)
+    wrappers = (kernels.packed_cover, kernels.packed_cover_big, kernels.packed_resolve_gbuffer)
+    n = [f.launches for f in wrappers]
+    winner, big, count = kernels.packed_cover(fields, idx, W, H)
+    p_winner, p_big, p_count = packed.cover_plain(fields, idx, W, H)
+    assert torch.equal(winner, p_winner) and torch.equal(count, p_count)
+    k = int(count[0])
+    if case in ("close", "w_cross"):
+        assert k > 0, "the camera must exercise the big-triangle pass"
+    assert torch.equal(torch.sort(big[:k]).values, p_big[:k])
+    kernels.packed_cover_big(fields, idx, winner, big, count)
+    packed.cover_big_plain(fields, idx, p_winner, p_big, p_count)
+    assert torch.equal(winner, p_winner)
+    got = kernels.packed_resolve_gbuffer(fields, idx, winner)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [m + 1 for m in n]
+    for a, b in zip(got, packed.resolve_gbuffer_plain(fields, idx, winner)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["renderer", "w_cross", "soup"])
+def test_packed_route_matches_record_route_on_card(cuda, case):
+    """Two independent kernels on one frame: the indexed g-buffer equals
+    the record kernel's bit for bit."""
+    fields, idx, W, H = _indexed_inputs(case, cuda)
+    records, bbox = setup.triangle_setup(
+        fields[:, 0], fields[:, 1], fields[:, 6], fields[:, 2], fields[:, 3:6].transpose(1, 2),
+        idx.long(), W, H)
+    want = kernels.raster_gbuffer(records.reshape(-1, setup.REC_WIDTH),
+                                  setup.bin_tiles(bbox, W, H), fields.shape[0], W, H)
+    for a, b in zip(packed.render_gbuffer_packed_batch(fields, idx, W, H), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_packed_kernels_reject_bad_inputs(cuda):
+    fields, idx, W, H = _indexed_inputs("renderer", cuda)
+    with pytest.raises(ValueError, match="indices is on"):
+        kernels.packed_cover(fields, idx.cpu(), W, H)
+    with pytest.raises(ValueError, match="indices"):
+        kernels.packed_cover(fields, idx.long(), W, H)
+    winner, big, count = kernels.packed_cover(fields, idx, W, H)
+    with pytest.raises(ValueError, match="winner is on"):
+        kernels.packed_resolve_gbuffer(fields, idx, winner.cpu())
+
+
+@pytest.mark.gpu
+def test_renderer_cuda_equals_cpu(cuda):
+    """Renderer(device=None) renders on the card through the indexed route
+    (no record kernel), and its frame is held to device="cpu" under the FS
+    policy; the height texture lives on the card."""
+    def make(device):
+        r = vt.Renderer(320, 240, device=device)
+        r.add_terrain(_dem(200, 256, 7), (30.0, 30.0), 1.5, "terrain")
+        r.upload_height_r32f()
+        r.set_sun(35.0, 120.0)
+        r.set_exposure(1.2)
+        return r
+    gpu = make(None)
+    assert gpu.device.type == "cuda" and gpu._height_tex.device.type == "cuda"
+    counts = lambda: (kernels.packed_cover.launches, kernels.packed_resolve_gbuffer.launches,
+                      kernels.raster_gbuffer.launches, kernels.raster_shade_shipped.launches)
+    before = counts()
+    got = gpu.render_rgba()
+    after = counts()
+    assert after[:2] == (before[0] + 1, before[1] + 1) and after[2:] == before[2:]
+    assert gpu.render_metrics()["render_ms"] > 0.0
+    np.testing.assert_array_equal(gpu.debug_read_height_patch(3, 4, 5, 6),
+                                  make("cpu").debug_read_height_patch(3, 4, 5, 6))
+    assert_fs_policy(got, make("cpu").render_rgba(), "Renderer cuda vs cpu")
+
+
+def test_renderer_device_none_raises_without_card(monkeypatch):
+    """device=None means "cuda": without a card the Renderer raises, and
+    nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        vt.Renderer(64, 48)

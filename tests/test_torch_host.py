@@ -14,11 +14,11 @@ import torch
 
 import vulkan_forge as vf
 from vulkan_forge import _camera as jcam, _colormap as jcmap, _mesh as jmesh
-from vulkan_forge import _uniforms as juni, _validate as jval
+from vulkan_forge import _dem as jdem, _uniforms as juni, _validate as jval
 
 import vulkan_forge_torch as vt
 from vulkan_forge_torch import _camera as tcam, _colormap as tcmap, _mesh as tmesh
-from vulkan_forge_torch import _device as tdev, _io as tio
+from vulkan_forge_torch import _dem as tdem, _device as tdev, _io as tio
 from vulkan_forge_torch import _uniforms as tuni, _validate as tval
 
 # The plain raster is a loop of small eager ops: one intra-op thread is the
@@ -88,6 +88,50 @@ def test_uniforms_byte_equal():
     for a, b in zip(tuni.default_view_proj(800, 600), juni.default_view_proj(800, 600)):
         _same(a, b)
     _same(tuni.sun_dir_spherical(35.0, 120.0), juni.sun_dir_spherical(35.0, 120.0))
+
+
+def test_dem_module_is_the_reference_copy():
+    """The numpy copy of _dem gives the reference's values bit for bit:
+    the percentile range with and without stride sampling, the f32 stats,
+    both normalizations and the stored height range."""
+    data = np.random.default_rng(4).normal(size=200_000).astype(np.float32)
+    for clamp in (True, False):
+        assert tdem.min_max(data, clamp) == jdem.min_max(data, clamp)
+    small = data[:1000]
+    assert tdem.min_max(small, True) == jdem.min_max(small, True)
+    assert tdem.dem_stats_from_slice(data) == jdem.dem_stats_from_slice(data)
+    stats = jdem.dem_stats_from_slice(data)
+    for mode in ("minmax", "zscore"):
+        a = tdem.normalize_in_place(data, mode, 1e-8, (0.0, 2.0), stats)
+        b = jdem.normalize_in_place(data, mode, 1e-8, (0.0, 2.0), stats)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    ta, ja = tdem.TerrainMeta(), jdem.TerrainMeta()
+    for m in (ta, ja):
+        m.compute_and_store_h_range(data)
+    assert (ta.h_min, ta.h_max) == (ja.h_min, ja.h_max)
+
+
+def test_package_data_ships_every_csrc_include():
+    """Every source in csrc/ and every file it includes with #include "..."
+    is matched by pyproject.toml's package-data globs, so an installed
+    vulkan_forge_torch can build its kernels."""
+    import fnmatch
+    import re
+    import tomllib
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["vulkan_forge_torch"]
+    pkg = os.path.join(REPO, "vulkan_forge_torch")
+    csrc = os.path.join(pkg, "csrc")
+    needed = set()
+    for name in os.listdir(csrc):
+        if name.endswith((".cu", ".cuh")):
+            needed.add(f"csrc/{name}")
+            with open(os.path.join(csrc, name)) as f:
+                needed.update(f"csrc/{inc}" for inc in re.findall(r'#include "([^"]+)"', f.read()))
+    assert {"csrc/raster_common.cuh", "csrc/packed.cu"} <= needed
+    for rel in sorted(needed):
+        assert os.path.exists(os.path.join(pkg, rel)), rel
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), f"{rel} is not in package-data"
 
 
 def _error_of(fn, *args):

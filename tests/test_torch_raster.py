@@ -7,14 +7,16 @@ The JAX side runs the jnp oracles that ``backend_name()`` picks on the CPU
 (``packed.render_gbuffer_packed_ref`` + ``fragment.terrain_fs``), fed the
 SAME records the port rasterizes. Tolerances:
 - coverage masks: identical;
-- varyings: |d| <= 1e-5 * max(1, |x|) -- XLA:CPU contracts the edge
-  function ``a*(p-b) - c*(q-d)`` into an FMA. With that contraction off
-  (``XLA_FLAGS=--xla_cpu_max_isa=AVX``, a subprocess) the oracle and the
-  port agree bit for bit, which ``test_plain_gbuffer_bit_equal_without_fma``
-  shows;
+- varyings: |d| <= 1e-5 * max(1, |x|). XLA:CPU contracts the edge
+  functions and the three-term sums into FMAs, and the port rounds them
+  as it does (``tiles.mad``), so on this machine the two agree bit for
+  bit; with that contraction off (``XLA_FLAGS=--xla_cpu_max_isa=AVX``, a
+  subprocess) they differ within the tolerance, which
+  ``test_plain_gbuffer_bit_equal_without_fma`` shows;
 - images: the FS policy (every differing byte off by 1, <= 1e-4 of bytes).
 """
 import functools
+from fractions import Fraction
 import math
 import os
 import subprocess
@@ -121,9 +123,9 @@ np.savez(sys.argv[2], *[np.asarray(a) for a in out])
 
 @pytest.mark.parametrize("case", ["w_cross_g12_160x120"])
 def test_plain_gbuffer_bit_equal_without_fma(case, tmp_path):
-    """With XLA's FMA contraction off, the JAX oracle's g-buffer and the
-    port's plain raster are bit-equal: the f32 differences above are the
-    contraction alone."""
+    """The port's plain raster rounds its multiply-adds as XLA:CPU's
+    contraction does: bit-equal to the JAX oracle as it runs here, and
+    within the varying tolerance of the oracle with the contraction off."""
     recs, bbox, W, H = _jax_records(case)
     np.savez(tmp_path / "in.npz", recs=recs, bbox=bbox, W=W, H=H)
     env = dict(os.environ, XLA_FLAGS="--xla_cpu_max_isa=AVX", JAX_PLATFORMS="cpu",
@@ -136,8 +138,42 @@ def test_plain_gbuffer_bit_equal_without_fma(case, tmp_path):
         want = [d[f"arr_{k}"] for k in range(4)]
     records, binning = _port_inputs(recs, bbox, W, H)
     got = [a[0].numpy() for a in ttiles.render_gbuffer(records, binning, 1, W, H)]
-    for g, w in zip(got, want):
+    for g, w in zip(got, _jax_gbuffer(recs, bbox, W, H)):
         np.testing.assert_array_equal(g, w)
+    assert_gbuffer_close(got, want, f"{case}: port vs the oracle without FMA")
+
+
+def _fma_exact(a, b, c):
+    """fma(a, b, c) rounded once to f32 (ties to even), from exact rationals."""
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    near = np.float32(float(x))
+    cands = [near, np.nextafter(near, np.float32(-np.inf)), np.nextafter(near, np.float32(np.inf))]
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                     int(np.array(v).view(np.uint32)) & 1))
+
+
+@pytest.mark.parametrize("case", ["ties", "random"])
+def test_mad_rounds_once(case):
+    """tiles.mad is a single-rounding fused multiply-add (what XLA:CPU
+    contracts the raster's a*b + c into, and __fmaf_rn on the card), also
+    where an f64 sum lands on an f32 tie and rounding it again would
+    differ."""
+    if case == "ties":
+        e = 2.0 ** -23
+        a = np.float32([1 - e, -(1 - e), 1 - e, 1 + e])
+        b = np.float32([(1 + e) * 2.0 ** -24] * 4)
+        c = np.float32([1 + e, -(1 + e), 1.0, 1 + e])
+    else:
+        rng = np.random.default_rng(9)
+        a, b = (np.float32(rng.standard_normal(3000) * 10.0 ** rng.integers(-3, 4, 3000))
+                for _ in range(2))
+        c = np.float32(-(a.astype(np.float64) * b) * (1 + rng.standard_normal(3000) * 1e-6))
+    got = ttiles.mad(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.float32([_fma_exact(*t) for t in zip(a, b, c)])
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if case == "ties":
+        twice = np.float32(a.astype(np.float64) * b + c)
+        assert (twice != want).sum() == 2, "two tie cases must defeat double rounding"
 
 
 @functools.partial(jax.jit, static_argnums=(4, 5))

@@ -27,15 +27,18 @@ from vulkan_forge_torch._raster import pipeline as tpipe
 # oversubscribing the cores.
 torch.set_num_threads(1)
 
-# The port's CPU SHA-256 of raw RGBA bytes. The first four are the scenes of
-# tests/test_goldens.py:53-64 and equal its "any"/"cpu" pins byte for byte;
-# test_torch_cuda.py holds the port's CUDA bytes to its CPU bytes.
+# The port's CPU SHA-256 of raw RGBA bytes. All but the spike are the scenes
+# of tests/test_goldens.py:53-70 and equal its "any"/"cpu" pins byte for
+# byte (the Renderer's frame since the port rounds the raster's
+# multiply-adds as XLA:CPU does); test_torch_cuda.py holds the port's CUDA
+# bytes to its CPU bytes.
 GOLDEN_CPU = {
     "triangle_64x64": "17b914e0b79230e3ae5af70e3531cf1cec7ca7b66039b5ca68cc7b6adb0e3b96",
     "triangle_97x61": "3c6acfe5a502df35a7b2a3485ef9a89302af7d8df9ef37db2c8c8553af827653",
     "scene_magma_160x120_g32": "d83c1fb300de7c421569932a0cb20dd61f38f04a4a6143a31165928aa6c354db",
     "spike_terrain_128x96_g16_cam": "fd0bab706d6f3e780385290a56006b9fe46d8fb35245b6852804ae541f01b333",
     "spike_default_800x600_g128": "b3597e370c985f81289f272eee2c5e89eac87e6ac0c1596e504129dbf9ef4f5f",
+    "renderer_extended_96x96": "e6be6cf78b5231cdaa7ce8d521e2468fae85cede2f386dd515e8e7bcac4394e7",
 }
 
 
@@ -57,6 +60,13 @@ def _render(mod, name, **dev):
         t = mod.TerrainSpike(128, 96, 16, "terrain", **dev)
         t.set_camera_look_at((2.0, 1.5, 2.5), (0, 0, 0), (0, 1, 0), 50.0, 0.1, 50.0)
         return t.render_rgba()
+    if name == "renderer_extended_96x96":
+        r = mod.Renderer(96, 96, **dev)
+        dem = (np.outer(np.linspace(0, 1, 32), np.linspace(0, 1, 48)) * 40).astype(np.float32)
+        r.add_terrain(dem, (10.0, 12.0), 1.5, "viridis")
+        r.set_sun(40.0, 135.0)
+        r.set_exposure(1.2)
+        return r.render_rgba()
     return mod.make_terrain(800, 600, 128, **dev).render_rgba()
 
 

@@ -238,15 +238,34 @@ def jax_extended_image():
                                    normal_spacing=0.7, **args)
 
 
-@pytest.mark.parametrize("route", ["record", "vtx"])
+@pytest.mark.parametrize("route", ["record", "vtx", "indexed"])
 def test_extended_shader_matches_jax(route, jax_extended_image, monkeypatch):
+    """The extended shader over each route's g-buffer. The pipeline sends a
+    grid mesh that names its grid to the vtx route and one that does not to
+    the indexed route; the record route's g-buffer is composed here from
+    its stages (``terrain_records`` + ``raster_gbuffer``)."""
     grid, xyuv, idx, heights, view, proj, args = _extended_scene()
-    used = _spy(monkeypatch, "vtx_resolve_gbuffer")
-    got = tpipe.render_terrain_u8(xyuv, idx, heights, view, proj,
-                                  grid_n=grid if route == "vtx" else None,
-                                  normal_spacing=0.7, device="cpu", **args)
-    assert used == ([1] if route == "vtx" else [])
-    assert got.dtype == np.uint8 and got.shape == (args["height"], args["width"], 4)
+    W, H = args["width"], args["height"]
+    if route == "record":
+        t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32))
+        records, binning = tpipe.terrain_records(
+            t(xyuv), torch.from_numpy(idx.astype(np.int64).reshape(-1, 3)), t(heights),
+            t(view)[None], t(proj)[None], t(args["spacing"]), t(args["exaggeration"]),
+            W, H, fs_mode="extended")
+        img = tfrag.terrain_fs_extended(
+            *kernels.raster_gbuffer(records, binning, 1, W, H), t(args["lut"]), t(heights),
+            t(args["h_min"]), t(args["h_max"]), t(args["exposure"]), t(args["sun_dir"]),
+            t(0.7), t(args["exaggeration"]))[0]
+        got = _formats.u32_image_to_rgba_u8(img).numpy()
+    else:
+        used = {name: _spy(monkeypatch, name)
+                for name in ("vtx_resolve_gbuffer", "packed_resolve_gbuffer")}
+        got = tpipe.render_terrain_u8(xyuv, idx, heights, view, proj,
+                                      grid_n=grid if route == "vtx" else None,
+                                      normal_spacing=0.7, device="cpu", **args)
+        assert used == {"vtx_resolve_gbuffer": [1] if route == "vtx" else [],
+                        "packed_resolve_gbuffer": [1] if route == "indexed" else []}
+    assert got.dtype == np.uint8 and got.shape == (H, W, 4)
     assert_fs_policy(got, jax_extended_image, f"extended, {route} route")
 
 

@@ -4,23 +4,26 @@ The same public API and error strings as ``vulkan_forge`` (the JAX/Pallas
 reference, ``vulkan_forge/__init__.py:120-129``) for the part ported so
 far, with an explicit ``device=`` argument ("cuda", "cpu", or None, which
 means "cuda" and raises without a card). On a CUDA device the raster stage
-runs the hand-written kernels in ``csrc/raster.cu`` (triangle records) and
-``csrc/vtx.cu`` (dense grid meshes); on the CPU it runs their plain PyTorch
-versions. This package imports torch and never jax.
+runs the hand-written kernels in ``csrc/raster.cu`` (triangle records),
+``csrc/vtx.cu`` (dense grid meshes) and ``csrc/packed.cu`` (indexed meshes:
+the Renderer's DEMs); on the CPU it runs their plain PyTorch versions. This
+package imports torch and never jax.
 
-Ported: TerrainSpike, Scene, make_terrain, render_triangle_rgba/png,
-camera_look_at/perspective/view_proj, colormap_supported,
-grid_generate/generate_grid, the extended fragment shader. Not yet:
-Renderer, dem_stats/dem_normalize, device_probe/enumerate_adapters,
+Ported: Renderer, TerrainSpike, Scene, make_terrain,
+render_triangle_rgba/png, camera_look_at/perspective/view_proj,
+colormap_supported, dem_stats/dem_normalize, grid_generate/generate_grid,
+the extended fragment shader. Not yet: device_probe/enumerate_adapters,
 render_spike_frames (ROADMAP queue 1).
 """
 from __future__ import annotations
 
 from ._validate import size_wh, png_path, grid as _grid
 
+from ._renderer import Renderer
 from ._scene import Scene, TerrainSpike
 from ._camera import camera_look_at, camera_perspective, camera_view_proj
 from ._colormap import colormap_supported
+from ._dem import dem_normalize, dem_stats
 from ._io import save_png_rgba as _save_png_rgba
 from ._mesh import grid_generate
 from ._raster import pipeline as _pipeline
@@ -51,9 +54,10 @@ def make_terrain(width: int, height: int, grid: int = 128, device=None):
 generate_grid = grid_generate
 
 __all__ = [
-    "render_triangle_rgba", "render_triangle_png", "make_terrain",
+    "Renderer", "render_triangle_rgba", "render_triangle_png", "make_terrain",
     "colormap_supported", "camera_look_at", "camera_perspective",
     "camera_view_proj", "__version__",
     "TerrainSpike", "Scene",
+    "dem_stats", "dem_normalize",
     "grid_generate", "generate_grid",
 ]

@@ -28,6 +28,24 @@ def make_grid(w: int, h: int, dx: float, dy: float):
 
     Parity: src/terrain/mesh.rs:35-90 (including the u16/u32 index switch).
     """
+    xs, ys, us, vs = grid_axes(w, h, dx, dy)
+    xy = np.empty((h, w, 2), dtype=np.float32)
+    xy[..., 0] = xs[None, :]
+    xy[..., 1] = ys[:, None]
+    uv = np.empty((h, w, 2), dtype=np.float32)
+    uv[..., 0] = us[None, :]
+    uv[..., 1] = vs[:, None]
+
+    n_verts = w * h
+    idx_dtype = np.uint16 if n_verts <= 0xFFFF else np.uint32
+    idx = grid_indices(w, h, idx_dtype)
+    return xy.reshape(n_verts, 2), uv.reshape(n_verts, 2), idx
+
+
+def grid_axes(w: int, h: int, dx: float, dy: float):
+    """The per-column and per-row coordinates of ``make_grid``'s vertices:
+    (xs (W,), ys (H,), us (W,), vs (H,)) f32; vertex (r, c) is
+    (xs[c], ys[r]) with uv (us[c], vs[r])."""
     if not (w >= 2 and h >= 2):
         raise AssertionError("grid must be at least 2x2")
     dx = np.float32(dx)
@@ -42,18 +60,7 @@ def make_grid(w: int, h: int, dx: float, dy: float):
     ys = np.arange(h, dtype=np.float32) * dy - cy          # (H,)
     us = np.arange(w, dtype=np.float32) / np.float32(w - 1)
     vs = np.arange(h, dtype=np.float32) / np.float32(h - 1)
-
-    xy = np.empty((h, w, 2), dtype=np.float32)
-    xy[..., 0] = xs[None, :]
-    xy[..., 1] = ys[:, None]
-    uv = np.empty((h, w, 2), dtype=np.float32)
-    uv[..., 0] = us[None, :]
-    uv[..., 1] = vs[:, None]
-
-    n_verts = w * h
-    idx_dtype = np.uint16 if n_verts <= 0xFFFF else np.uint32
-    idx = grid_indices(w, h, idx_dtype)
-    return xy.reshape(n_verts, 2), uv.reshape(n_verts, 2), idx
+    return xs, ys, us, vs
 
 
 def grid_indices(w: int, h: int, dtype=np.uint32) -> np.ndarray:

@@ -25,7 +25,19 @@ each, which together replace ``vtx._vtx_kernel`` (K3a, vtx.py:590) and
 ``vtx.render_gbuffer_vtx_batch`` and ``vtx.render_image_vtx_batch`` chain
 them.
 
-Both sources (and the header they share, ``csrc/raster_common.cuh``) are
+``csrc/packed.cu`` holds the indexed-mesh route's three kernels, which
+together replace ``packed._packed_kernel`` (K5, packed.py:222) and
+``packed._packed_id_kernel`` with ``_varyings_from_ids`` (K6, packed.py:580,
+:704), merged:
+
+  - ``packed_cover`` -> ``vf_packed_cover`` and ``packed_cover_big`` ->
+    ``vf_packed_cover_big``: the per-pixel winning triangle id;
+  - ``packed_resolve_gbuffer`` -> ``vf_packed_resolve_gbuffer``: the
+    g-buffer.
+
+``packed.render_gbuffer_packed_batch`` chains them.
+
+The sources (and the header they share, ``csrc/raster_common.cuh``) are
 compiled on first use with ``nvcc``, one process per source started
 together, and linked into one shared library with a plain C interface,
 keyed by a hash of the sources and flags, under ``build/vulkan_forge_torch/``
@@ -33,7 +45,7 @@ at the root of the checkout, and loaded with ctypes. Kernels launch on
 torch's current stream and never synchronise.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version (tiles.py,
-fragment.py, vtx.py) and launches the kernel for a CUDA tensor, or raises;
+fragment.py, vtx.py, packed.py) and launches the kernel for a CUDA tensor, or raises;
 it counts its kernel launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
@@ -48,12 +60,12 @@ from pathlib import Path
 
 import torch
 
-from . import fragment, tiles, vtx
+from . import fragment, packed, tiles, vtx
 from .setup import REC_WIDTH, TILE, Binning, tile_grid
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 _CSRC = _PKG_DIR / "csrc"
-_SOURCES = (_CSRC / "raster.cu", _CSRC / "vtx.cu")
+_SOURCES = (_CSRC / "raster.cu", _CSRC / "vtx.cu", _CSRC / "packed.cu")
 _HEADERS = (_CSRC / "raster_common.cuh",)
 BUILD_DIR = _PKG_DIR.parent / "build" / "vulkan_forge_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -70,6 +82,10 @@ _SIGNATURES = {
     "vf_vtx_resolve_gbuffer": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vf_vtx_resolve_shade_shipped": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_vtx_big_pixels": [],
+    "vf_packed_cover": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "vf_packed_cover_big": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "vf_packed_resolve_gbuffer": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "vf_packed_big_pixels": [],
 }
 
 _lib = None
@@ -155,10 +171,11 @@ def load():
         if lib.vf_tile() != TILE:
             raise RuntimeError(f"csrc/raster.cu rasterizes {lib.vf_tile()}-pixel "
                                f"tiles but setup.TILE is {TILE}")
-        if lib.vf_vtx_big_pixels() != vtx.BIG_PIXELS:
-            raise RuntimeError(f"csrc/vtx.cu lists triangles above "
-                               f"{lib.vf_vtx_big_pixels()} pixels but "
-                               f"vtx.BIG_PIXELS is {vtx.BIG_PIXELS}")
+        for src, fn in (("vtx.cu", lib.vf_vtx_big_pixels),
+                        ("packed.cu", lib.vf_packed_big_pixels)):
+            if fn() != vtx.BIG_PIXELS:
+                raise RuntimeError(f"csrc/{src} lists triangles above {fn()} "
+                                   f"pixels but vtx.BIG_PIXELS is {vtx.BIG_PIXELS}")
         _lib = lib
     return _lib
 
@@ -415,3 +432,113 @@ def vtx_resolve_shade_shipped(fields: torch.Tensor, grid_n: int,
 
 vtx_resolve_shade_shipped.launches = 0
 
+
+# ---------------- indexed-mesh route (csrc/packed.cu) ----------------
+
+def _check_indexed(fields: torch.Tensor, indices: torch.Tensor) -> None:
+    if fields.dtype != torch.float32 or fields.dim() != 3 \
+            or fields.shape[1] != vtx.FIELDS or not fields.is_contiguous():
+        raise ValueError(f"fields must be contiguous float32 (B, {vtx.FIELDS}, N), "
+                         f"got {fields.dtype} {tuple(fields.shape)}")
+    if indices.dtype != torch.int32 or indices.dim() != 2 or indices.shape[1] != 3 \
+            or not indices.is_contiguous():
+        raise ValueError(f"indices must be contiguous int32 (T, 3), got "
+                         f"{indices.dtype} {tuple(indices.shape)}")
+    if indices.device != fields.device:
+        raise ValueError(f"indices is on {indices.device}, fields on {fields.device}")
+    if fields.shape[0] * indices.shape[0] >= 2**31 or fields.shape[2] >= 2**31:
+        raise ValueError("frames * triangles and vertices must stay below 2**31 "
+                         "(int32 ids)")
+    if fields.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {fields.device}")
+
+
+def packed_cover(fields: torch.Tensor, indices: torch.Tensor, width: int, height: int):
+    """Cover pass of the indexed route: (winner (B, H, W) int32 = max id+1
+    of the triangles of at most ``vtx.BIG_PIXELS`` bbox pixels, big (B*T,)
+    int32 list of the others as frame*T + id, count (1,) int32).
+
+    CPU tensors: packed.cover_plain. CUDA tensors: ``vf_packed_cover``.
+    """
+    _check_indexed(fields, indices)
+    if fields.device.type == "cpu":
+        return packed.cover_plain(fields, indices, width, height)
+    B, _, nv = fields.shape
+    T = indices.shape[0]
+    winner = torch.zeros((B, height, width), dtype=torch.int32, device=fields.device)
+    big = torch.empty(B * T, dtype=torch.int32, device=fields.device)
+    count = torch.zeros(1, dtype=torch.int32, device=fields.device)
+    lib = load()
+    with torch.cuda.device(fields.device):
+        err = lib.vf_packed_cover(fields.data_ptr(), B, nv, indices.data_ptr(), T,
+                                  width, height, winner.data_ptr(), big.data_ptr(),
+                                  count.data_ptr(), _stream(fields.device))
+    _raise_on(err, "vf_packed_cover")
+    packed_cover.launches += 1
+    return winner, big, count
+
+
+packed_cover.launches = 0
+
+
+def packed_cover_big(fields: torch.Tensor, indices: torch.Tensor, winner: torch.Tensor,
+                     big: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Big-triangle pass of the indexed route: deposits the listed
+    triangles into ``winner`` in place and returns it.
+
+    CPU tensors: packed.cover_big_plain. CUDA tensors:
+    ``vf_packed_cover_big``.
+    """
+    _check_indexed(fields, indices)
+    _check_winner(winner, fields)
+    for name, t in (("big", big), ("count", count)):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous 1-D int32")
+        if t.device != fields.device:
+            raise ValueError(f"{name} is on {t.device}, fields on {fields.device}")
+    if big.numel() != fields.shape[0] * indices.shape[0] or count.numel() != 1:
+        raise ValueError("big must hold frames * triangles entries and count one")
+    if fields.device.type == "cpu":
+        return packed.cover_big_plain(fields, indices, winner, big, count)
+    _, height, width = winner.shape
+    lib = load()
+    with torch.cuda.device(fields.device):
+        err = lib.vf_packed_cover_big(fields.data_ptr(), fields.shape[2], indices.data_ptr(),
+                                      indices.shape[0], width, height, big.data_ptr(),
+                                      count.data_ptr(), winner.data_ptr(),
+                                      _stream(fields.device))
+    _raise_on(err, "vf_packed_cover_big")
+    packed_cover_big.launches += 1
+    return winner
+
+
+packed_cover_big.launches = 0
+
+
+def packed_resolve_gbuffer(fields: torch.Tensor, indices: torch.Tensor,
+                           winner: torch.Tensor):
+    """Resolve of the indexed route to the g-buffer (v0, v1, v2, mask),
+    each (B, H, W).
+
+    CPU tensors: packed.resolve_gbuffer_plain. CUDA tensors:
+    ``vf_packed_resolve_gbuffer``.
+    """
+    _check_indexed(fields, indices)
+    _check_winner(winner, fields)
+    if fields.device.type == "cpu":
+        return packed.resolve_gbuffer_plain(fields, indices, winner)
+    B, height, width = winner.shape
+    v0, v1, v2 = (torch.empty_like(winner, dtype=torch.float32) for _ in range(3))
+    mask = torch.empty_like(winner, dtype=torch.bool)
+    lib = load()
+    with torch.cuda.device(fields.device):
+        err = lib.vf_packed_resolve_gbuffer(
+            fields.data_ptr(), B, fields.shape[2], indices.data_ptr(), width, height,
+            winner.data_ptr(), v0.data_ptr(), v1.data_ptr(), v2.data_ptr(),
+            mask.data_ptr(), _stream(fields.device))
+    _raise_on(err, "vf_packed_resolve_gbuffer")
+    packed_resolve_gbuffer.launches += 1
+    return v0, v1, v2, mask
+
+
+packed_resolve_gbuffer.launches = 0

@@ -8,16 +8,22 @@ Port of the main path of ``vulkan_forge/_raster/pipeline.py``:
   - ``render_terrain_u8``: one frame, shipped or extended fragment shader.
   - ``render_triangle_u8``: the gradient triangle.
 
-Two routes for terrain, picked by ``use_vtx_route``:
+Three routes for terrain, picked by ``use_vtx_route`` and
+``use_indexed_route``:
 
-  - record route (any mesh): vertex shader (transform.py) -> clip_to_fb +
-    triangle setup + binning (setup.py) -> the raster kernels of
-    ``csrc/raster.cu``;
   - vertex-stream route (``grid_n`` given and the mesh is
     ``build_grid_xyuv(grid_n)``'s, at any size): vertex shader +
     clip_to_fb into per-vertex fields (vtx.py) -> the kernels of
-    ``csrc/vtx.cu``, which build each triangle's record in registers.
-    Passing ``grid_n=None`` takes a grid mesh through the record route.
+    ``csrc/vtx.cu``, which build each triangle's record in registers from
+    its grid corners;
+  - indexed-mesh route (no ``grid_n``, the extended shader: every
+    ``Renderer`` frame): the same per-vertex fields -> the kernels of
+    ``csrc/packed.cu``, which read each triangle's corners through the
+    int32 index buffer (packed.py);
+  - record route (the rest: shipped-shader meshes without ``grid_n``, the
+    triangle): vertex shader (transform.py) -> clip_to_fb + triangle setup
+    + binning (setup.py) -> the raster kernels of ``csrc/raster.cu``.
+    Passing ``grid_n=None`` takes a shipped grid mesh through it.
 
 The shipped shader runs inside the last kernel of either route; the
 extended shader (``fragment.terrain_fs_extended``) runs in torch after the
@@ -34,7 +40,7 @@ import torch
 
 from .. import _formats
 from .._device import resolve_device
-from . import fragment, kernels, transform, vtx
+from . import fragment, kernels, packed, transform, vtx
 from .setup import REC_WIDTH, bin_tiles, clip_to_fb, triangle_setup
 
 # Fixed geometry (src/lib.rs:73-78): CCW, u16 indices [0,1,2].
@@ -69,6 +75,20 @@ def _tri_indices(indices, device) -> torch.Tensor:
     return torch.as_tensor(indices, dtype=torch.long, device=device).reshape(-1, 3)
 
 
+def _tri_indices_i32(indices, n_vertices: int, device) -> torch.Tensor:
+    """The indexed route's (T, 3) int32 index buffer on ``device``; an int32
+    tensor already there is used as it is. The kernels read vertices
+    through it, so every index must lie in [0, n_vertices)."""
+    if not isinstance(indices, torch.Tensor):
+        indices = np.asarray(indices).reshape(-1, 3).astype(np.int32)
+    idx = torch.as_tensor(indices, dtype=torch.int32, device=device).reshape(-1, 3)
+    if idx.numel():
+        lo, hi = (int(v) for v in torch.aminmax(idx))
+        if lo < 0 or hi >= n_vertices:
+            raise ValueError(f"indices must lie in [0, {n_vertices}), got [{lo}, {hi}]")
+    return idx.contiguous()
+
+
 def use_vtx_route(grid_n, n_vertices: int, n_triangles: int) -> bool:
     """Vertex-stream route eligibility: the caller names the grid
     (``grid_n``, which asserts the ``build_grid_xyuv(grid_n)`` topology, as
@@ -82,6 +102,18 @@ def use_vtx_route(grid_n, n_vertices: int, n_triangles: int) -> bool:
         return False
     n = int(grid_n)
     return n_vertices == n * n and n_triangles == vtx.n_triangles(n)
+
+
+def use_indexed_route(grid_n, fs_mode: str) -> bool:
+    """Indexed-mesh route eligibility: a mesh that does not take the
+    vertex-stream route, drawn with the extended shader (every
+    ``Renderer.render_rgba`` frame). There is no size crossover: the route
+    sweep of chip_smoke.py (phase 4c, PERF.md) measured it faster than the
+    record route at every DEM size from 32^2 to 2048^2 at 800x600 on an
+    H100. (The JAX package's threshold, 20,000 triangles, pipeline.py:66,
+    is sized to TPU VMEM.) The shipped shader keeps the record route, whose
+    kernel fuses it."""
+    return fs_mode == "extended" and grid_n is None
 
 
 def terrain_records(xyuv, indices, heights, views, projs, spacing,
@@ -141,6 +173,11 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
             return vtx.render_image_vtx_batch(fields, lut, h_max - h_min, exposure,
                                               sun_dir, int(grid_n), width, height)
         gbuf = vtx.render_gbuffer_vtx_batch(fields, int(grid_n), width, height)
+    elif use_indexed_route(grid_n, fs_mode):
+        fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
+                               width, height, fs_mode)
+        gbuf = packed.render_gbuffer_packed_batch(
+            fields, _tri_indices_i32(indices, xyuv.shape[0], dev), width, height)
     else:
         records, binning = terrain_records(
             xyuv, _tri_indices(indices, dev), heights, views, projs, spacing,
@@ -158,15 +195,25 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
 def render_terrain_u8(xyuv, indices, heights, view, proj, *, spacing,
                       exaggeration, h_min, h_max, exposure, sun_dir, lut,
                       width: int, height: int, fs_mode: str = "shipped",
-                      normal_spacing=None, grid_n=None, device=None) -> np.ndarray:
+                      normal_spacing=None, row_size=None, grid_n=None,
+                      device=None, as_device: bool = False):
     """Render one terrain frame to an (H, W, 4) uint8 numpy array
-    (``render_terrain_batch_u32`` with one camera)."""
+    (``render_terrain_batch_u32`` with one camera), or with ``as_device``
+    its (H, W) uint32 words on the device, as the JAX entry returns them.
+
+    ``row_size`` is the JAX entry's id stride of one mesh row, which sizes
+    its strip and packed worklists (pipeline.py:574); no route of the port
+    needs it, and it is accepted and ignored.
+    """
+    del row_size
     img = render_terrain_batch_u32(
         xyuv, indices, heights, _f32(view, None)[None], _f32(proj, None)[None],
         spacing=spacing, exaggeration=exaggeration, h_min=h_min, h_max=h_max,
         exposure=exposure, sun_dir=sun_dir, lut=lut, width=width,
         height=height, fs_mode=fs_mode, normal_spacing=normal_spacing,
         grid_n=grid_n, device=device)[0]
+    if as_device:
+        return img
     return _formats.u32_image_to_rgba_u8(img).cpu().numpy()
 
 
@@ -179,10 +226,13 @@ def triangle_records(width: int, height: int, device):
     return records.reshape(-1, REC_WIDTH), bin_tiles(bbox, width, height)
 
 
-def render_triangle_u8(width: int, height: int, device=None) -> np.ndarray:
-    """Deterministic gradient triangle -> (H, W, 4) uint8 numpy array."""
+def render_triangle_u8(width: int, height: int, device=None, as_device: bool = False):
+    """Deterministic gradient triangle -> (H, W, 4) uint8 numpy array, or
+    with ``as_device`` its (H, W) uint32 words on the device."""
     _check_render_env()
     records, binning = triangle_records(width, height, resolve_device(device))
     v0, v1, v2, mask = kernels.raster_gbuffer(records, binning, 1, width, height)
     img = fragment.triangle_fs(v0[0], v1[0], v2[0], mask[0])
+    if as_device:
+        return img
     return _formats.u32_image_to_rgba_u8(img).cpu().numpy()

@@ -184,6 +184,19 @@ def grid_corners(fields, n: int):
             for k0, k1 in ((a, b), (c, c), (b, d))]
 
 
+def indexed_corners(fields, indices):
+    """Corners of the triangles of an index buffer, in index order.
+
+    fields: sequence of per-vertex tensors (..., N) (the field order of
+    ``setup_fields_core``); indices: (T, 3) int (int32 or int64). Returns
+    three lists (one per corner, column j of ``indices``) of (..., T)
+    tensors: the corners ``setup_cols`` sets up, so a caller that passes
+    them to ``setup_fields_core`` gets its 31 columns bit for bit.
+    """
+    idx = indices.to(torch.long)
+    return [[f[..., idx[:, j]] for f in fields] for j in range(3)]
+
+
 def setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
                width: int, height: int):
     """Core triangle setup: returns (cols, bbox).
@@ -192,12 +205,10 @@ def setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
     indices: (T, 3) int. cols: NUM_COLS (..., T) f32 tensors; bbox:
     (..., T, 4) int32 with the invalid encoding (x1 < x0).
     """
-    idx = indices.to(torch.long)
     fields = [x_fb, y_fb, w_clip, varyings[..., 0], varyings[..., 1],
               varyings[..., 2], z_ndc]
-    corners = [[f[..., idx[:, j]] for f in fields] for j in range(3)]
     cols, px0, px1, py0, py1, valid = setup_fields_core(
-        corners[0], corners[1], corners[2], width, height)
+        *indexed_corners(fields, indices), width, height)
     shape = cols[0].shape
     cols = [c.expand(shape) for c in cols]
     bbox = torch.stack([torch.where(valid, px0, width),

@@ -10,12 +10,56 @@ src/terrain/pipeline.rs:133).
 ``kernels.raster_gbuffer`` and ``kernels.raster_shade_shipped`` run this on
 a CPU tensor; on a CUDA tensor they launch ``csrc/raster.cu``, which does
 the same f32 ops in the same order per pixel.
+
+``eval_records`` -- one record at pixel centres -- is the evaluation every
+route shares (vtx.py and packed.py use it too; ``vf::eval_pixel`` in
+``csrc/raster_common.cuh`` is its CUDA twin). It rounds its multiply-adds
+as XLA:CPU contracts the JAX package's (``mad``), so the port's g-buffer
+equals the JAX jnp oracle's bit for bit, not only within a tolerance.
 """
 from __future__ import annotations
 
 import torch
 
 from .setup import TILE, Binning, tile_grid
+
+
+def mad(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` (f32) rounded once: the fused multiply-add XLA:CPU
+    contracts it into, and CUDA's ``__fmaf_rn``. The f32 product is exact
+    in f64; the f64 sum is rounded to odd (one ulp towards the exact value
+    when TwoSum finds an error and the nearest sum is even), and a sum
+    rounded to odd with 29 spare bits rounds to f32 as the exact value
+    does, ties included."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0) & torch.isfinite(s)
+    s = torch.where(inexact_even, torch.nextafter(s, s + torch.sign(err) * float("inf")), s)
+    return s.float()
+
+
+def eval_records(col, px, py):
+    """Records ``col(k)`` (column k, broadcastable) at pixel centres
+    (px, py): (a0, a1, a2, aw, cov), the varying numerators, the 1/w
+    numerator and coverage (edges, near z>=0, camera-front w>0, far
+    z<=w). The ops of ``vulkan_forge/_raster/tiles.py:38-53`` with XLA:CPU's
+    contraction: each edge function is mad(a, p - b, -(c * (q - d))), each
+    three-term sum mad(f2, c2, mad(f0, c0, f1 * c1))."""
+    f0 = mad(col(2), px - col(0), -(col(3) * (py - col(1))))
+    f1 = mad(col(6), px - col(4), -(col(7) * (py - col(5))))
+    f2 = mad(col(10), px - col(8), -(col(11) * (py - col(9))))
+
+    def dot(k):
+        return mad(f2, col(k + 2), mad(f0, col(k), f1 * col(k + 1)))
+    aw = dot(21)
+    az = dot(25)
+    asum = dot(28)
+    cov = ((f0 >= 0.0) & (f1 >= 0.0) & (f2 >= 0.0) & (col(24) > 0.0)
+           & (az >= 0.0) & (aw > 0.0) & (asum - az >= 0.0))
+    return dot(12), dot(15), dot(18), aw, cov
 
 
 def _pixel_centers(n_tiles: int, width: int, height: int, device):
@@ -75,19 +119,7 @@ def render_gbuffer(records: torch.Tensor, binning: Binning, n_frames: int,
         def col(k):
             return r[:, k, None]
 
-        x, y = px[:na], py[:na]
-        f0 = col(2) * (x - col(0)) - col(3) * (y - col(1))
-        f1 = col(6) * (x - col(4)) - col(7) * (y - col(5))
-        f2 = col(10) * (x - col(8)) - col(11) * (y - col(9))
-        a0 = f0 * col(12) + f1 * col(13) + f2 * col(14)
-        a1 = f0 * col(15) + f1 * col(16) + f2 * col(17)
-        a2 = f0 * col(18) + f1 * col(19) + f2 * col(20)
-        aw = f0 * col(21) + f1 * col(22) + f2 * col(23)
-        # Clip-volume tests (near z>=0, camera-front w>0, far z<=w).
-        az = f0 * col(25) + f1 * col(26) + f2 * col(27)
-        asum = f0 * col(28) + f1 * col(29) + f2 * col(30)
-        cov = ((f0 >= 0.0) & (f1 >= 0.0) & (f2 >= 0.0) & (col(24) > 0.0)
-               & (az >= 0.0) & (aw > 0.0) & (asum - az >= 0.0))
+        a0, a1, a2, aw, cov = eval_records(col, px[:na], py[:na])
         acc0[:na] = torch.where(cov, a0, acc0[:na])
         acc1[:na] = torch.where(cov, a1, acc1[:na])
         acc2[:na] = torch.where(cov, a2, acc2[:na])

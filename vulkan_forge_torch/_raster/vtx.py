@@ -19,8 +19,10 @@ MXU deposit, slot cap and overflow): two passes per batch,
 This module holds the route's vertex stage (``vs_fields``), the plain
 PyTorch version of each pass -- the specification the kernels are held
 to, which CPU tensors take -- and the route's entries. The plain version
-enumerates (triangle, bbox pixel) pairs and evaluates coverage with the
-formulas of ``tiles.py:79-90``, independently of ``tiles.py``'s tile walk.
+enumerates (triangle, bbox pixel) pairs and evaluates coverage with
+``tiles.eval_records``, independently of ``tiles.py``'s tile walk. Its
+corner-based bodies (``cover_from_corners`` and the two after it) serve
+the indexed-mesh route too (packed.py).
 
 Triangle ids are those of ``_mesh.build_grid_xyuv(n)``'s indices (draw
 order): id = (r*(n-1) + c)*2 + k for cell (r, c), k = 0 for [A, C, B] and
@@ -32,6 +34,7 @@ import torch
 
 from . import fragment, kernels, transform
 from .setup import clip_to_fb, grid_corners, setup_fields_core
+from .tiles import eval_records
 
 FIELDS = 7          # x_fb, y_fb, w_clip, var0, var1, var2, z_ndc
 # Triangles whose pixel bbox holds more pixels than this are walked by the
@@ -76,14 +79,6 @@ def tri_corners(fields: torch.Tensor, n: int, frame: torch.Tensor,
     return [[fields[frame, f, v] for f in range(FIELDS)] for v in verts]
 
 
-def _edges(col, px, py):
-    """The three edge functions of records ``col(j)`` at pixel centres
-    (tiles.py:79-81)."""
-    return (col(2) * (px - col(0)) - col(3) * (py - col(1)),
-            col(6) * (px - col(4)) - col(7) * (py - col(5)),
-            col(10) * (px - col(8)) - col(11) * (py - col(9)))
-
-
 def _deposit(winner, cols, px0, px1, py0, py1, frame, ids):
     """Max-combine ``ids + 1`` into ``winner`` (B, H, W) int32 at every
     covered pixel of each listed triangle's bbox (1-D per-triangle inputs,
@@ -111,78 +106,94 @@ def _deposit(winner, cols, px0, px1, py0, py1, frame, ids):
         def col(j):
             return cols[j][tri]
 
-        f0, f1, f2 = _edges(col, px, py)
-        aw = f0 * col(21) + f1 * col(22) + f2 * col(23)
-        az = f0 * col(25) + f1 * col(26) + f2 * col(27)
-        asum = f0 * col(28) + f1 * col(29) + f2 * col(30)
-        cov = ((f0 >= 0.0) & (f1 >= 0.0) & (f2 >= 0.0) & (col(24) > 0.0)
-               & (az >= 0.0) & (aw > 0.0) & (asum - az >= 0.0))
+        cov = eval_records(col, px, py)[4]
         pix = (frame[tri] * height + y) * width + x
         flat.scatter_reduce_(0, pix[cov], (ids[tri][cov] + 1).to(torch.int32), "amax")
     return winner
 
 
-def cover_plain(fields: torch.Tensor, n: int, width: int, height: int):
-    """Plain version of ``vf_vtx_cover``.
+def cover_from_corners(c0, c1, c2, width: int, height: int):
+    """The cover pass over every triangle's corners: three lists (one per
+    corner) of 7 (B, T) field tensors, triangle id = position along T.
 
-    Returns (winner (B, H, W) int32 over the triangles of at most
+    Returns (winner (B, H, W) int32 = max id+1 of the triangles of at most
     BIG_PIXELS bbox pixels, big (B*T,) int32 whose first ``count`` entries
     list the other valid triangles as frame*T + id in ascending order,
-    count (1,) int32). The kernel lists them in any order.
+    count (1,) int32). The kernels list them in any order.
     """
-    B = fields.shape[0]
-    T = n_triangles(n)
-    c0, c1, c2 = grid_corners([fields[:, f] for f in range(FIELDS)], n)
+    B, T = c0[0].shape
     cols, px0, px1, py0, py1, valid = setup_fields_core(c0, c1, c2, width, height)
     area = ((px1 - px0 + 1).to(torch.long) * (py1 - py0 + 1).to(torch.long))
     small = (valid & (area <= BIG_PIXELS)).reshape(-1)
     sel = torch.nonzero(small).squeeze(1)
-    winner = torch.zeros((B, height, width), dtype=torch.int32, device=fields.device)
+    dev = c0[0].device
+    winner = torch.zeros((B, height, width), dtype=torch.int32, device=dev)
     flat_cols = [c.reshape(-1)[sel] for c in cols]
     _deposit(winner, flat_cols, *(p.reshape(-1)[sel] for p in (px0, px1, py0, py1)),
              torch.div(sel, T, rounding_mode="floor"), sel % T)
     listed = torch.nonzero((valid & (area > BIG_PIXELS)).reshape(-1)).squeeze(1)
-    big = torch.zeros(B * T, dtype=torch.int32, device=fields.device)
+    big = torch.zeros(B * T, dtype=torch.int32, device=dev)
     big[:listed.numel()] = listed.to(torch.int32)
-    count = torch.tensor([listed.numel()], dtype=torch.int32, device=fields.device)
+    count = torch.tensor([listed.numel()], dtype=torch.int32, device=dev)
     return winner, big, count
 
 
-def cover_big_plain(fields: torch.Tensor, n: int, winner: torch.Tensor,
-                    big: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``vf_vtx_cover_big``: deposits the listed
-    triangles into ``winner`` in place (as the kernel's atomicMax does)."""
+def cover_big_from_corners(corners_of, T: int, winner: torch.Tensor,
+                           big: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The big-triangle pass: deposits the listed triangles into ``winner``
+    in place (as the kernels' atomicMax does). ``corners_of(frame, tri)``
+    (1-D int64) gives their corners."""
     _, height, width = winner.shape
-    T = n_triangles(n)
     e = big[:int(count[0])].to(torch.long)
     frame = torch.div(e, T, rounding_mode="floor")
     tri = e % T
-    cols, px0, px1, py0, py1, _ = setup_fields_core(
-        *tri_corners(fields, n, frame, tri), width, height)
+    cols, px0, px1, py0, py1, _ = setup_fields_core(*corners_of(frame, tri), width, height)
     return _deposit(winner, cols, px0, px1, py0, py1, frame, tri)
 
 
-def resolve_gbuffer_plain(fields: torch.Tensor, n: int, winner: torch.Tensor):
-    """Plain version of ``vf_vtx_resolve_gbuffer``: (v0, v1, v2, mask),
-    each (B, H, W), with ``tiles.py``'s accumulator rule (uncovered: 0)."""
+def resolve_from_corners(corners_of, winner: torch.Tensor):
+    """The g-buffer resolve: (v0, v1, v2, mask), each (B, H, W), with
+    ``tiles.py``'s accumulator rule (uncovered: 0). ``corners_of(frame,
+    tri)`` gives the winners' corners."""
     B, height, width = winner.shape
     w = winner.reshape(B, -1).to(torch.long)
     mask = w > 0
     frame = torch.arange(B, device=w.device)[:, None].expand_as(w)
-    cols = setup_fields_core(*tri_corners(fields, n, frame.reshape(-1),
-                                          torch.clamp_min(w - 1, 0).reshape(-1)),
+    cols = setup_fields_core(*corners_of(frame.reshape(-1),
+                                         torch.clamp_min(w - 1, 0).reshape(-1)),
                              width, height)[0]
     cols = [c.reshape(B, -1) for c in cols]
     lp = torch.arange(height * width, device=w.device)
     px = (lp % width).to(torch.float32) + 0.5
     py = torch.div(lp, width, rounding_mode="floor").to(torch.float32) + 0.5
-    f0, f1, f2 = _edges(cols.__getitem__, px, py)
-    acc = [torch.where(mask, f0 * cols[3 * j + 12] + f1 * cols[3 * j + 13]
-                       + f2 * cols[3 * j + 14], 0.0) for j in range(3)]
-    accw = torch.where(mask, f0 * cols[21] + f1 * cols[22] + f2 * cols[23], 1.0)
+    a0, a1, a2, aw, _ = eval_records(cols.__getitem__, px, py)
+    acc = [torch.where(mask, a, 0.0) for a in (a0, a1, a2)]
+    accw = torch.where(mask, aw, 1.0)
     rcp = 1.0 / torch.where(torch.abs(accw) < 1e-20, 1.0, accw)
     planes = [a * rcp for a in acc] + [mask]
     return tuple(p.reshape(B, height, width) for p in planes)
+
+
+def cover_plain(fields: torch.Tensor, n: int, width: int, height: int):
+    """Plain version of ``vf_vtx_cover`` (``cover_from_corners`` over the
+    grid's triangles)."""
+    return cover_from_corners(*grid_corners([fields[:, f] for f in range(FIELDS)], n),
+                              width, height)
+
+
+def cover_big_plain(fields: torch.Tensor, n: int, winner: torch.Tensor,
+                    big: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``vf_vtx_cover_big``: deposits the listed
+    triangles into ``winner`` in place."""
+    return cover_big_from_corners(lambda frame, tri: tri_corners(fields, n, frame, tri),
+                                  n_triangles(n), winner, big, count)
+
+
+def resolve_gbuffer_plain(fields: torch.Tensor, n: int, winner: torch.Tensor):
+    """Plain version of ``vf_vtx_resolve_gbuffer``: (v0, v1, v2, mask),
+    each (B, H, W)."""
+    return resolve_from_corners(lambda frame, tri: tri_corners(fields, n, frame, tri),
+                                winner)
 
 
 def resolve_shade_shipped_plain(fields, n, winner, lut, h_range, exposure, sun_dir):

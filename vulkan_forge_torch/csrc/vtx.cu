@@ -16,8 +16,8 @@
 // the post-vertex-shader fields of the (n, n) vertex grid, SoA
 // (frames, 7, n*n) f32: x_fb, y_fb, w_clip, var0..2, z_ndc. Every
 // triangle's record is built in registers from its grid corners by
-// setup_fields_core below, the f32 ops of _raster/setup.py:51-160 in
-// their order; triangle id = (r*(n-1) + c)*2 + k, tri0 = [A, C, B],
+// setup_fields_core (raster_common.cuh, shared with packed.cu), the f32
+// ops of _raster/setup.py:51-160 in their order; triangle id = (r*(n-1) + c)*2 + k, tri0 = [A, C, B],
 // tri1 = [B, C, D] (_mesh.build_grid_xyuv).
 //
 //   vf_vtx_cover: one thread per (frame, grid cell). Neighbouring threads
@@ -47,7 +47,7 @@
 // What bounds it on an H100 (grid=1024, 800x600, 4 frames): the cover
 // pass reads the fields once, 4*7*1024^2*4 B = 117 MB, ~35 us at
 // 3.35 TB/s; its in-register setup is ~230 f32 ops per triangle (counted
-// from setup_fields_core below: 3 near-plane crossings of ~22 ops, four
+// from setup_fields_core: 3 near-plane crossings of ~22 ops, four
 // 6-way min/max chains of 12, the 31 columns, the flags) over 8.37M
 // triangles, ~1.9 GFLOP, ~29 us at 67 TFLOP/s, plus ~25 ops per bbox
 // pixel of the walk. So it is memory-bound at ~0.035 ms per batch. The
@@ -71,147 +71,15 @@
 
 namespace {
 
-constexpr int kFields = 7;
+using vf::Corner;
+using vf::deposit;
+using vf::kFields;
+using vf::load_corner;
+using vf::Record;
+using vf::setup_fields_core;
+
 constexpr int kBigPixels = 64;       // == vtx.BIG_PIXELS (vf_vtx_big_pixels)
 constexpr int kThreads = 256;
-constexpr float kWEps = 1e-8f;       // setup._W_EPS
-
-struct Corner {
-  float x, y, w, v0, v1, v2, zn;
-};
-
-struct Record {
-  float col[31];
-  int px0, px1, py0, py1;
-  bool valid;
-};
-
-__device__ __forceinline__ float tmin(float a, float b) {
-  // torch.minimum: NaN propagates.
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : (a < b ? a : b);
-}
-
-__device__ __forceinline__ float tmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : (a > b ? a : b);
-}
-
-__device__ __forceinline__ Corner load_corner(const float* f, int n2, int v) {
-  Corner c;
-  c.x = f[v];
-  c.y = f[n2 + v];
-  c.w = f[2 * n2 + v];
-  c.v0 = f[3 * n2 + v];
-  c.v1 = f[4 * n2 + v];
-  c.v2 = f[5 * n2 + v];
-  c.zn = f[6 * n2 + v];
-  return c;
-}
-
-// Near-plane (z_clip = 0) crossing of edge a->b (setup.py crossing()).
-__device__ __forceinline__ bool crossing(float xa, float ya, float wa,
-                                         float za, float xb, float yb,
-                                         float wb, float zb, float* cx,
-                                         float* cy) {
-  const float denom = za - zb;
-  const float safe = fabsf(denom) < 1e-30f ? 1e-30f : denom;
-  const float t = za / safe;
-  const bool crosses = (za < 0.0f) != (zb < 0.0f);
-  const float wx = wa + t * (wb - wa);
-  const float Xa = xa * wa, Ya = ya * wa;
-  const float Xb = xb * wb, Yb = yb * wb;
-  const float X = Xa + t * (Xb - Xa);
-  const float Y = Ya + t * (Yb - Ya);
-  const bool ok = crosses & (wx > kWEps);
-  const float rw = 1.0f / (fabsf(wx) < 1e-30f ? 1e-30f : wx);
-  *cx = X * rw;
-  *cy = Y * rw;
-  return ok;
-}
-
-__device__ __forceinline__ float srw(float w) {
-  const float tiny = w < 0.0f ? -1e-12f : 1e-12f;
-  return 1.0f / (fabsf(w) < 1e-12f ? tiny : w);
-}
-
-// setup.setup_fields_core for one triangle, inclusive fill rule.
-__device__ __forceinline__ void setup_fields_core(const Corner& c0,
-                                                  const Corner& c1,
-                                                  const Corner& c2, int width,
-                                                  int height, Record& r) {
-  const float x0 = c0.x, y0 = c0.y, w0 = c0.w, zn0 = c0.zn;
-  const float x1 = c1.x, y1 = c1.y, w1 = c1.w, zn1 = c1.zn;
-  const float x2 = c2.x, y2 = c2.y, w2 = c2.w, zn2 = c2.zn;
-
-  const float area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0);
-  const bool neg0 = w0 < 0.0f, neg1 = w1 < 0.0f, neg2 = w2 < 0.0f;
-  const bool odd_neg = neg0 ^ neg1 ^ neg2;
-  const bool front = (odd_neg ? area2 : -area2) > 0.0f;
-  const bool finite = isfinite(x0) & isfinite(x1) & isfinite(x2) &
-                      isfinite(y0) & isfinite(y1) & isfinite(y2);
-
-  const float zc0 = zn0 * w0, zc1 = zn1 * w1, zc2 = zn2 * w2;
-  const bool any_near = tmax(tmax(zc0, zc1), zc2) >= 0.0f;
-  const bool any_w = tmax(tmax(w0, w1), w2) > kWEps;
-  const bool any_far = tmin(tmin(zc0 - w0, zc1 - w1), zc2 - w2) <= 0.0f;
-  const bool clean = (w0 > kWEps) & (w1 > kWEps) & (w2 > kWEps);
-
-  float cx01, cy01, cx12, cy12, cx20, cy20;
-  const bool ok01 = crossing(x0, y0, w0, zc0, x1, y1, w1, zc1, &cx01, &cy01);
-  const bool ok12 = crossing(x1, y1, w1, zc1, x2, y2, w2, zc2, &cx12, &cy12);
-  const bool ok20 = crossing(x2, y2, w2, zc2, x0, y0, w0, zc0, &cx20, &cy20);
-  const bool sel[6] = {zc0 >= 0.0f, zc1 >= 0.0f, zc2 >= 0.0f, ok01, ok12, ok20};
-  const float xs[6] = {x0, x1, x2, cx01, cx12, cx20};
-  const float ys[6] = {y0, y1, y2, cy01, cy12, cy20};
-
-  const float big = 3.4e37f;
-  float xmin = big, xmax = -big, ymin = big, ymax = -big;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    xmin = tmin(xmin, sel[i] ? xs[i] : big);
-    xmax = tmax(xmax, sel[i] ? xs[i] : -big);
-    ymin = tmin(ymin, sel[i] ? ys[i] : big);
-    ymax = tmax(ymax, sel[i] ? ys[i] : -big);
-  }
-  // w-crossing triangles: conservative full screen.
-  xmin = clean ? xmin : 0.0f;
-  xmax = clean ? xmax : (float)width;
-  ymin = clean ? ymin : 0.0f;
-  ymax = clean ? ymax : (float)height;
-
-  r.px0 = max((int)ceilf(vf::clampf(xmin, -1e9f, 1e9f) - 0.5f), 0);
-  r.px1 = min((int)floorf(vf::clampf(xmax, -1e9f, 1e9f) - 0.5f), width - 1);
-  r.py0 = max((int)ceilf(vf::clampf(ymin, -1e9f, 1e9f) - 0.5f), 0);
-  r.py1 = min((int)floorf(vf::clampf(ymax, -1e9f, 1e9f) - 0.5f), height - 1);
-  const bool covers = (r.px0 <= r.px1) & (r.py0 <= r.py1);
-  r.valid = front & finite & any_near & any_w & any_far & covers;
-
-  // SIGNED reciprocals keep the projective functionals exact on the
-  // clipped region (setup.py "Near-plane clipping").
-  const float rw0 = srw(w0), rw1 = srw(w1), rw2 = srw(w2);
-  const float s0 = (neg1 ^ neg2) ? -1.0f : 1.0f;
-  const float s1 = (neg2 ^ neg0) ? -1.0f : 1.0f;
-  const float s2 = (neg0 ^ neg1) ? -1.0f : 1.0f;
-  const float tau = area2 > 0.0f ? -1.0f : 1.0f;
-  const float t0 = s0 * tau, t1 = s1 * tau, t2 = s2 * tau;
-
-  float* col = r.col;
-  col[0] = x1;  col[1] = y1;  col[2] = (y2 - y1) * s0;  col[3] = (x2 - x1) * s0;
-  col[4] = x2;  col[5] = y2;  col[6] = (y0 - y2) * s1;  col[7] = (x0 - x2) * s1;
-  col[8] = x0;  col[9] = y0;  col[10] = (y1 - y0) * s2; col[11] = (x1 - x0) * s2;
-  const float va[3] = {c0.v0, c0.v1, c0.v2};
-  const float vb[3] = {c1.v0, c1.v1, c1.v2};
-  const float vc[3] = {c2.v0, c2.v1, c2.v2};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    col[12 + 3 * k] = va[k] * rw0 * t0;
-    col[13 + 3 * k] = vb[k] * rw1 * t1;
-    col[14 + 3 * k] = vc[k] * rw2 * t2;
-  }
-  col[21] = rw0 * t0;  col[22] = rw1 * t1;  col[23] = rw2 * t2;
-  col[24] = r.valid ? 1.0f : 0.0f;
-  col[25] = zn0 * t0;  col[26] = zn1 * t1;  col[27] = zn2 * t2;
-  col[28] = t0;  col[29] = t1;  col[30] = t2;
-}
 
 // The corners of triangle `tri` of a frame (fields of that frame at f).
 __device__ __forceinline__ void triangle_record(const float* f, int n, int tri,
@@ -230,11 +98,6 @@ __device__ __forceinline__ void triangle_record(const float* f, int n, int tri,
     const Corner D = load_corner(f, n2, a + n + 1);
     setup_fields_core(B, C, D, width, height, r);
   }
-}
-
-__device__ __forceinline__ void deposit(const Record& r, float px, float py,
-                                        int* dst, int value) {
-  if (vf::eval_pixel(r.col, px, py).cov) atomicMax(dst, value);
 }
 
 __global__ void __launch_bounds__(kThreads)
