@@ -27,6 +27,12 @@ Phases, each printing one line, in order:
      triangles (asserted), a 50K-triangle soup made from a seed, and a
      DEM-2048 at the default camera. Winners and lists exact, g-buffer
      within 1e-5*max(1,|x|).
+  2d. hw kernel vs plain: vf_raster_gbuffer_hw and vf_raster_shade_shipped_hw
+     (the hardware fill rule, VF_FILL_RULE=hw) against their plain versions
+     over records set up under "hw": the grid-16 160x120 scene, whose mask
+     must equal hw_oracle's (the int64 fixed-point rasterizer) bit for bit,
+     the spike 800x600 g128, a g256 w-crossing camera and a watertight quad,
+     where no pixel is covered twice and every interior pixel once.
   3. main path, slice 1: the public API on device="cuda"
      (make_terrain(800,600,128) render_rgba/render_png,
      Scene(160,120,32,"magma") with a height upload -- both name their grid
@@ -48,6 +54,12 @@ Phases, each printing one line, in order:
      Both frames' g-buffers are held bit for bit to the record route's on
      the card (skipped if it cannot fit), a DEM-256 frame to device="cpu"
      under the FS policy; render_metrics must be filled in.
+  3d. main path, slice 4: with VF_FILL_RULE=hw (set inside the phase and
+     restored after) render_triangle_rgba(800,600),
+     make_terrain(800,600,1024).render_rgba() and the Renderer's DEM-2048
+     render_rgba() on device="cuda"; both hw kernels' counters must advance
+     and no other kernel may launch. The triangle and a Scene 160x120 g32
+     are held to device="cpu" under the FS policy.
   4. timing, slice 1: 32 orbit cameras at 800x600 g128 through the record
      kernel path (the batched entry without grid_n) and through the plain
      PyTorch path on the card (median of 5 batches, host clock after
@@ -73,12 +85,16 @@ Phases, each printing one line, in order:
      w-crossing pair, where its list is full), both routes on the DEM-2048
      frame with their peak device memory, and the route sweep (DEMs 32^2 to
      2048^2) that sets the indexed route's threshold.
+  4d. timing, slice 4: each 3d frame under hw against inclusive (median and
+     p80 of 20 calls, peak device memory), and each hw kernel per launch
+     (20 back-to-back launches) against its inclusive counterpart, its
+     plain version and its bound (34 live record columns).
   5. profile, only with --profile: torch.profiler over 3 batches of each
      headline path (32 cameras g128 on the record route, 4 cameras g1024 on
      the vtx route); the device's busy share and the ops with the most
      device time. It runs after the main paths' launch counts are read.
 
-Then one JSON line with the per-kernel record (all nine kernels), and last
+Then one JSON line with the per-kernel record (all eleven kernels), and last
 the line {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero. It imports nothing of JAX and nothing of the JAX package.
 """
@@ -102,8 +118,8 @@ import vulkan_forge_torch as vt
 from vulkan_forge_torch import _camera, _colormap, _device, _formats, _mesh, _renderer
 from vulkan_forge_torch._parity import (FS_MAX_FRACTION, VARYING_RTOL,
                                         assert_fs_policy, assert_gbuffer_close)
-from vulkan_forge_torch._raster import (fragment, kernels, packed, pipeline, setup,
-                                        tiles, transform, vtx)
+from vulkan_forge_torch._raster import (fragment, hw_oracle, kernels, packed, pipeline,
+                                        setup, tiles, transform, vtx)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -178,14 +194,15 @@ def scene_height():
                      np.cos(np.linspace(0, 2, 45))) * 0.3).astype(np.float32)
 
 
-def scene_inputs(obj, dev):
-    """(records, binning, shading args) of a TerrainSpike/Scene's frame on dev."""
+def scene_inputs(obj, dev, fill_rule="inclusive"):
+    """(records, binning, shading args) of a TerrainSpike/Scene's frame on
+    dev, set up under ``fill_rule``."""
     g = obj._globals
     t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
     records, binning = pipeline.terrain_records(
         t(obj._xyuv), torch.as_tensor(obj._indices.astype(np.int64).reshape(-1, 3), device=dev),
         t(obj._heights), t(obj._view)[None], t(obj._proj)[None],
-        t(g.spacing), t(g.exaggeration), obj.width, obj.height)
+        t(g.spacing), t(g.exaggeration), obj.width, obj.height, fill_rule=fill_rule)
     shade = (t(obj._lut), t(g.h_max) - t(g.h_min), t(g.exposure), t(g.sun_dir))
     return records, binning, shade
 
@@ -230,8 +247,10 @@ def phase0_card():
 
 
 # Kernel name of each compiled entry (a substring of its mangled name).
-ENTRIES = (("raster_kernelILb0", "vf_raster_gbuffer"),
-           ("raster_kernelILb1", "vf_raster_shade_shipped"),
+ENTRIES = (("raster_kernelILb0ELb0", "vf_raster_gbuffer"),
+           ("raster_kernelILb1ELb0", "vf_raster_shade_shipped"),
+           ("raster_kernelILb0ELb1", "vf_raster_gbuffer_hw"),
+           ("raster_kernelILb1ELb1", "vf_raster_shade_shipped_hw"),
            ("vtx_cover_kernel", "vf_vtx_cover"),
            ("vtx_cover_big_kernel", "vf_vtx_cover_big"),
            ("vtx_resolve_kernelILb0", "vf_vtx_resolve_gbuffer"),
@@ -404,13 +423,14 @@ def check_vtx_passes(fields, grid, shade, label):
     return err, k
 
 
-def record_route(grid, views, projs, dev):
+def record_route(grid, views, projs, dev, fill_rule="inclusive"):
     """The slice-1 record route's (records, binning) on the same scene."""
     xyuv, idx = _mesh.build_grid_xyuv(grid)
     one = tensor(1.0, dev)
     return pipeline.terrain_records(
         tensor(xyuv, dev), torch.as_tensor(idx.astype(np.int64).reshape(-1, 3), device=dev),
-        tensor(np.zeros((1, 1)), dev), tensor(views, dev), tensor(projs, dev), one, one, W, H)
+        tensor(np.zeros((1, 1)), dev), tensor(views, dev), tensor(projs, dev), one, one, W, H,
+        fill_rule=fill_rule)
 
 
 def phase2b_vtx_kernels(dev):
@@ -779,14 +799,17 @@ def bound_of(nbytes, ops):
             "bytes": nbytes, "ops": ops}
 
 
-def record_bound(records, binning, n_frames, width, height, shade):
-    """bound of a record-route kernel: records, rows and offsets read once,
-    the output written once; EVAL_OPS per (pair, tile pixel) as the kernel
-    walks every binned pair at every pixel of its 16x16 tile."""
+def record_bound(records, binning, n_frames, width, height, shade, cols=setup.NUM_COLS):
+    """bound of a record-route kernel: the ``cols`` live columns of each
+    binned record (31, or setup.HW_COLS = 34 under the hw rule; culled
+    records are never read), rows and offsets read once, the output written
+    once; EVAL_OPS per (pair, tile pixel) as the kernel walks every binned
+    pair at every pixel of its 16x16 tile."""
     pixels = n_frames * width * height
     out_bytes = pixels * (4 if shade else 13)
-    nbytes = (records.numel() * 4 + binning.rows.numel() * 4 + binning.offsets.numel() * 4
-              + out_bytes + (256 * 3 * 4 if shade else 0))
+    binned = int(torch.unique(binning.rows).numel())
+    nbytes = (binned * cols * 4 + binning.rows.numel() * 4
+              + binning.offsets.numel() * 4 + out_bytes + (256 * 3 * 4 if shade else 0))
     evals = binning.rows.numel() * setup.TILE * setup.TILE
     return bound_of(nbytes, evals * EVAL_OPS + pixels * (RESOLVE_OPS + (SHADE_OPS if shade else 0)))
 
@@ -1398,6 +1421,334 @@ def phase4c_packed_timing(smi, dev):
     return rec
 
 
+# ---------------- slice 4: the hardware fill rule (VF_FILL_RULE=hw) ----------------
+
+HW_KERNELS = (("vf_raster_gbuffer_hw", kernels.raster_gbuffer_hw),
+              ("vf_raster_shade_shipped_hw", kernels.raster_shade_shipped_hw))
+QUAD_W, QUAD_H = 128, 96                   # tests/test_fillrule.py:23
+
+
+def restore_fill_rule(previous):
+    """Put VF_FILL_RULE back as it was before a phase set it."""
+    if previous is None:
+        os.environ.pop("VF_FILL_RULE", None)
+    else:
+        os.environ["VF_FILL_RULE"] = previous
+
+
+def grid16_scene():
+    """The grid-16 160x120 scene of tests/test_packed.py:261-283: clip
+    coordinates and (h, x, z) varyings from numpy, draw-order indices."""
+    w, h = 160, 120
+    xyuv, idx = _mesh.build_grid_xyuv(16)
+    x, z = xyuv[:, 0], xyuv[:, 1]
+    ht = np.sin(x * 1.3) * 0.25 + np.cos(z * 1.1) * 0.25
+    view = _camera.look_at_rh((3.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    proj = _camera.perspective_wgpu(np.float32(math.radians(45.0)), np.float32(w / h),
+                                    np.float32(0.1), np.float32(100.0))
+    clip = (np.stack([x, ht, z, np.ones_like(x)], axis=-1) @ view.T) @ proj.T
+    return clip, np.stack([ht, x, z], axis=-1), idx.astype(np.int64).reshape(-1, 3), w, h
+
+
+def watertight_quad():
+    """Two front-facing triangles tiling a quad whose corners and shared
+    diagonal lie on pixel centres (tests/test_fillrule.py:51-79), for a
+    QUAD_W x QUAD_H frame."""
+    def ndc(px, py):
+        return (2 * (px + 0.5) / QUAD_W - 1, 1 - 2 * (py + 0.5) / QUAD_H)
+    quad = [ndc(10, 10), ndc(70, 10), ndc(70, 70), ndc(10, 70)]
+    clip = np.array([[x, y, 0.5, 1.0] for x, y in quad], np.float32)
+    return clip, np.ones((4, 3), np.float32), np.array([[0, 2, 1], [0, 3, 2]], np.int64)
+
+
+def hw_records(clip, vary, indices, width, height, dev):
+    """(records, binning) of clip coordinates set up under the hw rule."""
+    x, y, z, w = setup.clip_to_fb(tensor(clip, dev), width, height)
+    records, bbox = setup.triangle_setup(
+        x, y, z, w, tensor(vary, dev), torch.as_tensor(indices, device=dev), width, height,
+        "hw")
+    return records.reshape(-1, setup.REC_WIDTH), setup.bin_tiles(bbox, width, height)
+
+
+def phase2d_hw_kernels(dev):
+    """Both hw kernels against their plain versions over hw records: the
+    grid-16 scene (its mask against the int64 oracle), the spike g128, a
+    w-crossing camera, the main path's triangle, spike g1024 and Renderer
+    DEM-2048 frames, the watertight quad (every interior pixel covered
+    once).
+    Returns each kernel's max error."""
+    shade = spike_shading(dev)
+    errs = {name: 0.0 for name, _ in HW_KERNELS}
+    plain_ms = {}
+
+    def check(label, records, binning, width, height):
+        kern = kernels.raster_gbuffer_hw(records, binning, 1, width, height)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = tiles.render_gbuffer(records, binning, 1, width, height)
+        end.record()
+        end.synchronize()
+        plain_ms[label] = start.elapsed_time(end)
+        errs["vf_raster_gbuffer_hw"] = max(errs["vf_raster_gbuffer_hw"], assert_gbuffer_close(
+            kern, plain, f"{label}: vf_raster_gbuffer_hw"))
+        img = kernels.raster_shade_shipped_hw(records, binning, 1, width, height, *shade)
+        d, _ = assert_fs_policy(img, fragment.terrain_fs(*plain, *shade),
+                                f"{label}: vf_raster_shade_shipped_hw")
+        errs["vf_raster_shade_shipped_hw"] = max(errs["vf_raster_shade_shipped_hw"], float(d))
+        sync()
+        return kern[3][0]
+
+    clip, vary, idx, w, h = grid16_scene()
+    mask = check("grid-16 160x120", *hw_records(clip, vary, idx, w, h, dev), w, h)
+    wid, _ = hw_oracle.rasterize_hw(clip, vary, idx, w, h)
+    if not np.array_equal(mask.cpu().numpy(), wid >= 0):
+        raise AssertionError("grid-16 160x120: the hw coverage is not the int64 oracle's")
+    grid16 = {"covered": int(mask.sum()), "oracle_covered": int((wid >= 0).sum())}
+
+    records, binning, _ = scene_inputs(vt.make_terrain(W, H, GRID, device="cpu"), dev, "hw")
+    check(f"spike {W}x{H} g{GRID}", records, binning, W, H)
+
+    views, projs = (a[1:] for a in special_cameras(W, H))
+    crossing = w_crossing_valid(grid_fields(256, views, projs, dev), 256)
+    if crossing == 0:
+        raise AssertionError("g256 w-crossing: no valid triangle crosses w = 0")
+    check(f"g256 w-crossing {W}x{H}", *record_route(256, views, projs, dev, "hw"), W, H)
+
+    # The main path's shapes (phase 3d): the triangle (whose edge products
+    # lie far outside the range where the snapped edge functions are
+    # exact), the g1024 spike frame and the Renderer's DEM-2048 frame
+    # (extended vertex stage) under hw.
+    check(f"triangle {W}x{H}", *pipeline.triangle_records(W, H, dev, "hw"), W, H)
+    records, binning, _ = scene_inputs(vt.make_terrain(W, H, VGRID, device="cpu"), dev, "hw")
+    check(f"spike {W}x{H} g{VGRID}", records, binning, W, H)
+    del records, binning
+    xyuv, tris, heights, views, projs = renderer_frame(make_renderer(DEM_MAIN, dev))
+    one = tensor(1.0, dev)
+    check(f"Renderer {W}x{H} DEM-{DEM_MAIN}", *pipeline.terrain_records(
+        xyuv, tris.long(), heights, views, projs, one, one, W, H, fs_mode="extended",
+        fill_rule="hw"), W, H)
+    del xyuv, tris, heights
+    torch.cuda.empty_cache()
+
+    clip, vary, idx = watertight_quad()
+    count = sum(kernels.raster_gbuffer_hw(*hw_records(clip, vary, tri[None], QUAD_W, QUAD_H, dev),
+                                          1, QUAD_W, QUAD_H)[3][0].to(torch.int32)
+                for tri in idx)
+    both = check("watertight quad", *hw_records(clip, vary, idx, QUAD_W, QUAD_H, dev),
+                 QUAD_W, QUAD_H)
+    interior = count[12:69, 12:69]
+    if int(count.max()) > 1 or not bool((interior == 1).all()) or not torch.equal(both, count == 1):
+        raise AssertionError(f"watertight quad: a pixel is covered {int(count.max())} times "
+                             f"or an interior pixel is missed")
+    say("hw_kernel_vs_plain", tolerance=f"masks exact; varyings <= {VARYING_RTOL}*max(1,|x|); "
+        f"images: bytes off by <= 1 on <= {FS_MAX_FRACTION} of bytes; grid-16 mask equal to "
+        "hw_oracle", cases=list(plain_ms), plain_ms=plain_ms,
+        max_err=errs, grid16=grid16, w_crossing_valid=crossing,
+        quad={"max_cover": int(count.max()), "interior_pixels": int(interior.numel()),
+              "covered_once": int((count == 1).sum())})
+    return errs
+
+
+def phase3d_hw_main_path(dev):
+    """Slice 4's main path under VF_FILL_RULE=hw, set here and restored
+    after: render_triangle_rgba(800,600), make_terrain(800,600,1024) and the
+    Renderer at DEM-2048. Only the hw kernels may launch; a small Scene
+    and the triangle are held to device="cpu". Returns the launch counts."""
+    spike = vt.make_terrain(W, H, VGRID, device=dev)
+    main = make_renderer(DEM_MAIN, dev)
+    every = HW_KERNELS + RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS
+    previous = os.environ.get("VF_FILL_RULE")
+    os.environ["VF_FILL_RULE"] = "hw"
+    try:
+        for _, fn in every:
+            fn.launches = 0
+        out = {f"triangle_{W}x{H}": vt.render_triangle_rgba(W, H, device=dev),
+               f"spike_{W}x{H}_g{VGRID}": spike.render_rgba(),
+               f"renderer_{W}x{H}_dem{DEM_MAIN}": main.render_rgba()}
+        sync()
+        launches = {name: fn.launches for name, fn in every}
+        scene = {}
+        for d in (dev, "cpu"):
+            s = vt.Scene(160, 120, 32, "magma", device=d)
+            s.set_height_from_r32f(scene_height())
+            scene[str(d)] = s.render_rgba()
+        cpu_triangle = vt.render_triangle_rgba(W, H, device="cpu")
+        os.environ["VF_FILL_RULE"] = "inclusive"
+        inclusive = {f"triangle_{W}x{H}": vt.render_triangle_rgba(W, H, device=dev),
+                     f"spike_{W}x{H}_g{VGRID}": spike.render_rgba(),
+                     f"renderer_{W}x{H}_dem{DEM_MAIN}": main.render_rgba()}
+    finally:
+        restore_fill_rule(previous)
+    for name, _ in HW_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"slice 4's main path never launched {name}")
+    for name, _ in RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS:
+        if launches[name] != 0:
+            raise AssertionError(f"slice 4's main path launched {name}")
+    parity = {"scene_magma_160x120_g32": assert_fs_policy(scene[str(dev)], scene["cpu"],
+                                                          "hw Scene cuda vs cpu"),
+              f"triangle_{W}x{H}": assert_fs_policy(out[f"triangle_{W}x{H}"], cpu_triangle,
+                                                    "hw triangle cuda vs cpu")}
+    # The rule moves only pixels whose centres lie on an edge: a terrain
+    # frame's covered share (pixels off the clear colour) stays within 1% of
+    # the inclusive frame's.
+    clear = np.array([39, 39, 48], np.uint8)    # the terrain's clear colour in sRGB u8
+    covered, differ = {}, {}
+    for name, img in out.items():
+        if img.dtype != np.uint8 or img.shape != (H, W, 4):
+            raise AssertionError(f"{name}: bad image {img.dtype} {img.shape}")
+        differ[name] = float((img != inclusive[name]).any(-1).mean())
+        if not name.startswith("triangle"):
+            share = [float((a[..., :3] != clear).any(-1).mean()) for a in (img, inclusive[name])]
+            covered[name] = {"hw": share[0], "inclusive": share[1]}
+            if share[0] < 0.1 or abs(share[0] - share[1]) > 0.01:
+                raise AssertionError(f"{name}: the terrain covers {share[0]:.4f} of the frame "
+                                     f"under hw, {share[1]:.4f} under inclusive")
+    say("hw_main_path", config=f"VF_FILL_RULE=hw: render_triangle_rgba({W},{H}); "
+        f"make_terrain({W},{H},{VGRID}).render_rgba(); Renderer({W},{H}) DEM-{DEM_MAIN} "
+        "render_rgba", launches=launches, covered_share=covered,
+        pixels_differing_from_inclusive=differ,
+        cuda_vs_cpu={k: {"max_byte_delta": v[0], "frac_bytes_differ": v[1]}
+                     for k, v in parity.items()},
+        sha256={k: hashlib.sha256(v.tobytes()).hexdigest() for k, v in out.items()})
+    return launches
+
+
+def kernel_turns(inclusive, hw):
+    """Per-launch ms of an inclusive kernel call and its hw counterpart,
+    timed in turns (inclusive, hw, hw, inclusive; each a median of 5 runs of
+    20 back-to-back launches); the mean of each one's two turns."""
+    times = {"inclusive": [], "hw": []}
+    for rule in ("inclusive", "hw", "hw", "inclusive"):
+        times[rule].append(cuda_ms(inclusive if rule == "inclusive" else hw, inner=KERNEL_INNER))
+    return {k: statistics.mean(v) for k, v in times.items()}, times
+
+
+def phase4d_hw_timing(smi, dev):
+    """Slice 4's times: each 3d frame under hw against inclusive (median
+    and p80 of 20 calls, peak device memory), and each hw kernel per launch
+    against its inclusive counterpart and its bound. Returns the per-kernel
+    record of the kernels line."""
+    spike = vt.make_terrain(W, H, VGRID, device=dev)
+    main = make_renderer(DEM_MAIN, dev)
+    frames = {f"triangle {W}x{H}": lambda: vt.render_triangle_rgba(W, H, device=dev),
+              f"spike {W}x{H} g{VGRID}": spike.render_rgba,
+              f"Renderer {W}x{H} DEM-{DEM_MAIN}": main.render_rgba}
+    latency = {}
+    previous = os.environ.get("VF_FILL_RULE")
+    try:
+        for label, fn in frames.items():
+            times, peak = {"inclusive": [], "hw": []}, {}
+            for rule in ("inclusive", "hw", "hw", "inclusive"):
+                os.environ["VF_FILL_RULE"] = rule
+                fn()
+                sync()
+                if rule not in peak:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    fn()
+                    sync()
+                    top = torch.cuda.max_memory_allocated()
+                    peak[rule] = {"peak_bytes": int(top), "above_resident_bytes": int(top - base)}
+                times[rule] += host_ms(fn, [()] * 10)
+            latency[label] = {}
+            for rule, t in times.items():
+                q = np.percentile(t, [50, 80])
+                latency[label][rule] = {"median_ms": float(q[0]), "p80_ms": float(q[1]),
+                                        "n": len(t), **peak[rule]}
+    finally:
+        restore_fill_rule(previous)
+    del frames
+    torch.cuda.empty_cache()
+
+    # Where the g1024 hw frame's time goes (host clock after a synchronize,
+    # median of 5): the mesh's copy to the card, which the record route
+    # makes every frame, setup and binning, the kernel, the readback.
+    g = spike._globals
+    t = lambda a: tensor(a, dev)
+    mesh = lambda: (pipeline._f32(spike._xyuv, dev), pipeline._tri_indices(spike._indices, dev))
+    xyuv, tris = mesh()
+    records = lambda: pipeline.terrain_records(
+        xyuv, tris, t(spike._heights), t(spike._view)[None], t(spike._proj)[None],
+        t(g.spacing), t(g.exaggeration), W, H, fill_rule="hw")
+    rb = records()
+    kern = lambda: kernels.raster_shade_shipped_hw(
+        *rb, 1, W, H, t(spike._lut), t(g.h_max) - t(g.h_min), t(g.exposure), t(g.sun_dir))
+    img = kern()
+    stages = {name: statistics.median(host_ms(fn, [()] * 5)) for name, fn in (
+        ("mesh_to_device", mesh), ("setup_and_binning", records), ("kernel", kern),
+        ("readback", lambda: _formats.u32_image_to_rgba_u8(img[0]).cpu()))}
+    del xyuv, tris, rb, img
+    torch.cuda.empty_cache()
+
+    # Each hw kernel per launch, against the inclusive kernel on the same
+    # scene's inclusive records, and its bound (34 live columns).
+    shade = spike_shading(dev)
+    rec, turns = {}, {}
+    tri = {rule: pipeline.triangle_records(W, H, dev, rule) for rule in ("inclusive", "hw")}
+    ms, turns["gbuffer triangle"] = kernel_turns(
+        lambda: kernels.raster_gbuffer(*tri["inclusive"], 1, W, H),
+        lambda: kernels.raster_gbuffer_hw(*tri["hw"], 1, W, H))
+    rec["vf_raster_gbuffer_hw"] = {
+        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
+        "plain_ms": cuda_ms(lambda: tiles.render_gbuffer(*tri["hw"], 1, W, H)),
+        **record_bound(*tri["hw"], 1, W, H, shade=False, cols=setup.HW_COLS)}
+    extra = {}
+    g128 = vt.make_terrain(W, H, GRID, device="cpu")
+    s128 = {rule: scene_inputs(g128, dev, rule)[:2] for rule in ("inclusive", "hw")}
+    ms, turns["gbuffer spike g128"] = kernel_turns(
+        lambda: kernels.raster_gbuffer(*s128["inclusive"], 1, W, H),
+        lambda: kernels.raster_gbuffer_hw(*s128["hw"], 1, W, H))
+    extra[f"vf_raster_gbuffer_hw spike g{GRID}"] = {
+        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
+        **record_bound(*s128["hw"], 1, W, H, shade=False, cols=setup.HW_COLS)}
+    ms, turns["shade spike g128"] = kernel_turns(
+        lambda: kernels.raster_shade_shipped(*s128["inclusive"], 1, W, H, *shade),
+        lambda: kernels.raster_shade_shipped_hw(*s128["hw"], 1, W, H, *shade))
+    extra[f"vf_raster_shade_shipped_hw spike g{GRID}"] = {
+        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
+        **record_bound(*s128["hw"], 1, W, H, shade=True, cols=setup.HW_COLS)}
+    del s128
+
+    # The main path's shapes: the g1024 spike frame (shipped) and the
+    # DEM-2048 Renderer frame (extended). The plain raster walks the g1024
+    # frame's busiest tile list step by step (seconds on the card): its
+    # first call, timed alone, is the measurement (phase 2d times it at
+    # DEM-2048).
+    g1024 = vt.make_terrain(W, H, VGRID, device="cpu")
+    s1024 = {rule: scene_inputs(g1024, dev, rule)[:2] for rule in ("inclusive", "hw")}
+    ms, turns["shade spike g1024"] = kernel_turns(
+        lambda: kernels.raster_shade_shipped(*s1024["inclusive"], 1, W, H, *shade),
+        lambda: kernels.raster_shade_shipped_hw(*s1024["hw"], 1, W, H, *shade))
+    rec["vf_raster_shade_shipped_hw"] = {
+        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
+        "plain_ms": cuda_ms(lambda: fragment.terrain_fs(
+            *tiles.render_gbuffer(*s1024["hw"], 1, W, H), *shade), reps=1, warmup=0),
+        "pairs": int(s1024["hw"][1].rows.numel()),
+        **record_bound(*s1024["hw"], 1, W, H, shade=True, cols=setup.HW_COLS)}
+    del s1024
+    torch.cuda.empty_cache()
+    xyuv, tris, heights, views, projs = renderer_frame(main)
+    one = tensor(1.0, dev)
+    dem = {rule: pipeline.terrain_records(xyuv, tris.long(), heights, views, projs, one, one,
+                                          W, H, fs_mode="extended", fill_rule=rule)
+           for rule in ("inclusive", "hw")}
+    ms, turns["gbuffer DEM-2048"] = kernel_turns(
+        lambda: kernels.raster_gbuffer(*dem["inclusive"], 1, W, H),
+        lambda: kernels.raster_gbuffer_hw(*dem["hw"], 1, W, H))
+    extra[f"vf_raster_gbuffer_hw DEM-{DEM_MAIN}"] = {
+        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
+        "pairs": int(dem["hw"][1].rows.numel()),
+        **record_bound(*dem["hw"], 1, W, H, shade=False, cols=setup.HW_COLS)}
+    del dem, main
+    torch.cuda.empty_cache()
+    say("hw_timing", card=smi, config=f"{W}x{H}; VF_FILL_RULE=hw against inclusive, in turns",
+        single_frame=latency, spike_hw_stages_ms=stages, kernel_ms=rec,
+        kernel_ms_other_shapes=extra, kernel_turns=turns)
+    return rec
+
+
 def profile_window(render, cams, label, top=12):
     """torch.profiler over render(*c) for each camera set: the device's busy
     share (union of device-event intervals over the span from the first to
@@ -1467,6 +1818,8 @@ def main() -> int:
     sync()
     packed_err = phase2c_packed_kernels(dev)
     sync()
+    hw_err = phase2d_hw_kernels(dev)
+    sync()
     launches = phase3_main_path()
     sync()
     vtx_launches = phase3b_vtx_main_path(dev)
@@ -1475,11 +1828,16 @@ def main() -> int:
     packed_launches = phase3c_renderer_main_path(dev)
     launches.update({name: packed_launches[name] for name, _ in PACKED_KERNELS})
     sync()
+    hw_launches = phase3d_hw_main_path(dev)
+    launches.update({name: hw_launches[name] for name, _ in HW_KERNELS})
+    sync()
     phase4_batch(smi, dev)
     sync()
     vtx_rec = phase4b_vtx_timing(smi, dev)
     sync()
     packed_rec = phase4c_packed_timing(smi, dev)
+    sync()
+    hw_rec = phase4d_hw_timing(smi, dev)
     sync()
     if opts.profile:
         phase5_profile(dev)
@@ -1515,6 +1873,14 @@ def main() -> int:
                      "source": "vulkan_forge_torch/csrc/packed.cu", "replaces": replaces[name],
                      "launches": launches[name], "max_abs_err": packed_err[name],
                      **{k: packed_rec[name][k] for k in keys}, "library_ms": None})
+    # K1's hw branch (pallas_backend.py:78-80) serves the triangle; K7's hw
+    # mode (strips.py:261-265) the terrain frames, shipped and extended.
+    replaces = {"vf_raster_gbuffer_hw": "vulkan_forge/_raster/pallas_backend.py:33",
+                "vf_raster_shade_shipped_hw": "vulkan_forge/_raster/strips.py:155"}
+    for name, _ in HW_KERNELS:
+        line.append({"name": name, "route": "cuda", "source": src, "replaces": replaces[name],
+                     "launches": launches[name], "max_abs_err": hw_err[name],
+                     **{k: hw_rec[name][k] for k in keys}, "library_ms": None})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

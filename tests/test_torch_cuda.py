@@ -18,7 +18,8 @@ import torch
 import vulkan_forge_torch as vt
 from vulkan_forge_torch import _camera, _colormap, _mesh, _renderer as trend
 from vulkan_forge_torch._parity import assert_fs_policy
-from vulkan_forge_torch._raster import fragment, kernels, packed, pipeline, setup, tiles, vtx
+from vulkan_forge_torch._raster import (fragment, hw_oracle, kernels, packed, pipeline, setup,
+                                        tiles, vtx)
 
 
 @pytest.fixture
@@ -28,7 +29,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _terrain(grid, W, H, eye, dev, batch=1):
+def _terrain(grid, W, H, eye, dev, batch=1, fill_rule="inclusive"):
     xyuv, idx = _mesh.build_grid_xyuv(grid)
     views = np.stack([_camera.look_at_rh(
         (eye[0] * math.cos(0.7 * b) - eye[2] * math.sin(0.7 * b), eye[1],
@@ -39,7 +40,8 @@ def _terrain(grid, W, H, eye, dev, batch=1):
     t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
     records, binning = pipeline.terrain_records(
         t(xyuv), torch.as_tensor(idx.astype(np.int64).reshape(-1, 3), device=dev),
-        t(np.zeros((1, 1))), t(views), t(np.stack([proj] * batch)), t(1.0), t(1.0), W, H)
+        t(np.zeros((1, 1))), t(views), t(np.stack([proj] * batch)), t(1.0), t(1.0), W, H,
+        fill_rule=fill_rule)
     lut, _ = _colormap.build_lut("terrain")
     shade = (t(lut), t(1.0), t(1.1), t([0.35, 0.9, 0.2]))
     return records, binning, shade
@@ -72,6 +74,76 @@ def test_shade_kernel_matches_plain(cuda, grid, W, H, eye, batch):
     assert kernels.raster_shade_shipped.launches == n + 1
     plain = fragment.terrain_fs(*tiles.render_gbuffer(records, binning, batch, W, H), *shade)
     assert_fs_policy(img, plain, "shade kernel vs plain")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,W,H,eye,batch", CASES)
+def test_hw_kernels_match_plain(cuda, grid, W, H, eye, batch):
+    """The hardware fill rule: both _hw kernels against the plain raster
+    over the same snapped records; only the _hw kernels launch."""
+    records, binning, shade = _terrain(grid, W, H, eye, cuda, batch, fill_rule="hw")
+    wrappers = (kernels.raster_gbuffer_hw, kernels.raster_shade_shipped_hw,
+                kernels.raster_gbuffer, kernels.raster_shade_shipped)
+    n = [f.launches for f in wrappers]
+    got = kernels.raster_gbuffer_hw(records, binning, batch, W, H)
+    img = kernels.raster_shade_shipped_hw(records, binning, batch, W, H, *shade)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [n[0] + 1, n[1] + 1, n[2], n[3]]
+    want = tiles.render_gbuffer(records, binning, batch, W, H)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert_fs_policy(img, fragment.terrain_fs(*want, *shade), "hw shade kernel vs plain")
+
+
+@pytest.mark.gpu
+def test_hw_kernel_equals_fixed_point_oracle(cuda):
+    """The grid-16 160x120 scene of tests/test_packed.py:261-283: the hw
+    kernel's coverage is the int64 oracle's, bit for bit."""
+    W, H = 160, 120
+    xyuv, idx = _mesh.build_grid_xyuv(16)
+    x, z = xyuv[:, 0], xyuv[:, 1]
+    h = np.sin(x * 1.3) * 0.25 + np.cos(z * 1.1) * 0.25
+    view = _camera.look_at_rh((3.0, 2.0, 3.0), (0, 0, 0), (0, 1, 0))
+    proj = _camera.perspective_wgpu(np.float32(math.radians(45.0)), np.float32(W / H),
+                                    np.float32(0.1), np.float32(100.0))
+    clip = (np.stack([x, h, z, np.ones_like(x)], axis=-1) @ view.T) @ proj.T
+    vary = np.stack([h, x, z], axis=-1)
+    indices = idx.astype(np.int64).reshape(-1, 3)
+    xf, yf, zf, wf = setup.clip_to_fb(torch.as_tensor(clip, device=cuda), W, H)
+    records, bbox = setup.triangle_setup(xf, yf, zf, wf, torch.as_tensor(vary, device=cuda),
+                                         torch.as_tensor(indices, device=cuda), W, H, "hw")
+    mask = kernels.raster_gbuffer_hw(records, setup.bin_tiles(bbox, W, H), 1, W, H)[3]
+    wid, _ = hw_oracle.rasterize_hw(clip, vary, indices, W, H)
+    np.testing.assert_array_equal(mask[0].cpu().numpy(), wid >= 0)
+
+
+def _api_hw(name, device):
+    if name == "renderer_160x120":
+        r = vt.Renderer(160, 120, device=device)
+        r.add_terrain(_dem(40, 56, 7), (10.0, 12.0), 1.5, "terrain")
+        r.upload_height_r32f()
+        return r.render_rgba()
+    return _api(name, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kernel", [
+    ("triangle_97x61", "raster_gbuffer_hw"), ("scene_magma_160x120_g32", "raster_shade_shipped_hw"),
+    ("spike_terrain_128x96_g16_cam", "raster_shade_shipped_hw"),
+    ("renderer_160x120", "raster_gbuffer_hw")])
+def test_hw_public_api_cuda_equals_cpu(cuda, name, kernel, monkeypatch):
+    """Under VF_FILL_RULE=hw every frame takes the record route: one _hw
+    kernel launches and no vtx, indexed or inclusive kernel; the CUDA image
+    is held to the CPU image under the FS policy."""
+    monkeypatch.setenv("VF_FILL_RULE", "hw")
+    wrappers = ("raster_gbuffer_hw", "raster_shade_shipped_hw", "raster_gbuffer",
+                "raster_shade_shipped", "vtx_cover", "packed_cover")
+    counts = lambda: [getattr(kernels, w).launches for w in wrappers]
+    before = counts()
+    got = _api_hw(name, "cuda")
+    torch.cuda.synchronize()
+    assert counts() == [n + (w == kernel) for w, n in zip(wrappers, before)]
+    assert_fs_policy(got, _api_hw(name, "cpu"), f"{name} under hw, cuda vs cpu")
 
 
 @pytest.mark.gpu

@@ -111,6 +111,32 @@ def test_dem_module_is_the_reference_copy():
     assert (ta.h_min, ta.h_max) == (ja.h_min, ja.h_max)
 
 
+def test_hw_oracle_is_the_reference_copy():
+    """The port's copy of the fixed-point fill-rule oracle has the
+    original's code, constants and answers: a random soup whose triangles
+    cross the near plane, the far plane and w = 0 rasterizes to the same
+    winners and attributes bit for bit."""
+    import inspect
+    from vulkan_forge._raster import hw_oracle as jhw
+    from vulkan_forge_torch._raster import hw_oracle as thw
+    for name in ("_clip_polygon", "_is_top_left", "rasterize_hw", "_raster_tri"):
+        assert inspect.getsource(getattr(thw, name)) == inspect.getsource(getattr(jhw, name))
+    for name in ("SUBPIX", "ONE", "HALF", "EPS_W"):
+        assert getattr(thw, name) == getattr(jhw, name)
+    rng = np.random.default_rng(9)
+    n = 60
+    w = rng.uniform(-0.3, 2.0, n * 3)
+    clip = np.stack([rng.uniform(-1.2, 1.2, n * 3) * w, rng.uniform(-1.2, 1.2, n * 3) * w,
+                     rng.uniform(-0.2, 1.2, n * 3) * w, w], axis=1)
+    attrs = rng.uniform(-3, 3, (n * 3, 3))
+    indices = np.arange(n * 3).reshape(-1, 3)
+    (wid_t, out_t), (wid_j, out_j) = (m.rasterize_hw(clip, attrs, indices, 48, 40)
+                                      for m in (thw, jhw))
+    assert (wid_t >= 0).sum() > 100
+    _same(wid_t, wid_j)
+    _same(out_t, out_j)
+
+
 def test_package_data_ships_every_csrc_include():
     """Every source in csrc/ and every file it includes with #include "..."
     is matched by pyproject.toml's package-data globs, so an installed
@@ -250,7 +276,8 @@ def test_resolve_device_none_raises_without_card(monkeypatch):
 
 def test_port_imports_without_jax():
     code = ("import sys, vulkan_forge_torch, vulkan_forge_torch._convert, "
-            "vulkan_forge_torch._parity, vulkan_forge_torch._raster.kernels; "
+            "vulkan_forge_torch._parity, vulkan_forge_torch._raster.kernels, "
+            "vulkan_forge_torch._raster.hw_oracle; "
             "assert 'jax' not in sys.modules, 'jax was imported'; "
             "assert 'vulkan_forge' not in sys.modules")
     env = dict(os.environ, PYTHONPATH=REPO)

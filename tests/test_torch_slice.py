@@ -143,11 +143,13 @@ def test_render_png_writes_the_frame(tmp_path):
 
 
 def test_unported_modes_raise(monkeypatch):
+    # VF_FILL_RULE=hw is ported (tests/test_torch_fillrule.py holds it to
+    # the reference): it renders as vulkan_forge does.
     monkeypatch.setenv("VF_FILL_RULE", "hw")
-    with pytest.raises(NotImplementedError, match="VF_FILL_RULE=hw"):
-        vt.render_triangle_rgba(16, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="VF_FILL_RULE=hw"):
-        vt.make_terrain(16, 16, 4, device="cpu").render_rgba()
+    assert_fs_policy(vt.render_triangle_rgba(16, 16, device="cpu"),
+                     vf.render_triangle_rgba(16, 16), "hw triangle 16x16")
+    assert_fs_policy(vt.make_terrain(16, 16, 4, device="cpu").render_rgba(),
+                     vf.make_terrain(16, 16, 4).render_rgba(), "hw terrain 16x16 g4")
     monkeypatch.delenv("VF_FILL_RULE")
     s = vt.make_terrain(16, 16, 4, device="cpu")
     args = dict(spacing=1.0, exaggeration=1.0, h_min=-0.5, h_max=0.5, exposure=1.0,

@@ -1,6 +1,6 @@
 """Build, binding and wrappers of the hand-written CUDA raster kernels.
 
-``csrc/raster.cu`` holds two kernels over one raster body of triangle
+``csrc/raster.cu`` holds four kernels over one raster body of triangle
 records (see the note at the top of that file for what each replaces and
 what bounds it):
 
@@ -11,6 +11,11 @@ what bounds it):
     ``packed._packed_kernel_resident_fused`` (K4, packed.py:755) with the
     shipped fragment shader ``fragment.terrain_fs_tile`` (K2,
     fragment.py:81) in its epilogue.
+  - ``raster_gbuffer_hw`` -> ``vf_raster_gbuffer_hw`` and
+    ``raster_shade_shipped_hw`` -> ``vf_raster_shade_shipped_hw``: the
+    hardware fill rule (``VF_FILL_RULE=hw``) of K1 and K7 over records set
+    up with ``fill_rule="hw"``; their plain versions are the same as the
+    inclusive kernels', which read each edge's threshold from the records.
 
 ``csrc/vtx.cu`` holds the vertex-stream route's four kernels, one wrapper
 each, which together replace ``vtx._vtx_kernel`` (K3a, vtx.py:590) and
@@ -75,7 +80,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "vf_raster_gbuffer": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vf_raster_gbuffer_hw": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_raster_shade_shipped": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vf_raster_shade_shipped_hw": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "vf_tile": [],
     "vf_vtx_cover": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "vf_vtx_cover_big": [_P, _I, _I, _I, _P, _P, _P, _P],
@@ -214,12 +221,10 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
-def raster_gbuffer(records: torch.Tensor, binning: Binning, n_frames: int,
-                   width: int, height: int):
-    """Binned records -> g-buffer (v0, v1, v2, mask), each (B, H, W).
-
-    CPU tensors: tiles.render_gbuffer. CUDA tensors: ``vf_raster_gbuffer``.
-    """
+def _gbuffer(wrapper, symbol: str, records, binning, n_frames: int, width: int,
+             height: int):
+    """The g-buffer kernel ``symbol`` (or its plain version for CPU
+    tensors), counted on ``wrapper.launches``."""
     _check_inputs(records, binning, n_frames, width, height)
     if records.device.type == "cpu":
         return tiles.render_gbuffer(records, binning, n_frames, width, height)
@@ -229,16 +234,61 @@ def raster_gbuffer(records: torch.Tensor, binning: Binning, n_frames: int,
     mask = torch.empty(shape, dtype=torch.bool, device=records.device)
     lib = load()
     with torch.cuda.device(records.device):
-        err = lib.vf_raster_gbuffer(
+        err = getattr(lib, symbol)(
             *_launch_args(records, binning, n_frames, width, height),
             v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
             _stream(records.device))
-    _raise_on(err, "vf_raster_gbuffer")
-    raster_gbuffer.launches += 1
+    _raise_on(err, symbol)
+    wrapper.launches += 1
     return v0, v1, v2, mask
 
 
+def raster_gbuffer(records: torch.Tensor, binning: Binning, n_frames: int,
+                   width: int, height: int):
+    """Binned records -> g-buffer (v0, v1, v2, mask), each (B, H, W).
+
+    CPU tensors: tiles.render_gbuffer. CUDA tensors: ``vf_raster_gbuffer``.
+    """
+    return _gbuffer(raster_gbuffer, "vf_raster_gbuffer", records, binning, n_frames,
+                    width, height)
+
+
+def raster_gbuffer_hw(records: torch.Tensor, binning: Binning, n_frames: int,
+                      width: int, height: int):
+    """``raster_gbuffer`` under the hardware fill rule, over records set up
+    with ``fill_rule="hw"``.
+
+    CPU tensors: tiles.render_gbuffer. CUDA tensors: ``vf_raster_gbuffer_hw``.
+    """
+    return _gbuffer(raster_gbuffer_hw, "vf_raster_gbuffer_hw", records, binning,
+                    n_frames, width, height)
+
+
 raster_gbuffer.launches = 0
+raster_gbuffer_hw.launches = 0
+
+
+def _shade(wrapper, symbol: str, records, binning, n_frames: int, width: int,
+           height: int, lut, h_range, exposure, sun_dir):
+    """The shading kernel ``symbol`` (or its plain version for CPU
+    tensors), counted on ``wrapper.launches``."""
+    _check_inputs(records, binning, n_frames, width, height)
+    _check_shading(lut, h_range, exposure, sun_dir, records.device)
+    if records.device.type == "cpu":
+        v0, v1, v2, mask = tiles.render_gbuffer(records, binning, n_frames, width, height)
+        return fragment.terrain_fs(v0, v1, v2, mask, lut, h_range, exposure,
+                                   sun_dir)
+    lut_rgb, par = _shading_params(lut, h_range, exposure, sun_dir)
+    image = torch.empty((n_frames, height, width), dtype=torch.int32,
+                        device=records.device)
+    lib = load()
+    with torch.cuda.device(records.device):
+        err = getattr(lib, symbol)(
+            *_launch_args(records, binning, n_frames, width, height),
+            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(), _stream(records.device))
+    _raise_on(err, symbol)
+    wrapper.launches += 1
+    return image.view(torch.uint32)
 
 
 def raster_shade_shipped(records: torch.Tensor, binning: Binning,
@@ -251,27 +301,26 @@ def raster_shade_shipped(records: torch.Tensor, binning: Binning,
     tensors: ``vf_raster_shade_shipped``, with hr2, exposure and the
     normalized sun computed here by ``fragment.fs_scalars``.
     """
-    _check_inputs(records, binning, n_frames, width, height)
-    _check_shading(lut, h_range, exposure, sun_dir, records.device)
-    if records.device.type == "cpu":
-        v0, v1, v2, mask = tiles.render_gbuffer(records, binning, n_frames,
-                                                width, height)
-        return fragment.terrain_fs(v0, v1, v2, mask, lut, h_range, exposure,
-                                   sun_dir)
-    lut_rgb, par = _shading_params(lut, h_range, exposure, sun_dir)
-    image = torch.empty((n_frames, height, width), dtype=torch.int32,
-                        device=records.device)
-    lib = load()
-    with torch.cuda.device(records.device):
-        err = lib.vf_raster_shade_shipped(
-            *_launch_args(records, binning, n_frames, width, height),
-            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(), _stream(records.device))
-    _raise_on(err, "vf_raster_shade_shipped")
-    raster_shade_shipped.launches += 1
-    return image.view(torch.uint32)
+    return _shade(raster_shade_shipped, "vf_raster_shade_shipped", records, binning,
+                  n_frames, width, height, lut, h_range, exposure, sun_dir)
+
+
+def raster_shade_shipped_hw(records: torch.Tensor, binning: Binning,
+                            n_frames: int, width: int, height: int,
+                            lut: torch.Tensor, h_range: torch.Tensor,
+                            exposure: torch.Tensor, sun_dir: torch.Tensor):
+    """``raster_shade_shipped`` under the hardware fill rule, over records
+    set up with ``fill_rule="hw"``.
+
+    CPU tensors: tiles.render_gbuffer then fragment.terrain_fs. CUDA
+    tensors: ``vf_raster_shade_shipped_hw``.
+    """
+    return _shade(raster_shade_shipped_hw, "vf_raster_shade_shipped_hw", records, binning,
+                  n_frames, width, height, lut, h_range, exposure, sun_dir)
 
 
 raster_shade_shipped.launches = 0
+raster_shade_shipped_hw.launches = 0
 
 
 # ---------------- vertex-stream route (csrc/vtx.cu) ----------------

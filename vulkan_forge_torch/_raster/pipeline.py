@@ -30,6 +30,12 @@ extended shader (``fragment.terrain_fs_extended``) runs in torch after the
 route's g-buffer kernel. On the CPU every kernel is its plain version
 (kernels.py). The TPU routing thresholds (VMEM sizing) and experiment
 knobs of the JAX pipeline are not carried over.
+
+``VF_FILL_RULE=hw`` (read by the single-frame entries, ``fill_rule=`` on
+the batched one) selects the hardware fill rule: 8.8-snapped setup and
+top-left edge thresholds. Its records exist only on the record route, so
+every hw frame takes it, grid or not, shipped or extended, as every hw
+frame of ``vulkan_forge`` takes its record kernels (pipeline.py:605-613).
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ import torch
 from .. import _formats
 from .._device import resolve_device
 from . import fragment, kernels, packed, transform, vtx
-from .setup import REC_WIDTH, bin_tiles, clip_to_fb, triangle_setup
+from .setup import (FILL_RULES, REC_WIDTH, bin_tiles, check_fill_rule, clip_to_fb,
+                    triangle_setup)
 
 # Fixed geometry (src/lib.rs:73-78): CCW, u16 indices [0,1,2].
 _TRI_POS = np.array([[-0.8, -0.8], [0.8, -0.8], [0.0, 0.8]], dtype=np.float32)
@@ -51,12 +58,16 @@ _TRI_COLOR = np.array([[1.0, 0.2, 0.2], [0.2, 1.0, 0.2], [0.2, 0.2, 1.0]],
 FS_MODES = ("shipped", "extended")
 
 
+def fill_rule_from_env() -> str:
+    """``VF_FILL_RULE``: "hw" (8.8 snap + top-left rule) or "inclusive";
+    any other value means "inclusive", as in ``vulkan_forge`` (pipeline.py:
+    609-611)."""
+    rule = os.environ.get("VF_FILL_RULE", "inclusive")
+    return rule if rule in FILL_RULES else "inclusive"
+
+
 def _check_render_env() -> None:
     """Refuse settings the port does not render faithfully."""
-    if os.environ.get("VF_FILL_RULE", "inclusive") == "hw":
-        raise NotImplementedError(
-            "VF_FILL_RULE=hw (8.8 snap + top-left rule) is not ported to "
-            "vulkan_forge_torch yet; unset it to render the inclusive rule")
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is on; the renderer's "
@@ -116,18 +127,26 @@ def use_indexed_route(grid_n, fs_mode: str) -> bool:
     return fs_mode == "extended" and grid_n is None
 
 
+def _gbuffer_kernel(hw: bool):
+    """The record route's g-buffer kernel for records set up under the hw
+    rule or not."""
+    return kernels.raster_gbuffer_hw if hw else kernels.raster_gbuffer
+
+
 def terrain_records(xyuv, indices, heights, views, projs, spacing,
                     exaggeration, width: int, height: int,
-                    fs_mode: str = "shipped"):
+                    fs_mode: str = "shipped", fill_rule: str = "inclusive"):
     """Vertex stage + setup + binning for B cameras of one terrain.
 
     All tensors on one device; views/projs (B, 4, 4). Returns
-    (records (B*(T+1), REC_WIDTH), binning).
+    (records (B*(T+1), REC_WIDTH), binning), the records set up under
+    ``fill_rule``.
     """
     vs = transform.terrain_vs if fs_mode == "shipped" else transform.terrain_vs_extended
     clip, varyings = vs(xyuv, heights, views, projs, spacing, exaggeration)
     x, y, z, w = clip_to_fb(clip, width, height)
-    records, bbox = triangle_setup(x, y, z, w, varyings, indices, width, height)
+    records, bbox = triangle_setup(x, y, z, w, varyings, indices, width, height,
+                                   fill_rule)
     return records.reshape(-1, REC_WIDTH), bin_tiles(bbox, width, height)
 
 
@@ -135,7 +154,8 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
                              spacing, exaggeration, h_min, h_max, exposure,
                              sun_dir, lut, width: int, height: int,
                              fs_mode: str = "shipped", normal_spacing=None,
-                             grid_n=None, device=None) -> torch.Tensor:
+                             grid_n=None, fill_rule: str = "inclusive",
+                             device=None) -> torch.Tensor:
     """Render B frames of one terrain, one camera each.
 
     xyuv (N, 4), indices (T, 3) or (3T,), heights (Ht, Wt), views/projs
@@ -144,12 +164,17 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
     vertex-stream route (``use_vtx_route``); its indices are then not read.
     fs_mode "shipped" is src/shaders/terrain.wgsl; "extended" the
     documented fwd-diff + Reinhard pipeline (no analytic relief), with
-    normals over ``normal_spacing`` (default ``spacing``). Returns
-    (B, H, W) uint32 RGBA words on ``device``.
+    normals over ``normal_spacing`` (default ``spacing``). fill_rule "hw"
+    (8.8 snap + top-left rule) takes every mesh through the record route,
+    whose records carry the edge thresholds, as ``vulkan_forge`` sends
+    every hw frame to its record kernels (pipeline.py:612-613); this entry
+    does not read ``VF_FILL_RULE`` (the reference's batched entries take no
+    fill rule). Returns (B, H, W) uint32 RGBA words on ``device``.
     """
     _check_render_env()
     if fs_mode not in FS_MODES:
         raise ValueError(f"fs_mode must be one of {FS_MODES}, got {fs_mode!r}")
+    hw = check_fill_rule(fill_rule) == "hw"
     dev = resolve_device(device)
     xyuv = _f32(xyuv, dev)
     heights = _f32(heights, dev)
@@ -166,14 +191,16 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
     n_frames = views.shape[0]
     n_tris = int(np.prod(np.shape(indices))) // 3
 
-    if use_vtx_route(grid_n, xyuv.shape[0], n_tris):
+    # The vtx and indexed routes set up in registers without the hw rule's
+    # snap and edge thresholds.
+    if not hw and use_vtx_route(grid_n, xyuv.shape[0], n_tris):
         fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
                                width, height, fs_mode)
         if fs_mode == "shipped":
             return vtx.render_image_vtx_batch(fields, lut, h_max - h_min, exposure,
                                               sun_dir, int(grid_n), width, height)
         gbuf = vtx.render_gbuffer_vtx_batch(fields, int(grid_n), width, height)
-    elif use_indexed_route(grid_n, fs_mode):
+    elif not hw and use_indexed_route(grid_n, fs_mode):
         fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
                                width, height, fs_mode)
         gbuf = packed.render_gbuffer_packed_batch(
@@ -181,12 +208,12 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
     else:
         records, binning = terrain_records(
             xyuv, _tri_indices(indices, dev), heights, views, projs, spacing,
-            exaggeration, width, height, fs_mode)
+            exaggeration, width, height, fs_mode, fill_rule)
         if fs_mode == "shipped":
-            return kernels.raster_shade_shipped(
-                records, binning, n_frames, width, height, lut, h_max - h_min,
-                exposure, sun_dir)
-        gbuf = kernels.raster_gbuffer(records, binning, n_frames, width, height)
+            shade = kernels.raster_shade_shipped_hw if hw else kernels.raster_shade_shipped
+            return shade(records, binning, n_frames, width, height, lut, h_max - h_min,
+                         exposure, sun_dir)
+        gbuf = _gbuffer_kernel(hw)(records, binning, n_frames, width, height)
     nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
     return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,
                                         sun_dir, nsp, exaggeration)
@@ -198,8 +225,9 @@ def render_terrain_u8(xyuv, indices, heights, view, proj, *, spacing,
                       normal_spacing=None, row_size=None, grid_n=None,
                       device=None, as_device: bool = False):
     """Render one terrain frame to an (H, W, 4) uint8 numpy array
-    (``render_terrain_batch_u32`` with one camera), or with ``as_device``
-    its (H, W) uint32 words on the device, as the JAX entry returns them.
+    (``render_terrain_batch_u32`` with one camera, under the fill rule of
+    ``VF_FILL_RULE``), or with ``as_device`` its (H, W) uint32 words on the
+    device, as the JAX entry returns them.
 
     ``row_size`` is the JAX entry's id stride of one mesh row, which sizes
     its strip and packed worklists (pipeline.py:574); no route of the port
@@ -211,27 +239,30 @@ def render_terrain_u8(xyuv, indices, heights, view, proj, *, spacing,
         spacing=spacing, exaggeration=exaggeration, h_min=h_min, h_max=h_max,
         exposure=exposure, sun_dir=sun_dir, lut=lut, width=width,
         height=height, fs_mode=fs_mode, normal_spacing=normal_spacing,
-        grid_n=grid_n, device=device)[0]
+        grid_n=grid_n, fill_rule=fill_rule_from_env(), device=device)[0]
     if as_device:
         return img
     return _formats.u32_image_to_rgba_u8(img).cpu().numpy()
 
 
-def triangle_records(width: int, height: int, device):
-    """The gradient triangle's (records (2, REC_WIDTH), binning) on ``device``."""
+def triangle_records(width: int, height: int, device, fill_rule: str = "inclusive"):
+    """The gradient triangle's (records (2, REC_WIDTH), binning) on
+    ``device``, set up under ``fill_rule``."""
     clip, colors = transform.triangle_vs(_f32(_TRI_POS, device), _f32(_TRI_COLOR, device))
     x, y, z, w = clip_to_fb(clip, width, height)
     indices = torch.tensor([[0, 1, 2]], dtype=torch.long, device=device)
-    records, bbox = triangle_setup(x, y, z, w, colors, indices, width, height)
+    records, bbox = triangle_setup(x, y, z, w, colors, indices, width, height, fill_rule)
     return records.reshape(-1, REC_WIDTH), bin_tiles(bbox, width, height)
 
 
 def render_triangle_u8(width: int, height: int, device=None, as_device: bool = False):
-    """Deterministic gradient triangle -> (H, W, 4) uint8 numpy array, or
-    with ``as_device`` its (H, W) uint32 words on the device."""
+    """Deterministic gradient triangle under the fill rule of
+    ``VF_FILL_RULE`` -> (H, W, 4) uint8 numpy array, or with ``as_device``
+    its (H, W) uint32 words on the device."""
     _check_render_env()
-    records, binning = triangle_records(width, height, resolve_device(device))
-    v0, v1, v2, mask = kernels.raster_gbuffer(records, binning, 1, width, height)
+    rule = fill_rule_from_env()
+    records, binning = triangle_records(width, height, resolve_device(device), rule)
+    v0, v1, v2, mask = _gbuffer_kernel(rule == "hw")(records, binning, 1, width, height)
     img = fragment.triangle_fs(v0[0], v1[0], v2[0], mask[0])
     if as_device:
         return img

@@ -3,7 +3,8 @@
 Port of ``vulkan_forge/_raster/setup.py`` (conventions, record layout and
 the near/far clip functionals are documented there, lines 1-74). Records
 are (..., T+1, REC_WIDTH) f32 rows, columns 0..30 in the layout of
-``setup.py:21-39``, row T an all-zero sentinel. Every column is computed
+``setup.py:21-39`` (and, under the "hw" fill rule, the per-edge coverage
+thresholds at 31..33), row T an all-zero sentinel. Every column is computed
 with the same f32 ops in the same order as ``setup_fields_core``; torch
 evaluates each op with one rounding, so the port is bit-equal to XLA where
 XLA does not contract a multiply-add (ROADMAP queue 3).
@@ -31,6 +32,32 @@ TILE = 16
 
 _W_EPS = 1e-8   # "in front of camera" threshold on clip w (hardware: w > 0)
 
+# Fill rules. "inclusive" (the default) covers every pixel centre on an
+# edge; "hw" is Vulkan's fixed-point rule (``VF_FILL_RULE=hw``,
+# ``vulkan_forge/_raster/setup.py:116-129``): vertices snap to the 8.8
+# subpixel grid and records carry one coverage threshold per edge at
+# columns 31..33 -- 0 for top-left edges (e == 0 covered), _HW_BIAS for the
+# rest (e == 0 excluded). Snapped edge functions are multiples of 2^-16, so
+# "e > 0" is "e >= 2^-16" exactly while the f32 edge products stay exact.
+FILL_RULES = ("inclusive", "hw")
+BIAS0_COL, BIAS1_COL, BIAS2_COL = 31, 32, 33
+HW_COLS = 34                # live record columns under the hw rule
+_HW_SNAP = 256.0            # 8.8 fixed point (Vulkan's minimum subpixel bits)
+_HW_BIAS = 2.0 ** -16       # one lattice step of the snapped edge function
+
+
+def snap_hw(v: torch.Tensor) -> torch.Tensor:
+    """Framebuffer coordinates on the 8.8 subpixel grid: round half to even,
+    as ``jnp.round`` and the oracle's ``round`` do; exact in f32 for
+    |v| < 2^15 (1/256 is a power of two)."""
+    return torch.round(v * _HW_SNAP) * (1.0 / _HW_SNAP)
+
+
+def check_fill_rule(fill_rule: str) -> str:
+    if fill_rule not in FILL_RULES:
+        raise ValueError(f"fill_rule must be one of {FILL_RULES}, got {fill_rule!r}")
+    return fill_rule
+
 
 def clip_to_fb(clip: torch.Tensor, width: int, height: int):
     """Clip space -> framebuffer coords (WebGPU viewport transform).
@@ -48,13 +75,16 @@ def clip_to_fb(clip: torch.Tensor, width: int, height: int):
     return x_fb, y_fb, ndc_z, w
 
 
-def setup_fields_core(c0, c1, c2, width: int, height: int):
+def setup_fields_core(c0, c1, c2, width: int, height: int,
+                      fill_rule: str = "inclusive"):
     """Triangle setup from per-corner per-FIELD tensors (field order:
-    x_fb, y_fb, w_clip, var0, var1, var2, z_ndc), inclusive fill rule.
+    x_fb, y_fb, w_clip, var0, var1, var2, z_ndc). Under the "hw" fill rule
+    the coordinates must already be snapped (``snap_hw``).
 
     Returns (cols, px0, px1, py0, py1, valid): the NUM_COLS record column
-    tensors, the int32 pixel-center bbox (pre-invalid-encoding) and the
-    bool valid flag (already folded into cols[24]).
+    tensors (HW_COLS under "hw": the three edge thresholds follow), the
+    int32 pixel-center bbox (pre-invalid-encoding) and the bool valid flag
+    (already folded into cols[24]).
     """
     x0, y0, w0, zn0 = c0[0], c0[1], c0[2], c0[6]
     x1, y1, w1, zn1 = c1[0], c1[1], c1[2], c1[6]
@@ -157,6 +187,23 @@ def setup_fields_core(c0, c1, c2, width: int, height: int):
     cols += [rw0 * t0, rw1 * t1, rw2 * t2, valid.to(torch.float32)]
     cols += [zn0 * t0, zn1 * t1, zn2 * t2]         # near-clip functional
     cols += [t0, t1, t2]                           # constant-1 (far clip)
+
+    if check_fill_rule(fill_rule) == "hw":
+        # Top-left rule per directed edge (hw_oracle._is_top_left on the
+        # snapped coordinates, y down): a horizontal edge is "top" iff it
+        # runs rightward, any other is "left" iff it runs upward. A
+        # w-crossing triangle keeps the inclusive rule (bias 0): hardware
+        # clips it into sub-polygons whose shared diagonals never tie.
+        zero, bias = torch.zeros_like(x0), torch.full_like(x0, _HW_BIAS)
+
+        def edge_bias(ax, ay, bx, by):
+            horiz = ay == by
+            topleft = (horiz & (bx > ax)) | (~horiz & (by < ay))
+            return torch.where(topleft | ~clean, zero, bias)
+
+        cols += [edge_bias(x1, y1, x2, y2),        # edge opp v0
+                 edge_bias(x2, y2, x0, y0),        # edge opp v1
+                 edge_bias(x0, y0, x1, y1)]        # edge opp v2
     return cols, px0, px1, py0, py1, valid
 
 
@@ -198,17 +245,21 @@ def indexed_corners(fields, indices):
 
 
 def setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
-               width: int, height: int):
+               width: int, height: int, fill_rule: str = "inclusive"):
     """Core triangle setup: returns (cols, bbox).
 
     x_fb, y_fb, z_ndc, w_clip: (..., N); varyings: (N, 3) or (..., N, 3);
-    indices: (T, 3) int. cols: NUM_COLS (..., T) f32 tensors; bbox:
-    (..., T, 4) int32 with the invalid encoding (x1 < x0).
+    indices: (T, 3) int. cols: NUM_COLS (..., T) f32 tensors (HW_COLS under
+    fill_rule "hw", which snaps x_fb and y_fb once per vertex first, as
+    ``vulkan_forge/_raster/setup.py:147-152`` does); bbox: (..., T, 4)
+    int32 with the invalid encoding (x1 < x0).
     """
+    if check_fill_rule(fill_rule) == "hw":
+        x_fb, y_fb = snap_hw(x_fb), snap_hw(y_fb)
     fields = [x_fb, y_fb, w_clip, varyings[..., 0], varyings[..., 1],
               varyings[..., 2], z_ndc]
     cols, px0, px1, py0, py1, valid = setup_fields_core(
-        *indexed_corners(fields, indices), width, height)
+        *indexed_corners(fields, indices), width, height, fill_rule)
     shape = cols[0].shape
     cols = [c.expand(shape) for c in cols]
     bbox = torch.stack([torch.where(valid, px0, width),
@@ -219,12 +270,14 @@ def setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
 
 
 def triangle_setup(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
-                   width: int, height: int):
-    """Build (..., T+1, REC_WIDTH) triangle records and the (..., T, 4) bbox."""
+                   width: int, height: int, fill_rule: str = "inclusive"):
+    """Build (..., T+1, REC_WIDTH) triangle records and the (..., T, 4)
+    bbox; fill_rule "hw" fills the edge thresholds at columns 31..33 (zero
+    under "inclusive")."""
     cols, bbox = setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
-                            width, height)
+                            width, height, fill_rule)
     zero = torch.zeros_like(cols[0])
-    rec = torch.stack(cols + [zero] * (REC_WIDTH - NUM_COLS), dim=-1)
+    rec = torch.stack(cols + [zero] * (REC_WIDTH - len(cols)), dim=-1)
     sentinel = torch.zeros_like(rec[..., :1, :])
     return torch.cat([rec, sentinel], dim=-2), bbox
 

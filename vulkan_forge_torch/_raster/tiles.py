@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .setup import TILE, Binning, tile_grid
+from .setup import BIAS0_COL, BIAS1_COL, BIAS2_COL, TILE, Binning, tile_grid
 
 
 def mad(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -41,13 +41,18 @@ def mad(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
-def eval_records(col, px, py):
+def eval_records(col, px, py, bias=(0.0, 0.0, 0.0)):
     """Records ``col(k)`` (column k, broadcastable) at pixel centres
     (px, py): (a0, a1, a2, aw, cov), the varying numerators, the 1/w
     numerator and coverage (edges, near z>=0, camera-front w>0, far
     z<=w). The ops of ``vulkan_forge/_raster/tiles.py:38-53`` with XLA:CPU's
     contraction: each edge function is mad(a, p - b, -(c * (q - d))), each
-    three-term sum mad(f2, c2, mad(f0, c0, f1 * c1))."""
+    three-term sum mad(f2, c2, mad(f0, c0, f1 * c1)). Edge i covers where
+    f_i >= bias[i]: 0 for the inclusive rule, the record's top-left
+    threshold col(31 + i) for the hw rule (``tiles.py:49-52``); on the
+    snapped lattice the edge functions are multiples of 2^-16 and exact
+    while |dy * (px - ax)| < 256 px^2, so the fused and unfused forms agree
+    there."""
     f0 = mad(col(2), px - col(0), -(col(3) * (py - col(1))))
     f1 = mad(col(6), px - col(4), -(col(7) * (py - col(5))))
     f2 = mad(col(10), px - col(8), -(col(11) * (py - col(9))))
@@ -57,7 +62,7 @@ def eval_records(col, px, py):
     aw = dot(21)
     az = dot(25)
     asum = dot(28)
-    cov = ((f0 >= 0.0) & (f1 >= 0.0) & (f2 >= 0.0) & (col(24) > 0.0)
+    cov = ((f0 >= bias[0]) & (f1 >= bias[1]) & (f2 >= bias[2]) & (col(24) > 0.0)
            & (az >= 0.0) & (aw > 0.0) & (asum - az >= 0.0))
     return dot(12), dot(15), dot(18), aw, cov
 
@@ -88,8 +93,10 @@ def render_gbuffer(records: torch.Tensor, binning: Binning, n_frames: int,
     """Rasterize binned records into a g-buffer.
 
     records: (B*(T+1), REC_WIDTH) f32 (frames stacked); binning from
-    ``setup.bin_tiles``. Returns (v0, v1, v2, mask), each (B, H, W): the
-    perspective-divided varyings of the winning triangle and its coverage.
+    ``setup.bin_tiles``. Each edge covers from the record's threshold at
+    columns 31..33 (zero unless set up under the hw fill rule). Returns
+    (v0, v1, v2, mask), each (B, H, W): the perspective-divided varyings of
+    the winning triangle and its coverage.
     """
     offsets = binning.offsets.to(torch.long)
     rows = binning.rows.to(torch.long)
@@ -119,7 +126,8 @@ def render_gbuffer(records: torch.Tensor, binning: Binning, n_frames: int,
         def col(k):
             return r[:, k, None]
 
-        a0, a1, a2, aw, cov = eval_records(col, px[:na], py[:na])
+        a0, a1, a2, aw, cov = eval_records(
+            col, px[:na], py[:na], (col(BIAS0_COL), col(BIAS1_COL), col(BIAS2_COL)))
         acc0[:na] = torch.where(cov, a0, acc0[:na])
         acc1[:na] = torch.where(cov, a1, acc1[:na])
         acc2[:na] = torch.where(cov, a2, acc2[:na])

@@ -1,6 +1,7 @@
 // Hand-written Hopper raster kernels of vulkan_forge_torch (sm_90a).
 //
-// Two kernels, one raster body:
+// Four kernels, one raster body, templated on the shader (kShade) and the
+// fill rule (kHw):
 //
 //   vf_raster_gbuffer        replaces pallas_backend._kernel (K1, the list
 //                            kernel) and strips._strip_kernel's inclusive
@@ -10,6 +11,15 @@
 //                            (K4) with the shipped fragment shader
 //                            fragment.terrain_fs_tile (K2) fused into its
 //                            epilogue. Output: one u32 RGBA word per pixel.
+//   vf_raster_gbuffer_hw     the hardware fill rule (VF_FILL_RULE=hw) of K1
+//                            (pallas_backend.py:78-80) and of K7
+//                            (strips.py:228, :261-265): the g-buffer over
+//                            8.8-snapped records whose edges compare
+//                            against the per-edge top-left thresholds at
+//                            columns 31..33 instead of 0.
+//   vf_raster_shade_shipped_hw  the same with the shipped shader fused: what
+//                            K7's hw mode followed by fragment.terrain_fs
+//                            computes for a shipped frame (pipeline.py:185-199).
 //
 // What the TPU kernels compute: for each pixel, the highest-id triangle
 // whose three edge functions and near/w/far clip functionals cover it
@@ -22,10 +32,12 @@
 //
 // What bounds it on an H100: the per-record ALU chain (~40 f32 ops per
 // pixel per binned triangle) and the __syncthreads around each staged
-// chunk; record bytes are small (31 floats per (tile, triangle) pair) and
-// are read once per tile into shared memory, where all 256 threads read
-// the same word (a broadcast, no bank conflicts). The design keeps
-// everything between records in registers and writes each pixel once.
+// chunk; record bytes are small (31 floats per (tile, triangle) pair, 34
+// under the hw rule) and are read once per tile into shared memory, where
+// all 256 threads read the same word (a broadcast, no bank conflicts). The
+// design keeps everything between records in registers and writes each
+// pixel once. The hw rule adds three staged columns and nothing else: the
+// compare reads a shared word instead of a constant 0.
 //
 // Numerics: built with -fmad=false (no contraction) and without fast math,
 // so every +, -, *, / and sqrtf rounds once, exactly as the plain PyTorch
@@ -44,10 +56,8 @@ namespace {
 constexpr int kTile = 16;                  // == setup.TILE (vf_tile)
 constexpr int kThreads = kTile * kTile;
 constexpr int kChunk = 64;                 // records staged per pass
-constexpr int kCols = 31;                  // live record columns 0..30
-constexpr int kColsPad = 32;
 
-template <bool kShade>
+template <bool kShade, bool kHw>
 __global__ void __launch_bounds__(kThreads)
 raster_kernel(const float* __restrict__ records, int rec_stride,
               const int* __restrict__ rows, const int* __restrict__ offsets,
@@ -56,6 +66,9 @@ raster_kernel(const float* __restrict__ records, int rec_stride,
               float* __restrict__ out2, uint8_t* __restrict__ mask,
               const float* __restrict__ lut_rgb,
               const float* __restrict__ par, int32_t* __restrict__ image) {
+  // Live record columns: 0..30, and the edge thresholds 31..33 under hw.
+  constexpr int kCols = kHw ? 34 : 31;
+  constexpr int kColsPad = kHw ? 36 : 32;
   __shared__ float srec[kChunk][kColsPad];
   __shared__ float slut[kShade ? 256 * 3 : 1];
 
@@ -88,7 +101,7 @@ raster_kernel(const float* __restrict__ records, int rec_stride,
     }
     __syncthreads();
     for (int i = 0; i < n; ++i) {
-      const vf::PixelEval e = vf::eval_pixel(srec[i], px, py);
+      const vf::PixelEval e = vf::eval_pixel<kHw>(srec[i], px, py);
       if (e.cov) {
         acc0 = e.a0;
         acc1 = e.a1;
@@ -117,6 +130,20 @@ raster_kernel(const float* __restrict__ records, int rec_stride,
   }
 }
 
+template <bool kShade, bool kHw>
+int launch(const float* records, int rec_stride, const int* rows,
+           const int* offsets, int n_tiles, int ntx, int nty, int width,
+           int height, float* v0, float* v1, float* v2, uint8_t* mask,
+           const float* lut_rgb, const float* par, int32_t* image,
+           void* stream) {
+  if (n_tiles > 0) {
+    raster_kernel<kShade, kHw><<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+        records, rec_stride, rows, offsets, ntx, nty, width, height, v0, v1,
+        v2, mask, lut_rgb, par, image);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -132,12 +159,19 @@ int vf_raster_gbuffer(const float* records, int rec_stride, const int* rows,
                       const int* offsets, int n_tiles, int ntx, int nty,
                       int width, int height, float* v0, float* v1, float* v2,
                       uint8_t* mask, void* stream) {
-  if (n_tiles > 0) {
-    raster_kernel<false><<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
-        records, rec_stride, rows, offsets, ntx, nty, width, height, v0, v1,
-        v2, mask, nullptr, nullptr, nullptr);
-  }
-  return (int)cudaGetLastError();
+  return launch<false, false>(records, rec_stride, rows, offsets, n_tiles,
+                              ntx, nty, width, height, v0, v1, v2, mask,
+                              nullptr, nullptr, nullptr, stream);
+}
+
+// The same over records set up under the hw fill rule (34 live columns).
+int vf_raster_gbuffer_hw(const float* records, int rec_stride,
+                         const int* rows, const int* offsets, int n_tiles,
+                         int ntx, int nty, int width, int height, float* v0,
+                         float* v1, float* v2, uint8_t* mask, void* stream) {
+  return launch<false, true>(records, rec_stride, rows, offsets, n_tiles,
+                             ntx, nty, width, height, v0, v1, v2, mask,
+                             nullptr, nullptr, nullptr, stream);
 }
 
 // lut_rgb: (256, 3) f32 linear; par: [hr2, exposure, l0, l1, l2] f32 on
@@ -147,12 +181,21 @@ int vf_raster_shade_shipped(const float* records, int rec_stride,
                             int ntx, int nty, int width, int height,
                             const float* lut_rgb, const float* par,
                             int32_t* image, void* stream) {
-  if (n_tiles > 0) {
-    raster_kernel<true><<<n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
-        records, rec_stride, rows, offsets, ntx, nty, width, height, nullptr,
-        nullptr, nullptr, nullptr, lut_rgb, par, image);
-  }
-  return (int)cudaGetLastError();
+  return launch<true, false>(records, rec_stride, rows, offsets, n_tiles,
+                             ntx, nty, width, height, nullptr, nullptr,
+                             nullptr, nullptr, lut_rgb, par, image, stream);
+}
+
+// The same over records set up under the hw fill rule (34 live columns).
+int vf_raster_shade_shipped_hw(const float* records, int rec_stride,
+                               const int* rows, const int* offsets,
+                               int n_tiles, int ntx, int nty, int width,
+                               int height, const float* lut_rgb,
+                               const float* par, int32_t* image,
+                               void* stream) {
+  return launch<true, true>(records, rec_stride, rows, offsets, n_tiles,
+                            ntx, nty, width, height, nullptr, nullptr,
+                            nullptr, nullptr, lut_rgb, par, image, stream);
 }
 
 }  // extern "C"

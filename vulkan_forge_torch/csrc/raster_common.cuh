@@ -66,12 +66,15 @@ __device__ __forceinline__ float mad(float a, float b, float c) {
 // One record (columns 0..30 in the layout of setup.py) at one pixel
 // centre: the three varying numerators, the 1/w numerator and coverage
 // (edge functions, near z>=0, camera-front w>0, far z<=w), as
-// tiles.eval_records computes them.
+// tiles.eval_records computes them. kHw: the hardware fill rule, edge i
+// covering where f_i >= r[31 + i] (the top-left thresholds of setup.py's
+// "hw" records, which then hold 34 columns) instead of f_i >= 0.
 struct PixelEval {
   float a0, a1, a2, aw;
   bool cov;
 };
 
+template <bool kHw = false>
 __device__ __forceinline__ PixelEval eval_pixel(const float* r, float px,
                                                 float py) {
   const float f0 = mad(r[2], px - r[0], -(r[3] * (py - r[1])));
@@ -87,8 +90,14 @@ __device__ __forceinline__ PixelEval eval_pixel(const float* r, float px,
   e.aw = dot(21);
   const float az = dot(25);
   const float asum = dot(28);
-  e.cov = (f0 >= 0.0f) & (f1 >= 0.0f) & (f2 >= 0.0f) & (r[24] > 0.0f) &
-          (az >= 0.0f) & (e.aw > 0.0f) & (asum - az >= 0.0f);
+  bool edges;
+  if constexpr (kHw) {
+    edges = (f0 >= r[31]) & (f1 >= r[32]) & (f2 >= r[33]);
+  } else {
+    edges = (f0 >= 0.0f) & (f1 >= 0.0f) & (f2 >= 0.0f);
+  }
+  e.cov = edges & (r[24] > 0.0f) & (az >= 0.0f) & (e.aw > 0.0f) &
+          (asum - az >= 0.0f);
   return e;
 }
 
