@@ -6,7 +6,7 @@ Usage, from the root of a checkout:  python3 chip_smoke.py [--profile]
 Phases, each printing one line, in order:
   0. card: name and power limit (nvidia-smi), torch/CUDA/nvcc versions, TF32
      flags; requires a CUDA device of compute capability 9.0.
-  1. build: compiles csrc/raster.cu, csrc/vtx.cu and csrc/packed.cu with
+  1. build: compiles csrc/raster.cu, vtx.cu, packed.cu and segments.cu with
      nvcc (one process per source, started together) and prints the seconds and, per kernel,
      the registers, shared memory, stack and spills ptxas reports.
   2. kernel vs plain: each record-route kernel against its plain PyTorch
@@ -33,6 +33,12 @@ Phases, each printing one line, in order:
      must equal hw_oracle's (the int64 fixed-point rasterizer) bit for bit,
      the spike 800x600 g128, a g256 w-crossing camera and a watertight quad,
      where no pixel is covered twice and every interior pixel once.
+  2e. segment kernel vs plain: vf_seg_gbuffer and vf_seg_shade_shipped (the
+     tall-frame route, csrc/segments.cu) against their plain version at a
+     tall 256x4352 frame: the spike g256 on the estimate's walk, on each
+     forced walk (row- and column-major) and at a w-crossing camera, and a
+     Renderer DEM-512 (extended). Masks, winners and varyings bit-equal,
+     images under the FS policy; the plain walk's time there.
   3. main path, slice 1: the public API on device="cuda"
      (make_terrain(800,600,128) render_rgba/render_png,
      Scene(160,120,32,"magma") with a height upload -- both name their grid
@@ -60,6 +66,16 @@ Phases, each printing one line, in order:
      render_rgba() on device="cuda"; both hw kernels' counters must advance
      and no other kernel may launch. The triangle and a Scene 160x120 g32
      are held to device="cpu" under the FS policy.
+  3e. main path, slice 5: at 7680x4320 make_terrain(7680,4320,1024)
+     .render_rgba() and Renderer.render_rgba() at DEM-2048 and DEM-3601
+     on device="cuda"; both segment kernels' counters must advance and no
+     other kernel may launch. Each frame's g-buffer must equal the vtx or
+     indexed route's on the same frame bit for bit, and its image that
+     route's under the FS policy; peak device memory per frame. Then, on
+     the 8 tile rows of each frame that walk the most records, the kernels
+     against their plain version (the plain walk over those rows' tables):
+     g-buffers bit-equal, the shipped image under the FS policy; the plain
+     walk's time there, and the kernels' on the same rows' tables.
   4. timing, slice 1: 32 orbit cameras at 800x600 g128 through the record
      kernel path (the batched entry without grid_n) and through the plain
      PyTorch path on the card (median of 5 batches, host clock after
@@ -89,12 +105,19 @@ Phases, each printing one line, in order:
      p80 of 20 calls, peak device memory), and each hw kernel per launch
      (20 back-to-back launches) against its inclusive counterpart, its
      plain version and its bound (34 live record columns).
+  4e. timing, slice 5: frame latency (median and p80 of 10 calls, readback
+     included) on the segment route and on the route each tall frame took
+     before (vtx or indexed), in turns, at 7680x4320 (g1024, DEM-2048,
+     DEM-3601) and 4096x4096 (g1024, DEM-2048); CUDA events around each
+     stage of the segment route; each segment kernel at the main path's
+     shape against its bound (bbox-overlapping (tile, triangle) pairs), and
+     its plain time from 3e.
   5. profile, only with --profile: torch.profiler over 3 batches of each
      headline path (32 cameras g128 on the record route, 4 cameras g1024 on
      the vtx route); the device's busy share and the ops with the most
      device time. It runs after the main paths' launch counts are read.
 
-Then one JSON line with the per-kernel record (all eleven kernels), and last
+Then one JSON line with the per-kernel record (all thirteen kernels), and last
 the line {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero. It imports nothing of JAX and nothing of the JAX package.
 """
@@ -119,7 +142,7 @@ from vulkan_forge_torch import _camera, _colormap, _device, _formats, _mesh, _re
 from vulkan_forge_torch._parity import (FS_MAX_FRACTION, VARYING_RTOL,
                                         assert_fs_policy, assert_gbuffer_close)
 from vulkan_forge_torch._raster import (fragment, hw_oracle, kernels, packed, pipeline,
-                                        setup, tiles, transform, vtx)
+                                        segments, setup, tiles, transform, vtx)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -257,7 +280,9 @@ ENTRIES = (("raster_kernelILb0ELb0", "vf_raster_gbuffer"),
            ("vtx_resolve_kernelILb1", "vf_vtx_resolve_shade_shipped"),
            ("packed_cover_kernel", "vf_packed_cover"),
            ("packed_cover_big_kernel", "vf_packed_cover_big"),
-           ("packed_resolve_kernel", "vf_packed_resolve_gbuffer"))
+           ("packed_resolve_kernel", "vf_packed_resolve_gbuffer"),
+           ("seg_kernelILb0", "vf_seg_gbuffer"),
+           ("seg_kernelILb1", "vf_seg_shade_shipped"))
 
 
 def ptxas_summary(log):
@@ -955,11 +980,11 @@ def dem_heights(n, seed):
     return dem(n, n, seed) * np.float32(DEM_RELIEF)
 
 
-def make_renderer(n, dev, seed=0):
+def make_renderer(n, dev, seed=0, size=(W, H)):
     """The Renderer's main path up to the frame: add_terrain of an n x n
     DEM (30 m spacing, exaggeration 1.5, "terrain"), upload_height_r32f,
-    set_sun, set_exposure."""
-    r = vt.Renderer(W, H, device=dev)
+    set_sun, set_exposure; a ``size`` = (width, height) frame."""
+    r = vt.Renderer(*size, device=dev)
     r.add_terrain(dem_heights(n, seed), DEM_SPACING, DEM_EXAG, "terrain")
     r.upload_height_r32f()
     r.set_sun(35.0, 120.0)
@@ -1749,6 +1774,449 @@ def phase4d_hw_timing(smi, dev):
     return rec
 
 
+# ---------------- slice 5: tall frames and the segment walk ----------------
+
+SEG_KERNELS = (("vf_seg_gbuffer", kernels.seg_gbuffer),
+               ("vf_seg_shade_shipped", kernels.seg_shade_shipped))
+POSTER = (7680, 4320)                      # 8K UHD: a print-size poster
+MAP_TILE = (4096, 4096)                    # a 4096^2 map tile
+SEG_CHECK = (256, 4352)                    # tall, yet small enough for the plain walk
+SEG_GRID, SEG_DEM = 256, 512               # phase 2e's spike grid and DEM
+real_use_segment_route = pipeline.use_segment_route
+
+
+def tall_spike_frame(spike, dev, views=None, projs=None, walk=None):
+    """(fields, segment-walk inputs) on ``dev`` of a TerrainSpike's frame
+    (its camera, or the given ones): pipeline.segment_frame on the vtx
+    route's fields, or ``walk`` "rows" or "columns" forced."""
+    w, h, g = spike.width, spike.height, spike._globals
+    if views is None:
+        views, projs = spike._view[None], spike._proj[None]
+    fields = vtx.vs_fields(tensor(spike._xyuv, dev), tensor(spike._heights, dev),
+                           tensor(views, dev), tensor(projs, dev), tensor(g.spacing, dev),
+                           tensor(g.exaggeration, dev), w, h)
+    if walk is None:
+        frame = pipeline.segment_frame(fields, spike._indices, spike.grid, w, h)
+    else:
+        n = spike.grid - 1
+        records, bbox = setup.corner_records(
+            *setup.grid_corners([fields[:, k] for k in range(vtx.FIELDS)], spike.grid), w, h)
+        perm = segments.column_major_perm(n, n, dev) if walk == "columns" else None
+        b = bbox[0] if perm is None else bbox[0][perm]
+        frame = (*segments.compact_valid(records[0], b, perm), segments.segment_bin(b, w, h, 2 * n))
+    return fields, segments.stack_frames([frame])
+
+
+def tall_renderer_frame(r):
+    """(fields, segment-walk inputs) of a Renderer's frame on the card: the
+    mesh, texture, default camera and row size render_rgba uses."""
+    terr = r._terrain
+    xyuv, tris = _renderer.grid_mesh(terr.width, terr.height, *terr.spacing, r.device)
+    view, proj = r._default_terrain_camera(terr)
+    one = tensor(1.0, r.device)
+    fields = vtx.vs_fields(xyuv, r._height_tex, tensor(view[None], r.device),
+                           tensor(proj[None], r.device), one, one, r.width, r.height, "extended")
+    frame = pipeline.segment_frame(fields, tris, None, r.width, r.height, 2 * (terr.width - 1))
+    return fields, tris, segments.stack_frames([frame])
+
+
+def renderer_shading(r):
+    """The extended shader's arguments of a Renderer's frame after the
+    g-buffer: lut, heights, h_min, h_max, exposure, sun, normal spacing,
+    exaggeration."""
+    terr, meta, g = r._terrain, r._terrain_meta, r._globals
+    d = r.device
+    return (tensor(_colormap.build_lut(terr.colormap)[0], d), r._height_tex,
+            tensor(meta.h_min, d), tensor(meta.h_max, d), tensor(g.exposure, d),
+            tensor(g.sun_dir, d), tensor(terr.spacing[0], d), tensor(1.0, d))
+
+
+def walked_pairs(binning):
+    """The (tile, record) pairs the walk visits: for each tile, the
+    interval lengths in its tile column of every row in its tile row's
+    [r_lo, r_hi] (counts_est counts only the rows active there)."""
+    seg_len = torch.clamp_min(binning.seg_hi.long() - binning.seg_lo.long() + 1, 0)
+    cum = torch.nn.functional.pad(torch.cumsum(seg_len, -1), (1, 0))     # (B, NTX, ROWS+1)
+    r_lo, r_hi = binning.r_bounds[:, 0].long(), binning.r_bounds[:, 1].long()
+    at = lambda i: cum.gather(2, i[:, None, :].expand(-1, cum.shape[1], -1))
+    n = at(torch.clamp_min(r_hi + 1, 0)) - at(torch.clamp_max(r_lo, cum.shape[2] - 1))
+    return int(torch.where((r_hi >= r_lo)[:, None, :], n, 0).sum())
+
+
+def overlap_pairs(fields, mesh, width, height):
+    """The (8x128 tile, triangle) pairs whose pixel bbox overlaps the tile:
+    the pairs a max-id g-buffer must evaluate (``record_bound``'s binned
+    pairs, at the segment walk's tile). ``mesh`` is the grid size of the
+    frame's fields (1, 7, N) or its (T, 3) index buffer."""
+    f = [fields[:, k] for k in range(vtx.FIELDS)]
+    corners = (setup.grid_corners(f, mesh) if isinstance(mesh, int) else
+               setup.indexed_corners(f, pipeline._tri_indices_i32(mesh, fields.shape[2],
+                                                                   fields.device)))
+    b = setup.corner_records(*corners, width, height)[1][0].long()
+    del corners, f
+    b = b[b[:, 1] >= b[:, 0]]
+    tw, th = segments.TILE_W, segments.TILE_H
+    return int(((b[:, 1] // tw - b[:, 0] // tw + 1) * (b[:, 3] // th - b[:, 2] // th + 1)).sum())
+
+
+def seg_bound(records, binning, pairs, width, height, shade):
+    """bound of a segment kernel on these inputs: each compacted record's
+    31 live columns and its id read once, the tables read once, the output
+    written once; EVAL_OPS per (tile pixel, record) over the ``pairs``
+    (``overlap_pairs``) of tiles and records whose bbox overlaps them --
+    not the walk's conservative intervals (``walked_pairs``) --, and the
+    resolve (and shader) per pixel."""
+    n_frames = binning.r_bounds.shape[0]
+    pixels = n_frames * width * height
+    nbytes = (records.shape[0] * (setup.NUM_COLS + 1) * 4
+              + sum(t.numel() * 4 for t in binning[:4])
+              + pixels * (4 if shade else 13) + (256 * 3 * 4 if shade else 0))
+    ops = (pairs * segments.TILE_H * segments.TILE_W * EVAL_OPS
+           + pixels * (RESOLVE_OPS + (SHADE_OPS if shade else 0)))
+    return {**bound_of(nbytes, ops), "overlap_pairs": pairs,
+            "walked_pairs": walked_pairs(binning), "records": records.shape[0]}
+
+
+BAND_ROWS = 8       # tile rows of a 7680x4320 frame the plain walk is held to
+
+
+def band_tables(binning, n=BAND_ROWS):
+    """A single frame's walk tables cut to the ``n`` tile rows that walk
+    the most records (counts_est): every other tile row's active-row range
+    made empty. Returns (tables, the band's tile rows ascending)."""
+    nty = binning.r_bounds.shape[-1]
+    per_row = binning.counts_est[0].view(nty, -1).sum(1, dtype=torch.int64)
+    band = torch.topk(per_row, min(n, nty)).indices.sort().values
+    off = torch.ones(nty, dtype=torch.bool, device=band.device)
+    off[band] = False
+    r = binning.r_bounds.clone()
+    r[:, 0, off], r[:, 1, off] = 0, -1
+    return binning._replace(r_bounds=r.contiguous()), band
+
+
+def band_check(frame, width, height, label, shade=None):
+    """Both segment kernels against their plain version at the main path's
+    shape, on the BAND_ROWS tile rows with the most walk: the plain walk
+    over the band's tables (timed once; a whole 7680x4320 frame would take
+    minutes), each kernel over the whole frame's tables and over the
+    band's. G-buffers bit-equal on the band (the banded kernel: on the
+    whole frame); with ``shade`` the shipped images under the FS policy
+    there. Returns the band's plain ms, the kernels' ms on the band's
+    tables and their max error."""
+    records, ids, binning = frame
+    tables, band = band_tables(binning)
+    rows = (band[:, None] * segments.TILE_H + torch.arange(segments.TILE_H, device=band.device))
+    rows = rows.reshape(-1)[rows.reshape(-1) < height]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    plain = segments.render_gbuffer_segments_plain(records, ids, tables, 1, width, height)
+    ev[1].record()
+    want = fragment.terrain_fs(*plain, *shade) if shade is not None else None
+    ev[2].record()
+    ev[2].synchronize()
+    full = kernels.seg_gbuffer(records, ids, binning, 1, width, height)
+    banded = kernels.seg_gbuffer(records, ids, tables, 1, width, height)
+    on_band = lambda g: [p[:, rows] for p in g]
+    for name, got, want_g in (("whole frame", on_band(full), on_band(plain)),
+                              ("band's tables", banded, plain)):
+        if not all(torch.equal(a, b) for a, b in zip(got, want_g)):
+            raise AssertionError(f"{label}: vf_seg_gbuffer ({name}) is not bit-equal to its "
+                                 "plain version on the band")
+    out = {"band_tile_rows": band.tolist(), "band_walked_pairs": walked_pairs(tables),
+           "band_covered": int(plain[3][:, rows].sum()),
+           "plain_ms": ev[0].elapsed_time(ev[1]),
+           "err": {"vf_seg_gbuffer": assert_gbuffer_close(on_band(full), on_band(plain), label)},
+           "ms_band": {"vf_seg_gbuffer": cuda_ms(
+               lambda: kernels.seg_gbuffer(records, ids, tables, 1, width, height),
+               reps=3, warmup=1)}}
+    if shade is not None:
+        img = kernels.seg_shade_shipped(records, ids, binning, 1, width, height, *shade)
+        img_band = kernels.seg_shade_shipped(records, ids, tables, 1, width, height, *shade)
+        words = lambda t: t.view(torch.int32)[:, rows]     # uint32 has no CUDA gather
+        d, _ = assert_fs_policy(words(img), words(want), f"{label}: vf_seg_shade_shipped")
+        d_band, _ = assert_fs_policy(img_band, want, f"{label}: vf_seg_shade_shipped (band)")
+        out["err"]["vf_seg_shade_shipped"] = float(max(d, d_band))
+        out["shade_plain_ms"] = ev[0].elapsed_time(ev[2])
+        out["ms_band"]["vf_seg_shade_shipped"] = cuda_ms(
+            lambda: kernels.seg_shade_shipped(records, ids, tables, 1, width, height, *shade),
+            reps=3, warmup=1)
+    return out
+
+
+def phase2e_seg_kernels(dev):
+    """Both segment kernels against their plain version at a tall frame
+    (256x4352): the spike g256 (shipped) on the estimate's walk and on each
+    forced one, a w-crossing camera, and a Renderer DEM-512 (extended).
+    Masks, winners and varyings bit-equal; images under the FS policy.
+    Returns each kernel's max error."""
+    w, h = SEG_CHECK
+    shade = spike_shading(dev)
+    spike = vt.make_terrain(w, h, SEG_GRID, device="cpu")
+    views, projs = (a[1:] for a in special_cameras(w, h))
+    cases = {f"spike g{SEG_GRID}": tall_spike_frame(spike, dev)[1],
+             f"spike g{SEG_GRID} rows": tall_spike_frame(spike, dev, walk="rows")[1],
+             f"spike g{SEG_GRID} columns": tall_spike_frame(spike, dev, walk="columns")[1]}
+    fields, cases[f"spike g{SEG_GRID} w-crossing"] = tall_spike_frame(spike, dev, views, projs)
+    corners = setup.grid_corners([fields[:, f] for f in range(vtx.FIELDS)], SEG_GRID)
+    valid = setup.setup_fields_core(*corners, w, h)[5]
+    clean = (corners[0][2] > 1e-8) & (corners[1][2] > 1e-8) & (corners[2][2] > 1e-8)
+    crossing = int((valid & ~clean).sum())
+    if crossing == 0:
+        raise AssertionError("tall w-crossing: no valid triangle crosses w = 0")
+    del fields, corners, valid, clean
+    r = make_renderer(SEG_DEM, dev, seed=6, size=SEG_CHECK)
+    _, _, cases[f"Renderer DEM-{SEG_DEM}"] = tall_renderer_frame(r)
+
+    errs = {name: 0.0 for name, _ in SEG_KERNELS}
+    plain_ms, work = {}, {}
+    for label, (records, ids, binning) in cases.items():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = segments.render_gbuffer_segments_plain(records, ids, binning, 1, w, h)
+        end.record()
+        end.synchronize()
+        plain_ms[label] = start.elapsed_time(end)
+        got = kernels.seg_gbuffer(records, ids, binning, 1, w, h)
+        err = assert_gbuffer_close(got, plain, f"{label}: vf_seg_gbuffer")
+        if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+            raise AssertionError(f"{label}: vf_seg_gbuffer is not bit-equal to its plain version")
+        errs["vf_seg_gbuffer"] = max(errs["vf_seg_gbuffer"], err)
+        if not label.startswith("Renderer"):
+            d, _ = assert_fs_policy(kernels.seg_shade_shipped(records, ids, binning, 1, w, h,
+                                                              *shade),
+                                    fragment.terrain_fs(*plain, *shade),
+                                    f"{label}: vf_seg_shade_shipped")
+            errs["vf_seg_shade_shipped"] = max(errs["vf_seg_shade_shipped"], float(d))
+        work[label] = {"records": records.shape[0], "rows": binning.seg_lo.shape[-1],
+                       "walked_pairs": walked_pairs(binning),
+                       "estimate": int(binning.counts_est.sum(dtype=torch.int64)),
+                       "covered": int(plain[3].sum())}
+        sync()
+    if work[f"spike g{SEG_GRID} rows"]["rows"] == work[f"spike g{SEG_GRID} columns"]["rows"] \
+            and work[f"spike g{SEG_GRID} rows"]["walked_pairs"] \
+            == work[f"spike g{SEG_GRID} columns"]["walked_pairs"]:
+        raise AssertionError("the forced walks are the same walk")
+
+    del cases, r
+    torch.cuda.empty_cache()
+    say("seg_kernel_vs_plain", tolerance="masks, winners and varyings bit-equal; images: bytes "
+        f"off by <= 1 on <= {FS_MAX_FRACTION} of bytes", frame=f"{w}x{h}",
+        cases=list(plain_ms), plain_ms=plain_ms, work=work, w_crossing_valid=crossing,
+        max_err=errs)
+    return errs
+
+
+def poster_frames(dev, size=POSTER, dems=(DEM_MAIN, SRTM)):
+    """The slice-5 frames at ``size``: make_terrain(g1024) and a Renderer
+    per DEM size, each returning its frame through the public API."""
+    spike = vt.make_terrain(*size, VGRID, device=dev)
+    frames = {f"spike g{VGRID}": (spike, spike.render_rgba)}
+    for n in dems:
+        r = make_renderer(n, dev, seed=1 if n == SRTM else 0, size=size)
+        frames[f"Renderer DEM-{n}"] = (r, r.render_rgba)
+    return frames
+
+
+def phase3e_seg_main_path(dev):
+    """Slice 5's main path: at 7680x4320 make_terrain(g1024).render_rgba()
+    and Renderer.render_rgba() at DEM-2048 and DEM-3601 (T > 2^24) on the
+    card. Only the segment kernels may launch; each frame's g-buffer is
+    held bit for bit to the vtx or indexed route's on the same frame, and
+    its image to that route's under the FS policy; each frame's kernels are
+    held to their plain version on a band of its tile rows (``band_check``).
+    Returns the launch counts and each frame's ``band_check``."""
+    w, h = POSTER
+    frames = poster_frames(dev)
+    every = SEG_KERNELS + RECORD_KERNELS + HW_KERNELS + VTX_KERNELS + PACKED_KERNELS
+    out, peak, band = {}, {}, {}
+    for _, fn in every:
+        fn.launches = 0
+    for label, (_, render) in frames.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[label] = render()
+        sync()
+        peak[label] = int(torch.cuda.max_memory_allocated())
+    launches = {name: fn.launches for name, fn in every}
+    for name, _ in SEG_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"slice 5's main path never launched {name}")
+    for name, _ in RECORD_KERNELS + HW_KERNELS + VTX_KERNELS + PACKED_KERNELS:
+        if launches[name] != 0:
+            raise AssertionError(f"slice 5's main path launched {name}")
+
+    clear = np.array([39, 39, 48], np.uint8)    # the terrain's clear colour in sRGB u8
+    checks = {}
+    for label, (obj, _) in frames.items():
+        img = out[label]
+        if img.dtype != np.uint8 or img.shape != (h, w, 4):
+            raise AssertionError(f"{label}: bad image {img.dtype} {img.shape}")
+        covered = float((img[..., :3] != clear).any(-1).mean())
+        if covered < 0.05:
+            raise AssertionError(f"{label}: the terrain covers {covered:.3f} of the frame")
+        # The route the frame took before this slice, on the same frame.
+        if label.startswith("spike"):
+            fields, frame = tall_spike_frame(obj, dev)
+            got = kernels.seg_gbuffer(*frame, 1, w, h)
+            want = vtx.render_gbuffer_vtx_batch(fields, VGRID, w, h)
+            old = vtx.render_image_vtx_batch(fields, *spike_shading(dev), VGRID, w, h)
+        else:
+            fields, tris, frame = tall_renderer_frame(obj)
+            got = kernels.seg_gbuffer(*frame, 1, w, h)
+            want = packed.render_gbuffer_packed_batch(fields, tris, w, h)
+            old = fragment.terrain_fs_extended(*want, *renderer_shading(obj))
+        sync()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        if not bit_equal:
+            raise AssertionError(f"{label}: the segment g-buffer is not the old route's")
+        d, frac = assert_fs_policy(img, _formats.u32_image_to_rgba_u8(old[0]).cpu().numpy(),
+                                   f"{label}: segment route vs old route")
+        del got, want, old
+        pairs = overlap_pairs(fields, VGRID if label.startswith("spike") else tris, w, h)
+        band[label] = band_check(frame, w, h, label,
+                                 spike_shading(dev) if label.startswith("spike") else None)
+        checks[label] = {"covered_share": covered, "gbuffer_bit_equal": bit_equal,
+                         "image_max_byte_delta": d, "image_frac_bytes_differ": frac,
+                         "records": frame[0].shape[0], "walk_rows": frame[2].seg_lo.shape[-1],
+                         "walked_pairs": walked_pairs(frame[2]), "overlap_pairs": pairs,
+                         "peak_bytes": peak[label], "against_plain": band[label]}
+        del fields, frame
+        torch.cuda.empty_cache()
+    say("seg_main_path", config=f"{w}x{h}: make_terrain({w},{h},{VGRID}).render_rgba(); "
+        f"Renderer({w},{h}) DEM-{DEM_MAIN} and DEM-{SRTM} render_rgba", launches=launches,
+        tolerance="against the old route: g-buffers bit-equal, images under the FS policy; "
+        f"against plain on the {BAND_ROWS} tile rows of most walk: g-buffers bit-equal, images "
+        f"bytes off by <= 1 on <= {FS_MAX_FRACTION} of bytes",
+        frames=checks, sha256={k: hashlib.sha256(v.tobytes()).hexdigest() for k, v in out.items()})
+    return launches, band
+
+
+def seg_stages(obj, dev, reps=REPS):
+    """CUDA events around each stage of one segment-route frame (median of
+    ``reps`` after a warm-up): vertex stage, setup, walk order (segment_bin
+    with the axis estimate), compaction, kernel, shader, readback."""
+    w, h = obj.width, obj.height
+    spike = isinstance(obj, vt.TerrainSpike)
+    if spike:
+        g = obj._globals
+        mesh = (tensor(obj._xyuv, dev), tensor(obj._heights, dev), tensor(g.spacing, dev),
+                tensor(g.exaggeration, dev))
+        view, proj, grid, tris, fs_mode, rs = obj._view, obj._proj, obj.grid, None, "shipped", \
+            2 * (obj.grid - 1)
+        shade = spike_shading(dev)
+    else:
+        terr = obj._terrain
+        xyuv, tris = _renderer.grid_mesh(terr.width, terr.height, *terr.spacing, obj.device)
+        one = tensor(1.0, dev)
+        mesh = (xyuv, obj._height_tex, one, one)
+        view, proj = obj._default_terrain_camera(terr)
+        grid, fs_mode, rs = None, "extended", 2 * (terr.width - 1)
+        shade = renderer_shading(obj)
+    names = ("vertex_stage", "setup", "walk_order", "compaction", "kernel", "shader", "readback")
+    rows = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        fields = vtx.vs_fields(mesh[0], mesh[1], tensor(view[None], dev),
+                               tensor(proj[None], dev), mesh[2], mesh[3], w, h, fs_mode)
+        ev[1].record()
+        f = [fields[:, k] for k in range(vtx.FIELDS)]
+        corners = (setup.grid_corners(f, grid) if spike else setup.indexed_corners(f, tris))
+        records, bbox = setup.corner_records(*corners, w, h)
+        del corners, f
+        ev[2].record()
+        perm, binning = segments.walk_order(bbox[0], w, h, rs)
+        ev[3].record()
+        crec, ids = segments.compact_valid(records[0], bbox[0] if perm is None
+                                           else bbox[0][perm], perm)
+        frame = segments.stack_frames([(crec, ids, binning)])
+        del records, bbox
+        ev[4].record()
+        if spike:
+            img = kernels.seg_shade_shipped(*frame, 1, w, h, *shade)
+            ev[5].record()
+            ev[6].record()
+        else:
+            gbuf = kernels.seg_gbuffer(*frame, 1, w, h)
+            ev[5].record()
+            img = fragment.terrain_fs_extended(*gbuf, *shade)
+            ev[6].record()
+        _formats.u32_image_to_rgba_u8(img[0]).cpu().numpy()
+        ev[7].record()
+        sync()
+        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))])
+        del fields, frame, img
+    return ({n: statistics.median(r[i] for r in rows[1:]) for i, n in enumerate(names)},
+            "column-major" if perm is not None else "row-major")
+
+
+def phase4e_seg_timing(smi, dev, band):
+    """Slice 5's times: frame latency on the segment route and on the route
+    it replaced (vtx or indexed), in turns, at 7680x4320 and 4096x4096;
+    the stages of the segment route; each segment kernel at the main
+    path's shapes against its bound. Returns the kernels line's record."""
+    latency, stages, walk = {}, {}, {}
+    for size, dems in ((POSTER, (DEM_MAIN, SRTM)), (MAP_TILE, (DEM_MAIN,))):
+        tag = f"{size[0]}x{size[1]}"
+        frames = poster_frames(dev, size, dems)
+        for label, (obj, render) in frames.items():
+            times = {"segment": [], "old": []}
+            for route in ("segment", "old", "old", "segment"):
+                pipeline.use_segment_route = (real_use_segment_route if route == "segment"
+                                              else lambda *a: False)
+                try:
+                    render()
+                    sync()
+                    times[route] += host_ms(render, [()] * 5)
+                finally:
+                    pipeline.use_segment_route = real_use_segment_route
+            latency[f"{label} {tag}"] = {
+                route: {"median_ms": float(np.percentile(t, 50)),
+                        "p80_ms": float(np.percentile(t, 80)), "n": len(t)}
+                for route, t in times.items()}
+            if label != f"Renderer DEM-{SRTM}":
+                stages[f"{label} {tag}"], walk[f"{label} {tag}"] = seg_stages(obj, dev)
+        del frames
+        torch.cuda.empty_cache()
+
+    # Each kernel per launch at the main path's shape (3 back-to-back
+    # launches: a launch takes hundreds of ms), against its bound; the
+    # plain version's time is phase 3e's on the same frame's band of tile
+    # rows, beside the kernel's on the band's tables (ms_band).
+    w, h = POSTER
+    frames = poster_frames(dev, POSTER, (DEM_MAIN,))
+    at = {"vf_seg_shade_shipped": f"spike g{VGRID}", "vf_seg_gbuffer": f"Renderer DEM-{DEM_MAIN}"}
+    fields, frame = tall_spike_frame(frames[at["vf_seg_shade_shipped"]][0], dev)
+    shade = spike_shading(dev)
+    rec = {"vf_seg_shade_shipped": {
+        "ms": cuda_ms(lambda: kernels.seg_shade_shipped(*frame, 1, w, h, *shade), reps=3,
+                      warmup=1, inner=3),
+        **seg_bound(frame[0], frame[2], overlap_pairs(fields, VGRID, w, h), w, h, shade=True)}}
+    del fields, frame
+    fields, tris, frame = tall_renderer_frame(frames[at["vf_seg_gbuffer"]][0])
+    rec["vf_seg_gbuffer"] = {
+        "ms": cuda_ms(lambda: kernels.seg_gbuffer(*frame, 1, w, h), reps=3, warmup=1, inner=3),
+        **seg_bound(frame[0], frame[2], overlap_pairs(fields, tris, w, h), w, h, shade=False)}
+    for name, r in rec.items():
+        b = band[at[name]]
+        r["plain_ms"] = b["shade_plain_ms" if name == "vf_seg_shade_shipped" else "plain_ms"]
+        r["plain_at"] = (f"{w}x{h} {at[name]}, the {BAND_ROWS} tile rows of most walk "
+                         f"{b['band_tile_rows']} (phase 3e)")
+        r["ms_band"] = b["ms_band"][name]
+    del fields, tris, frame, frames
+    torch.cuda.empty_cache()
+    say("seg_timing", card=smi, config="segment route vs the route each tall frame took before "
+        "(vtx for the spike, indexed for the Renderer), in turns (segment, old, old, segment; 5 "
+        "calls each after a warm-up), readback included", single_frame=latency,
+        old_route_faster_everywhere=all(v["old"]["median_ms"] < v["segment"]["median_ms"]
+                                        for v in latency.values()),
+        segment_stage_ms=stages, walk=walk,
+        kernel_at={name: f"{at[name]} {w}x{h}" for name in at}, kernel_ms=rec)
+    return rec
+
+
+
+
 def profile_window(render, cams, label, top=12):
     """torch.profiler over render(*c) for each camera set: the device's busy
     share (union of device-event intervals over the span from the first to
@@ -1820,6 +2288,8 @@ def main() -> int:
     sync()
     hw_err = phase2d_hw_kernels(dev)
     sync()
+    seg_err = phase2e_seg_kernels(dev)
+    sync()
     launches = phase3_main_path()
     sync()
     vtx_launches = phase3b_vtx_main_path(dev)
@@ -1831,6 +2301,12 @@ def main() -> int:
     hw_launches = phase3d_hw_main_path(dev)
     launches.update({name: hw_launches[name] for name, _ in HW_KERNELS})
     sync()
+    seg_launches, seg_band = phase3e_seg_main_path(dev)
+    launches.update({name: seg_launches[name] for name, _ in SEG_KERNELS})
+    for b in seg_band.values():
+        for name, err in b["err"].items():
+            seg_err[name] = max(seg_err[name], err)
+    sync()
     phase4_batch(smi, dev)
     sync()
     vtx_rec = phase4b_vtx_timing(smi, dev)
@@ -1838,6 +2314,8 @@ def main() -> int:
     packed_rec = phase4c_packed_timing(smi, dev)
     sync()
     hw_rec = phase4d_hw_timing(smi, dev)
+    sync()
+    seg_rec = phase4e_seg_timing(smi, dev, seg_band)
     sync()
     if opts.profile:
         phase5_profile(dev)
@@ -1881,6 +2359,13 @@ def main() -> int:
         line.append({"name": name, "route": "cuda", "source": src, "replaces": replaces[name],
                      "launches": launches[name], "max_abs_err": hw_err[name],
                      **{k: hw_rec[name][k] for k in keys}, "library_ms": None})
+    # K8 (segments.py:159); the shipped shader fused into the shading one.
+    for name, _ in SEG_KERNELS:
+        line.append({"name": name, "route": "cuda", "source": "vulkan_forge_torch/csrc/segments.cu",
+                     "replaces": "vulkan_forge/_raster/segments.py:159",
+                     "launches": launches[name], "max_abs_err": seg_err[name],
+                     **{k: seg_rec[name][k] for k in keys + ("plain_at", "ms_band")},
+                     "library_ms": None})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,8 @@ import torch
 import vulkan_forge_torch as vt
 from vulkan_forge_torch import _camera, _colormap, _mesh, _renderer as trend
 from vulkan_forge_torch._parity import assert_fs_policy
-from vulkan_forge_torch._raster import (fragment, hw_oracle, kernels, packed, pipeline, setup,
-                                        tiles, vtx)
+from vulkan_forge_torch._raster import (fragment, hw_oracle, kernels, packed, pipeline,
+                                        segments, setup, tiles, vtx)
 
 
 @pytest.fixture
@@ -449,3 +449,91 @@ def test_renderer_device_none_raises_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         vt.Renderer(64, 48)
+
+
+# ---------------- tall-frame route (csrc/segments.cu) ----------------
+
+# (grid, W, H, eye, batch, near, columns): tall frames (H >= 4089) of the
+# spike grid; a close-in camera, a w-crossing one (near plane closer than a
+# cell), a forced column-major walk and a batch of two frames.
+SEG_CASES = [(64, 256, 4352, (2.0, 1.5, 2.5), 1, 0.1, False),
+             (64, 256, 4352, (2.0, 1.5, 2.5), 1, 0.1, True),
+             (96, 200, 4100, (0.15, 0.7, 0.1), 1, 0.1, False),
+             (128, 160, 4096, (0.3, 0.35, 0.2), 1, 0.001, False),
+             (48, 130, 4200, (-2.0, 1.4, 2.6), 2, 0.1, False)]
+
+
+def _segment_inputs(grid, W, H, eye, batch, near, columns, dev):
+    """The stacked segment-walk inputs of ``batch`` frames of the spike grid
+    (``pipeline.segment_frame`` on the vtx route's fields), or of the
+    column-major walk, forced."""
+    fields = _vtx_fields(grid, W, H, eye, dev, batch, near=near)
+    _, idx = _mesh.build_grid_xyuv(grid)
+    frames = []
+    for b in range(batch):
+        f = fields[b:b + 1]
+        if not columns:
+            frames.append(pipeline.segment_frame(f, idx, grid, W, H))
+            continue
+        records, bbox = setup.corner_records(
+            *setup.grid_corners([f[:, k] for k in range(vtx.FIELDS)], grid), W, H)
+        perm = segments.column_major_perm(grid - 1, grid - 1, dev)
+        frames.append((*segments.compact_valid(records[0], bbox[0][perm], perm),
+                       segments.segment_bin(bbox[0][perm], W, H, 2 * (grid - 1))))
+    return segments.stack_frames(frames)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,W,H,eye,batch,near,columns", SEG_CASES)
+def test_segment_kernels_match_plain(cuda, grid, W, H, eye, batch, near, columns):
+    records, ids, binning = _segment_inputs(grid, W, H, eye, batch, near, columns, cuda)
+    lut, _ = _colormap.build_lut("terrain")
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=cuda)
+    shade = (t(lut), t(1.0), t(1.1), t([0.35, 0.9, 0.2]))
+    n = (kernels.seg_gbuffer.launches, kernels.seg_shade_shipped.launches)
+    got = kernels.seg_gbuffer(records, ids, binning, batch, W, H)
+    img = kernels.seg_shade_shipped(records, ids, binning, batch, W, H, *shade)
+    torch.cuda.synchronize()
+    assert (kernels.seg_gbuffer.launches, kernels.seg_shade_shipped.launches) == (n[0] + 1,
+                                                                                 n[1] + 1)
+    want = segments.render_gbuffer_segments_plain(records, ids, binning, batch, W, H)
+    assert 0 < int(want[3].sum())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert_fs_policy(img, fragment.terrain_fs(*want, *shade), "segment shade kernel vs plain")
+
+
+@pytest.mark.gpu
+def test_segment_kernels_reject_bad_inputs(cuda):
+    records, ids, binning = _segment_inputs(16, 64, 4096, (2.0, 1.5, 2.5), 1, 0.1, False, cuda)
+    with pytest.raises(ValueError, match="ids is on"):
+        kernels.seg_gbuffer(records, ids.cpu(), binning, 1, 64, 4096)
+    with pytest.raises(ValueError, match="binning.row_base is on"):
+        kernels.seg_gbuffer(records, ids, binning._replace(row_base=binning.row_base.cpu()),
+                            1, 64, 4096)
+    with pytest.raises(ValueError, match="ids must be original"):
+        kernels.seg_gbuffer(records, ids - 2**30 - 1, binning, 1, 64, 4096)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["spike", "renderer"])
+def test_tall_frame_launches_only_segment_kernels(cuda, frame):
+    """A tall single frame (H >= 4089, T > 20,000) through the public API
+    launches one segment kernel and nothing else; its CUDA image is held to
+    device="cpu" under the FS policy."""
+    def render(device):
+        if frame == "spike":
+            return vt.make_terrain(256, 4096, 128, device=device).render_rgba()
+        r = vt.Renderer(256, 4096, device=device)
+        r.add_terrain(_dem(120, 130, 9), (30.0, 30.0), 1.5, "terrain")
+        r.upload_height_r32f()
+        return r.render_rgba()
+    wrappers = ("seg_gbuffer", "seg_shade_shipped", "raster_gbuffer", "raster_shade_shipped",
+                "raster_gbuffer_hw", "raster_shade_shipped_hw", "vtx_cover", "packed_cover")
+    launched = "seg_shade_shipped" if frame == "spike" else "seg_gbuffer"
+    counts = lambda: [getattr(kernels, w).launches for w in wrappers]
+    before = counts()
+    got = render("cuda")
+    torch.cuda.synchronize()
+    assert counts() == [n + (w == launched) for w, n in zip(wrappers, before)]
+    assert_fs_policy(got, render("cpu"), f"tall {frame} cuda vs cpu")

@@ -42,6 +42,13 @@ together replace ``packed._packed_kernel`` (K5, packed.py:222) and
 
 ``packed.render_gbuffer_packed_batch`` chains them.
 
+``csrc/segments.cu`` holds the tall-frame route's two kernels, one body,
+which replace ``segments._seg_kernel`` (K8, segments.py:159):
+
+  - ``seg_gbuffer`` -> ``vf_seg_gbuffer``: the segment walk's g-buffer;
+  - ``seg_shade_shipped`` -> ``vf_seg_shade_shipped``: the same with the
+    shipped fragment shader fused.
+
 The sources (and the header they share, ``csrc/raster_common.cuh``) are
 compiled on first use with ``nvcc``, one process per source started
 together, and linked into one shared library with a plain C interface,
@@ -50,8 +57,9 @@ at the root of the checkout, and loaded with ctypes. Kernels launch on
 torch's current stream and never synchronise.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version (tiles.py,
-fragment.py, vtx.py, packed.py) and launches the kernel for a CUDA tensor, or raises;
-it counts its kernel launches in ``<wrapper>.launches``.
+fragment.py, vtx.py, packed.py, segments.py) and launches the kernel for a
+CUDA tensor, or raises; it counts its kernel launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -65,12 +73,13 @@ from pathlib import Path
 
 import torch
 
-from . import fragment, packed, tiles, vtx
+from . import fragment, packed, segments, tiles, vtx
 from .setup import REC_WIDTH, TILE, Binning, tile_grid
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 _CSRC = _PKG_DIR / "csrc"
-_SOURCES = (_CSRC / "raster.cu", _CSRC / "vtx.cu", _CSRC / "packed.cu")
+_SOURCES = (_CSRC / "raster.cu", _CSRC / "vtx.cu", _CSRC / "packed.cu",
+            _CSRC / "segments.cu")
 _HEADERS = (_CSRC / "raster_common.cuh",)
 BUILD_DIR = _PKG_DIR.parent / "build" / "vulkan_forge_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,6 +102,12 @@ _SIGNATURES = {
     "vf_packed_cover_big": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "vf_packed_resolve_gbuffer": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "vf_packed_big_pixels": [],
+    "vf_seg_gbuffer": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P],
+    "vf_seg_shade_shipped": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P, _P],
+    "vf_seg_tile_h": [],
+    "vf_seg_tile_w": [],
 }
 
 _lib = None
@@ -183,6 +198,10 @@ def load():
             if fn() != vtx.BIG_PIXELS:
                 raise RuntimeError(f"csrc/{src} lists triangles above {fn()} "
                                    f"pixels but vtx.BIG_PIXELS is {vtx.BIG_PIXELS}")
+        if (lib.vf_seg_tile_h(), lib.vf_seg_tile_w()) != (segments.TILE_H, segments.TILE_W):
+            raise RuntimeError(f"csrc/segments.cu walks {lib.vf_seg_tile_h()}x"
+                               f"{lib.vf_seg_tile_w()} tiles but segments.py bins "
+                               f"{segments.TILE_H}x{segments.TILE_W}")
         _lib = lib
     return _lib
 
@@ -591,3 +610,101 @@ def packed_resolve_gbuffer(fields: torch.Tensor, indices: torch.Tensor,
 
 
 packed_resolve_gbuffer.launches = 0
+
+
+# ---------------- tall-frame route (csrc/segments.cu) ----------------
+
+def _check_segments(records: torch.Tensor, ids: torch.Tensor, binning,
+                    n_frames: int, width: int, height: int) -> None:
+    if records.dtype != torch.float32 or records.dim() != 2 \
+            or records.shape[1] != REC_WIDTH or not records.is_contiguous():
+        raise ValueError(f"records must be contiguous float32 (N, {REC_WIDTH}), "
+                         f"got {records.dtype} {tuple(records.shape)}")
+    if ids.dtype != torch.int32 or ids.shape != records.shape[:1] or not ids.is_contiguous():
+        raise ValueError(f"ids must be contiguous int32 ({records.shape[0]},), got "
+                         f"{ids.dtype} {tuple(ids.shape)}")
+    if records.shape[0] >= 2**31:
+        raise ValueError("the stacked records must stay below 2**31 rows")
+    ntx, nty = segments.seg_grid(width, height)
+    rows = binning.seg_lo.shape[-1]
+    shapes = {"seg_lo": (n_frames, ntx, rows), "seg_hi": (n_frames, ntx, rows),
+              "row_base": (n_frames, rows), "r_bounds": (n_frames, 2, nty)}
+    for name, shape in shapes.items():
+        t = getattr(binning, name)
+        if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"binning.{name} must be contiguous int32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != records.device:
+            raise ValueError(f"binning.{name} is on {t.device}, records on {records.device}")
+    if ids.device != records.device:
+        raise ValueError(f"ids is on {ids.device}, records on {records.device}")
+    if records.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {records.device}")
+    if ids.numel() and int(ids.min()) < 0:
+        raise ValueError("ids must be original triangle ids, >= 0")
+
+
+def _seg_args(records, ids, binning, n_frames, width, height):
+    ntx, nty = segments.seg_grid(width, height)
+    return [records.data_ptr(), REC_WIDTH, ids.data_ptr(), binning.seg_lo.data_ptr(),
+            binning.seg_hi.data_ptr(), binning.row_base.data_ptr(),
+            binning.r_bounds.data_ptr(), n_frames, binning.seg_lo.shape[-1], ntx, nty,
+            width, height]
+
+
+def seg_gbuffer(records: torch.Tensor, ids: torch.Tensor, binning, n_frames: int,
+                width: int, height: int):
+    """Compacted records -> g-buffer (v0, v1, v2, mask), each (B, H, W),
+    through the segment walk (see segments.render_gbuffer_segments_batch).
+
+    CPU tensors: segments.render_gbuffer_segments_plain. CUDA tensors:
+    ``vf_seg_gbuffer``.
+    """
+    _check_segments(records, ids, binning, n_frames, width, height)
+    if records.device.type == "cpu":
+        return segments.render_gbuffer_segments_plain(records, ids, binning, n_frames,
+                                                      width, height)
+    shape = (n_frames, height, width)
+    v0, v1, v2 = (torch.empty(shape, dtype=torch.float32, device=records.device)
+                  for _ in range(3))
+    mask = torch.empty(shape, dtype=torch.bool, device=records.device)
+    lib = load()
+    with torch.cuda.device(records.device):
+        err = lib.vf_seg_gbuffer(*_seg_args(records, ids, binning, n_frames, width, height),
+                                 v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
+                                 _stream(records.device))
+    _raise_on(err, "vf_seg_gbuffer")
+    seg_gbuffer.launches += 1
+    return v0, v1, v2, mask
+
+
+seg_gbuffer.launches = 0
+
+
+def seg_shade_shipped(records: torch.Tensor, ids: torch.Tensor, binning, n_frames: int,
+                      width: int, height: int, lut: torch.Tensor, h_range: torch.Tensor,
+                      exposure: torch.Tensor, sun_dir: torch.Tensor) -> torch.Tensor:
+    """Compacted records -> (B, H, W) uint32 RGBA through the segment walk
+    and the shipped shader.
+
+    CPU tensors: segments.render_image_segments_plain. CUDA tensors:
+    ``vf_seg_shade_shipped``.
+    """
+    _check_segments(records, ids, binning, n_frames, width, height)
+    _check_shading(lut, h_range, exposure, sun_dir, records.device)
+    if records.device.type == "cpu":
+        return segments.render_image_segments_plain(records, ids, binning, n_frames, width,
+                                                    height, lut, h_range, exposure, sun_dir)
+    lut_rgb, par = _shading_params(lut, h_range, exposure, sun_dir)
+    image = torch.empty((n_frames, height, width), dtype=torch.int32, device=records.device)
+    lib = load()
+    with torch.cuda.device(records.device):
+        err = lib.vf_seg_shade_shipped(
+            *_seg_args(records, ids, binning, n_frames, width, height),
+            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(), _stream(records.device))
+    _raise_on(err, "vf_seg_shade_shipped")
+    seg_shade_shipped.launches += 1
+    return image.view(torch.uint32)
+
+
+seg_shade_shipped.launches = 0

@@ -8,9 +8,17 @@ Port of the main path of ``vulkan_forge/_raster/pipeline.py``:
   - ``render_terrain_u8``: one frame, shipped or extended fragment shader.
   - ``render_triangle_u8``: the gradient triangle.
 
-Three routes for terrain, picked by ``use_vtx_route`` and
-``use_indexed_route``:
+Four routes for terrain, picked by ``use_segment_route``,
+``use_vtx_route`` and ``use_indexed_route``:
 
+  - segment-walk route (single frames only, inclusive rule, more than
+    ``SEGMENT_THRESHOLD`` triangles, and a height of ``STRIP_LIMIT_H`` or
+    more in whole 8-row tiles, i.e. H >= 4089; every mesh, either shader;
+    the JAX package's tall-frame route, pipeline.py:705-723): vertex
+    shader + clip_to_fb into per-vertex fields (vtx.py) -> inclusive
+    records (setup.py) -> culled, compacted stream and per-(mesh-row,
+    tile-column) interval tables, row-major or column-major by a work
+    estimate (segments.py) -> the kernels of ``csrc/segments.cu``;
   - vertex-stream route (``grid_n`` given and the mesh is
     ``build_grid_xyuv(grid_n)``'s, at any size): vertex shader +
     clip_to_fb into per-vertex fields (vtx.py) -> the kernels of
@@ -25,17 +33,21 @@ Three routes for terrain, picked by ``use_vtx_route`` and
     + binning (setup.py) -> the raster kernels of ``csrc/raster.cu``.
     Passing ``grid_n=None`` takes a shipped grid mesh through it.
 
-The shipped shader runs inside the last kernel of either route; the
+The shipped shader runs inside the last kernel of each route; the
 extended shader (``fragment.terrain_fs_extended``) runs in torch after the
 route's g-buffer kernel. On the CPU every kernel is its plain version
 (kernels.py). The TPU routing thresholds (VMEM sizing) and experiment
-knobs of the JAX pipeline are not carried over.
+knobs of the JAX pipeline are not carried over, except the tall-frame
+condition, which the port copies so that the same frames walk segments
+(the reference's narrow-frame exception, ``_vtx_ok`` admitting W <= 128
+up to H ~ 4915, is VMEM sizing and is not copied).
 
 ``VF_FILL_RULE=hw`` (read by the single-frame entries, ``fill_rule=`` on
 the batched one) selects the hardware fill rule: 8.8-snapped setup and
 top-left edge thresholds. Its records exist only on the record route, so
-every hw frame takes it, grid or not, shipped or extended, as every hw
-frame of ``vulkan_forge`` takes its record kernels (pipeline.py:605-613).
+every hw frame takes it, grid or not, shipped or extended, tall or not, as
+every hw frame of ``vulkan_forge`` takes its record kernels
+(pipeline.py:605-613, 705).
 """
 from __future__ import annotations
 
@@ -46,9 +58,9 @@ import torch
 
 from .. import _formats
 from .._device import resolve_device
-from . import fragment, kernels, packed, transform, vtx
+from . import fragment, kernels, packed, segments, transform, vtx
 from .setup import (FILL_RULES, REC_WIDTH, bin_tiles, check_fill_rule, clip_to_fb,
-                    triangle_setup)
+                    corner_records, grid_corners, indexed_corners, triangle_setup)
 
 # Fixed geometry (src/lib.rs:73-78): CCW, u16 indices [0,1,2].
 _TRI_POS = np.array([[-0.8, -0.8], [0.8, -0.8], [0.0, 0.8]], dtype=np.float32)
@@ -56,6 +68,14 @@ _TRI_COLOR = np.array([[1.0, 0.2, 0.2], [0.2, 1.0, 0.2], [0.2, 0.2, 1.0]],
                       dtype=np.float32)
 
 FS_MODES = ("shipped", "extended")
+
+# The JAX package's tall-frame condition. Above this triangle count a
+# single frame streams its mesh (vulkan_forge/_raster/pipeline.py:66) ...
+SEGMENT_THRESHOLD = 20_000
+# ... and its strip accumulators fit VMEM while the frame's height, in whole
+# 8-row tiles, stays below this (``_strips_fit``, pipeline.py:205-208:
+# h8 * 128 * 4 * 6 < 12 MiB); taller frames walk segments (:705-723).
+STRIP_LIMIT_H = 4096
 
 
 def fill_rule_from_env() -> str:
@@ -127,6 +147,19 @@ def use_indexed_route(grid_n, fs_mode: str) -> bool:
     return fs_mode == "extended" and grid_n is None
 
 
+def use_segment_route(n_triangles: int, height: int, fill_rule: str) -> bool:
+    """Segment-walk route eligibility of a single frame, as
+    ``vulkan_forge``'s ``render_terrain_u8`` routes it (pipeline.py:705):
+    the inclusive rule, more than ``SEGMENT_THRESHOLD`` triangles, and a
+    height of at least ``STRIP_LIMIT_H`` in whole 8-row tiles (H >= 4089).
+    Batched frames never take it (the reference's batched entries do not,
+    pipeline.py:805 has no caller), and it is not re-routed by speed here:
+    PERF.md has its times against the routes these frames took before."""
+    h8 = -(-height // segments.TILE_H) * segments.TILE_H
+    return fill_rule == "inclusive" and n_triangles > SEGMENT_THRESHOLD \
+        and h8 >= STRIP_LIMIT_H
+
+
 def _gbuffer_kernel(hw: bool):
     """The record route's g-buffer kernel for records set up under the hw
     rule or not."""
@@ -150,6 +183,21 @@ def terrain_records(xyuv, indices, heights, views, projs, spacing,
     return records.reshape(-1, REC_WIDTH), bin_tiles(bbox, width, height)
 
 
+def _frame_inputs(fs_mode, fill_rule, device, xyuv, heights, views, projs, *scalars):
+    """Check the render settings and put the inputs on the device: (device,
+    hw, [xyuv, heights, views, projs] + scalars as float32 tensors)."""
+    _check_render_env()
+    if fs_mode not in FS_MODES:
+        raise ValueError(f"fs_mode must be one of {FS_MODES}, got {fs_mode!r}")
+    hw = check_fill_rule(fill_rule) == "hw"
+    dev = resolve_device(device)
+    views, projs = _f32(views, dev), _f32(projs, dev)
+    if views.dim() != 3 or views.shape[1:] != (4, 4) or projs.shape != views.shape:
+        raise ValueError("views and projs must both be (B, 4, 4)")
+    return dev, hw, [_f32(xyuv, dev), _f32(heights, dev), views, projs,
+                     *(_f32(a, dev) for a in scalars)]
+
+
 def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
                              spacing, exaggeration, h_min, h_max, exposure,
                              sun_dir, lut, width: int, height: int,
@@ -171,23 +219,10 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
     does not read ``VF_FILL_RULE`` (the reference's batched entries take no
     fill rule). Returns (B, H, W) uint32 RGBA words on ``device``.
     """
-    _check_render_env()
-    if fs_mode not in FS_MODES:
-        raise ValueError(f"fs_mode must be one of {FS_MODES}, got {fs_mode!r}")
-    hw = check_fill_rule(fill_rule) == "hw"
-    dev = resolve_device(device)
-    xyuv = _f32(xyuv, dev)
-    heights = _f32(heights, dev)
-    views = _f32(views, dev)
-    projs = _f32(projs, dev)
-    if views.dim() != 3 or views.shape[1:] != (4, 4) or projs.shape != views.shape:
-        raise ValueError("views and projs must both be (B, 4, 4)")
-    spacing = _f32(spacing, dev)
-    exaggeration = _f32(exaggeration, dev)
-    lut = _f32(lut, dev)
-    exposure = _f32(exposure, dev)
-    sun_dir = _f32(sun_dir, dev)
-    h_min, h_max = _f32(h_min, dev), _f32(h_max, dev)
+    dev, hw, (xyuv, heights, views, projs, spacing, exaggeration, lut, exposure,
+              sun_dir, h_min, h_max) = _frame_inputs(
+        fs_mode, fill_rule, device, xyuv, heights, views, projs, spacing, exaggeration,
+        lut, exposure, sun_dir, h_min, h_max)
     n_frames = views.shape[0]
     n_tris = int(np.prod(np.shape(indices))) // 3
 
@@ -224,25 +259,83 @@ def render_terrain_u8(xyuv, indices, heights, view, proj, *, spacing,
                       width: int, height: int, fs_mode: str = "shipped",
                       normal_spacing=None, row_size=None, grid_n=None,
                       device=None, as_device: bool = False):
-    """Render one terrain frame to an (H, W, 4) uint8 numpy array
-    (``render_terrain_batch_u32`` with one camera, under the fill rule of
-    ``VF_FILL_RULE``), or with ``as_device`` its (H, W) uint32 words on the
-    device, as the JAX entry returns them.
+    """Render one terrain frame to an (H, W, 4) uint8 numpy array, under
+    the fill rule of ``VF_FILL_RULE``, or with ``as_device`` its (H, W)
+    uint32 words on the device, as the JAX entry returns them.
 
-    ``row_size`` is the JAX entry's id stride of one mesh row, which sizes
-    its strip and packed worklists (pipeline.py:574); no route of the port
-    needs it, and it is accepted and ignored.
+    A tall frame takes the segment-walk route (``use_segment_route``); any
+    other frame is ``render_terrain_batch_u32`` with one camera.
+    ``row_size`` is the id stride of one mesh row (pipeline.py:574), which
+    the segment walk reads: by default ``2 * (grid_n - 1)`` when ``grid_n``
+    is given, else the triangle count (one row: plain interval binning,
+    pipeline.py:709). No other route reads it.
     """
-    del row_size
-    img = render_terrain_batch_u32(
-        xyuv, indices, heights, _f32(view, None)[None], _f32(proj, None)[None],
-        spacing=spacing, exaggeration=exaggeration, h_min=h_min, h_max=h_max,
-        exposure=exposure, sun_dir=sun_dir, lut=lut, width=width,
-        height=height, fs_mode=fs_mode, normal_spacing=normal_spacing,
-        grid_n=grid_n, fill_rule=fill_rule_from_env(), device=device)[0]
+    rule = fill_rule_from_env()
+    n_tris = int(np.prod(np.shape(indices))) // 3
+    args = dict(spacing=spacing, exaggeration=exaggeration, h_min=h_min, h_max=h_max,
+                exposure=exposure, sun_dir=sun_dir, lut=lut, width=width, height=height,
+                fs_mode=fs_mode, normal_spacing=normal_spacing, grid_n=grid_n,
+                device=device)
+    if use_segment_route(n_tris, height, rule):
+        img = render_terrain_segments_u32(xyuv, indices, heights, view, proj,
+                                          row_size=row_size, **args)
+    else:
+        img = render_terrain_batch_u32(xyuv, indices, heights, _f32(view, None)[None],
+                                       _f32(proj, None)[None], fill_rule=rule, **args)[0]
     if as_device:
         return img
     return _formats.u32_image_to_rgba_u8(img).cpu().numpy()
+
+
+def segment_frame(fields, indices, grid_n, width: int, height: int, row_size=None):
+    """One frame's segment-walk inputs from its post-VS fields (1, 7, N):
+    inclusive records, built from grid corners when ``grid_n`` names the
+    mesh (its indices are not read) and through the index buffer
+    otherwise; the walk order (``segments.walk_order``, with ``row_size``
+    as ``render_terrain_u8`` defaults it); the compacted stream. Returns
+    (records, ids, binning) for ``segments.stack_frames``."""
+    f = [fields[:, k] for k in range(vtx.FIELDS)]
+    n_tris = int(np.prod(np.shape(indices))) // 3
+    if use_vtx_route(grid_n, fields.shape[2], n_tris):
+        corners = grid_corners(f, int(grid_n))
+    else:
+        corners = indexed_corners(f, _tri_indices_i32(indices, fields.shape[2], fields.device))
+    records, bbox = corner_records(*corners, width, height)
+    del corners
+    records, bbox = records[0], bbox[0]
+    if not row_size:
+        row_size = 2 * (int(grid_n) - 1) if grid_n else n_tris
+    perm, binning = segments.walk_order(bbox, width, height, int(row_size))
+    crecords, ids = segments.compact_valid(records, bbox if perm is None else bbox[perm], perm)
+    return crecords, ids, binning
+
+
+def render_terrain_segments_u32(xyuv, indices, heights, view, proj, *, spacing,
+                                exaggeration, h_min, h_max, exposure, sun_dir, lut,
+                                width: int, height: int, fs_mode: str = "shipped",
+                                normal_spacing=None, row_size=None, grid_n=None,
+                                device=None) -> torch.Tensor:
+    """One terrain frame through the segment-walk route (inclusive rule):
+    vertex stage, ``segment_frame``, then ``vf_seg_shade_shipped`` for the
+    shipped shader or ``vf_seg_gbuffer`` and the extended shader. The
+    arguments are ``render_terrain_u8``'s. Returns (H, W) uint32 RGBA on
+    ``device``."""
+    dev, _, (xyuv, heights, views, projs, spacing, exaggeration, lut, exposure, sun_dir,
+             h_min, h_max) = _frame_inputs(
+        fs_mode, "inclusive", device, xyuv, heights, _f32(view, None)[None],
+        _f32(proj, None)[None], spacing, exaggeration, lut, exposure, sun_dir, h_min, h_max)
+    fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration, width, height,
+                           fs_mode)
+    frame = segments.stack_frames([segment_frame(fields, indices, grid_n, width, height,
+                                                 row_size)])
+    del fields
+    if fs_mode == "shipped":
+        return segments.render_image_segments_batch(*frame, 1, width, height, lut,
+                                                    h_max - h_min, exposure, sun_dir)[0]
+    gbuf = segments.render_gbuffer_segments_batch(*frame, 1, width, height)
+    nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
+    return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,
+                                        sun_dir, nsp, exaggeration)[0]
 
 
 def triangle_records(width: int, height: int, device, fill_rule: str = "inclusive"):

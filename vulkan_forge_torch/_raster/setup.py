@@ -258,8 +258,14 @@ def setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
         x_fb, y_fb = snap_hw(x_fb), snap_hw(y_fb)
     fields = [x_fb, y_fb, w_clip, varyings[..., 0], varyings[..., 1],
               varyings[..., 2], z_ndc]
-    cols, px0, px1, py0, py1, valid = setup_fields_core(
-        *indexed_corners(fields, indices), width, height, fill_rule)
+    return _cols_and_bbox(*indexed_corners(fields, indices), width, height, fill_rule)
+
+
+def _cols_and_bbox(c0, c1, c2, width: int, height: int, fill_rule: str):
+    """``setup_fields_core`` with every column at the full shape, and the
+    bbox with the invalid encoding (x1 < x0)."""
+    cols, px0, px1, py0, py1, valid = setup_fields_core(c0, c1, c2, width, height,
+                                                        fill_rule)
     shape = cols[0].shape
     cols = [c.expand(shape) for c in cols]
     bbox = torch.stack([torch.where(valid, px0, width),
@@ -269,6 +275,21 @@ def setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
     return cols, bbox.expand(*shape, 4)
 
 
+def _stack_records(cols) -> torch.Tensor:
+    """(..., T, REC_WIDTH) records from the live columns, zero-padded."""
+    zero = torch.zeros_like(cols[0])
+    return torch.stack(cols + [zero] * (REC_WIDTH - len(cols)), dim=-1)
+
+
+def corner_records(c0, c1, c2, width: int, height: int):
+    """Inclusive-rule records (..., T, REC_WIDTH), without the sentinel row,
+    and the (..., T, 4) bbox of triangles given by their corners (three
+    lists of per-field tensors, ``grid_corners`` or ``indexed_corners``):
+    the rows ``triangle_setup`` builds for the same triangles."""
+    cols, bbox = _cols_and_bbox(c0, c1, c2, width, height, "inclusive")
+    return _stack_records(cols), bbox
+
+
 def triangle_setup(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
                    width: int, height: int, fill_rule: str = "inclusive"):
     """Build (..., T+1, REC_WIDTH) triangle records and the (..., T, 4)
@@ -276,8 +297,7 @@ def triangle_setup(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
     under "inclusive")."""
     cols, bbox = setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
                             width, height, fill_rule)
-    zero = torch.zeros_like(cols[0])
-    rec = torch.stack(cols + [zero] * (REC_WIDTH - len(cols)), dim=-1)
+    rec = _stack_records(cols)
     sentinel = torch.zeros_like(rec[..., :1, :])
     return torch.cat([rec, sentinel], dim=-2), bbox
 
