@@ -38,7 +38,9 @@ Phases, each printing one line, in order:
      tall 256x4352 frame: the spike g256 on the estimate's walk, on each
      forced walk (row- and column-major) and at a w-crossing camera, and a
      Renderer DEM-512 (extended). Masks, winners and varyings bit-equal,
-     images under the FS policy; the plain walk's time there.
+     images under the FS policy; the (tile, record) pairs each tile
+     evaluated (the kernel's evaluated output) equal the torch mirror of
+     its skip tests (segments.overlap_walk); the plain walk's time there.
   3. main path, slice 1: the public API on device="cuda"
      (make_terrain(800,600,128) render_rgba/render_png,
      Scene(160,120,32,"magma") with a height upload -- both name their grid
@@ -111,7 +113,11 @@ Phases, each printing one line, in order:
      DEM-3601) and 4096x4096 (g1024, DEM-2048); CUDA events around each
      stage of the segment route; each segment kernel at the main path's
      shape against its bound (bbox-overlapping (tile, triangle) pairs), and
-     its plain time from 3e.
+     its plain time from 3e; on g1024, DEM-2048 and DEM-3601 at 7680x4320
+     the pairs the kernel evaluated, which must equal the bbox-overlapping
+     pairs, the intervals K8's walk visits and those the y-extent test
+     skips, the records scanned, and the kernel's time on the whole
+     frame's tables and on the band's.
   5. profile, only with --profile: torch.profiler over 3 batches of each
      headline path (32 cameras g128 on the record route, 4 cameras g1024 on
      the vtx route); the device's busy share and the ops with the most
@@ -1843,6 +1849,27 @@ def walked_pairs(binning):
     return int(torch.where((r_hi >= r_lo)[:, None, :], n, 0).sum())
 
 
+def skip_counts(binning):
+    """The kernels' interval test, counted from the tables: the non-empty
+    (tile, interval) pairs K8's walk visits, those whose y-extent misses
+    the tile row (skipped), and the records the kernels scan with the bbox
+    test. An interval's extent lies inside its row's active tile rows, so
+    each tile row of its extent walks it."""
+    n = torch.clamp_min(binning.seg_hi.long() - binning.seg_lo.long() + 1, 0)   # (B, NTX, ROWS)
+    rows = n.shape[-1]
+    r_lo, r_hi = binning.r_bounds[:, 0].long(), binning.r_bounds[:, 1].long()  # (B, NTY)
+    live = r_hi >= r_lo
+    diff = torch.zeros(n.shape[0], rows + 1, dtype=torch.long, device=n.device)
+    diff.scatter_add_(1, torch.where(live, r_lo, rows), live.long())
+    diff.scatter_add_(1, torch.where(live, r_hi + 1, rows), -live.long())
+    walkers = torch.cumsum(diff[:, :rows], 1)          # (B, ROWS): tile rows walking row r
+    ey = torch.div(binning.seg_y.long(), segments.TILE_H, rounding_mode="floor")
+    scanners = torch.where(n > 0, ey[..., 1] - ey[..., 0] + 1, 0)              # (B, NTX, ROWS)
+    walked = int(((n > 0) * walkers[:, None, :]).sum())
+    return {"intervals_walked": walked, "intervals_skipped": walked - int(scanners.sum()),
+            "records_scanned": int((n * scanners).sum())}
+
+
 def overlap_pairs(fields, mesh, width, height):
     """The (8x128 tile, triangle) pairs whose pixel bbox overlaps the tile:
     the pairs a max-id g-buffer must evaluate (``record_bound``'s binned
@@ -1861,15 +1888,17 @@ def overlap_pairs(fields, mesh, width, height):
 
 def seg_bound(records, binning, pairs, width, height, shade):
     """bound of a segment kernel on these inputs: each compacted record's
-    31 live columns and its id read once, the tables read once, the output
-    written once; EVAL_OPS per (tile pixel, record) over the ``pairs``
-    (``overlap_pairs``) of tiles and records whose bbox overlaps them --
-    not the walk's conservative intervals (``walked_pairs``) --, and the
-    resolve (and shader) per pixel."""
+    31 live columns, its id and its bbox read once, the tables it reads
+    read once, the output written once; EVAL_OPS per (tile pixel, record)
+    over the ``pairs`` (``overlap_pairs``) of tiles and records whose bbox
+    overlaps them -- not the walk's conservative intervals
+    (``walked_pairs``) --, and the resolve (and shader) per pixel."""
     n_frames = binning.r_bounds.shape[0]
     pixels = n_frames * width * height
-    nbytes = (records.shape[0] * (setup.NUM_COLS + 1) * 4
-              + sum(t.numel() * 4 for t in binning[:4])
+    tables = (binning.seg_lo, binning.seg_hi, binning.row_base, binning.r_bounds,
+              binning.seg_y, binning.tile_order)
+    nbytes = (records.shape[0] * (setup.NUM_COLS + 1 + 4) * 4
+              + sum(t.numel() * 4 for t in tables)
               + pixels * (4 if shade else 13) + (256 * 3 * 4 if shade else 0))
     ops = (pairs * segments.TILE_H * segments.TILE_W * EVAL_OPS
            + pixels * (RESOLVE_OPS + (SHADE_OPS if shade else 0)))
@@ -1903,7 +1932,7 @@ def band_check(frame, width, height, label, shade=None):
     whole frame); with ``shade`` the shipped images under the FS policy
     there. Returns the band's plain ms, the kernels' ms on the band's
     tables and their max error."""
-    records, ids, binning = frame
+    records, ids, bbox, binning = frame
     tables, band = band_tables(binning)
     rows = (band[:, None] * segments.TILE_H + torch.arange(segments.TILE_H, device=band.device))
     rows = rows.reshape(-1)[rows.reshape(-1) < height]
@@ -1914,8 +1943,8 @@ def band_check(frame, width, height, label, shade=None):
     want = fragment.terrain_fs(*plain, *shade) if shade is not None else None
     ev[2].record()
     ev[2].synchronize()
-    full = kernels.seg_gbuffer(records, ids, binning, 1, width, height)
-    banded = kernels.seg_gbuffer(records, ids, tables, 1, width, height)
+    full = kernels.seg_gbuffer(records, ids, bbox, binning, 1, width, height)
+    banded = kernels.seg_gbuffer(records, ids, bbox, tables, 1, width, height)
     on_band = lambda g: [p[:, rows] for p in g]
     for name, got, want_g in (("whole frame", on_band(full), on_band(plain)),
                               ("band's tables", banded, plain)):
@@ -1927,18 +1956,20 @@ def band_check(frame, width, height, label, shade=None):
            "plain_ms": ev[0].elapsed_time(ev[1]),
            "err": {"vf_seg_gbuffer": assert_gbuffer_close(on_band(full), on_band(plain), label)},
            "ms_band": {"vf_seg_gbuffer": cuda_ms(
-               lambda: kernels.seg_gbuffer(records, ids, tables, 1, width, height),
+               lambda: kernels.seg_gbuffer(records, ids, bbox, tables, 1, width, height),
                reps=3, warmup=1)}}
     if shade is not None:
-        img = kernels.seg_shade_shipped(records, ids, binning, 1, width, height, *shade)
-        img_band = kernels.seg_shade_shipped(records, ids, tables, 1, width, height, *shade)
+        img = kernels.seg_shade_shipped(records, ids, bbox, binning, 1, width, height, *shade)
+        img_band = kernels.seg_shade_shipped(records, ids, bbox, tables, 1, width, height,
+                                             *shade)
         words = lambda t: t.view(torch.int32)[:, rows]     # uint32 has no CUDA gather
         d, _ = assert_fs_policy(words(img), words(want), f"{label}: vf_seg_shade_shipped")
         d_band, _ = assert_fs_policy(img_band, want, f"{label}: vf_seg_shade_shipped (band)")
         out["err"]["vf_seg_shade_shipped"] = float(max(d, d_band))
         out["shade_plain_ms"] = ev[0].elapsed_time(ev[2])
         out["ms_band"]["vf_seg_shade_shipped"] = cuda_ms(
-            lambda: kernels.seg_shade_shipped(records, ids, tables, 1, width, height, *shade),
+            lambda: kernels.seg_shade_shipped(records, ids, bbox, tables, 1, width, height,
+                                              *shade),
             reps=3, warmup=1)
     return out
 
@@ -1947,7 +1978,8 @@ def phase2e_seg_kernels(dev):
     """Both segment kernels against their plain version at a tall frame
     (256x4352): the spike g256 (shipped) on the estimate's walk and on each
     forced one, a w-crossing camera, and a Renderer DEM-512 (extended).
-    Masks, winners and varyings bit-equal; images under the FS policy.
+    Masks, winners and varyings bit-equal; images under the FS policy; the
+    pairs each tile evaluated equal the skip mirror's (overlap_walk).
     Returns each kernel's max error."""
     w, h = SEG_CHECK
     shade = spike_shading(dev)
@@ -1969,26 +2001,32 @@ def phase2e_seg_kernels(dev):
 
     errs = {name: 0.0 for name, _ in SEG_KERNELS}
     plain_ms, work = {}, {}
-    for label, (records, ids, binning) in cases.items():
+    for label, (records, ids, bbox, binning) in cases.items():
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         plain = segments.render_gbuffer_segments_plain(records, ids, binning, 1, w, h)
         end.record()
         end.synchronize()
         plain_ms[label] = start.elapsed_time(end)
-        got = kernels.seg_gbuffer(records, ids, binning, 1, w, h)
+        evaluated = torch.full(binning.tile_order.shape, -1, dtype=torch.int32, device=dev)
+        got = kernels.seg_gbuffer(records, ids, bbox, binning, 1, w, h, evaluated=evaluated)
         err = assert_gbuffer_close(got, plain, f"{label}: vf_seg_gbuffer")
         if not all(torch.equal(a, b) for a, b in zip(got, plain)):
             raise AssertionError(f"{label}: vf_seg_gbuffer is not bit-equal to its plain version")
         errs["vf_seg_gbuffer"] = max(errs["vf_seg_gbuffer"], err)
+        offsets = segments.overlap_walk(bbox, binning, 1, w, h)[1]
+        if not torch.equal(evaluated.view(-1).long(), offsets[1:] - offsets[:-1]):
+            raise AssertionError(f"{label}: vf_seg_gbuffer's evaluated pairs are not the "
+                                 "skip mirror's")
         if not label.startswith("Renderer"):
-            d, _ = assert_fs_policy(kernels.seg_shade_shipped(records, ids, binning, 1, w, h,
-                                                              *shade),
+            d, _ = assert_fs_policy(kernels.seg_shade_shipped(records, ids, bbox, binning, 1, w,
+                                                              h, *shade),
                                     fragment.terrain_fs(*plain, *shade),
                                     f"{label}: vf_seg_shade_shipped")
             errs["vf_seg_shade_shipped"] = max(errs["vf_seg_shade_shipped"], float(d))
         work[label] = {"records": records.shape[0], "rows": binning.seg_lo.shape[-1],
                        "walked_pairs": walked_pairs(binning),
+                       "evaluated_pairs": int(evaluated.sum(dtype=torch.int64)),
                        "estimate": int(binning.counts_est.sum(dtype=torch.int64)),
                        "covered": int(plain[3].sum())}
         sync()
@@ -2077,8 +2115,8 @@ def phase3e_seg_main_path(dev):
                                  spike_shading(dev) if label.startswith("spike") else None)
         checks[label] = {"covered_share": covered, "gbuffer_bit_equal": bit_equal,
                          "image_max_byte_delta": d, "image_frac_bytes_differ": frac,
-                         "records": frame[0].shape[0], "walk_rows": frame[2].seg_lo.shape[-1],
-                         "walked_pairs": walked_pairs(frame[2]), "overlap_pairs": pairs,
+                         "records": frame[0].shape[0], "walk_rows": frame[3].seg_lo.shape[-1],
+                         "walked_pairs": walked_pairs(frame[3]), "overlap_pairs": pairs,
                          "peak_bytes": peak[label], "against_plain": band[label]}
         del fields, frame
         torch.cuda.empty_cache()
@@ -2127,9 +2165,8 @@ def seg_stages(obj, dev, reps=REPS):
         ev[2].record()
         perm, binning = segments.walk_order(bbox[0], w, h, rs)
         ev[3].record()
-        crec, ids = segments.compact_valid(records[0], bbox[0] if perm is None
-                                           else bbox[0][perm], perm)
-        frame = segments.stack_frames([(crec, ids, binning)])
+        frame = segments.stack_frames([(*segments.compact_valid(
+            records[0], bbox[0] if perm is None else bbox[0][perm], perm), binning)])
         del records, bbox
         ev[4].record()
         if spike:
@@ -2154,7 +2191,8 @@ def phase4e_seg_timing(smi, dev, band):
     """Slice 5's times: frame latency on the segment route and on the route
     it replaced (vtx or indexed), in turns, at 7680x4320 and 4096x4096;
     the stages of the segment route; each segment kernel at the main
-    path's shapes against its bound. Returns the kernels line's record."""
+    path's shapes against its bound, and the skip's counts on each
+    7680x4320 frame. Returns the kernels line's record."""
     latency, stages, walk = {}, {}, {}
     for size, dems in ((POSTER, (DEM_MAIN, SRTM)), (MAP_TILE, (DEM_MAIN,))):
         tag = f"{size[0]}x{size[1]}"
@@ -2180,30 +2218,53 @@ def phase4e_seg_timing(smi, dev, band):
         torch.cuda.empty_cache()
 
     # Each kernel per launch at the main path's shape (3 back-to-back
-    # launches: a launch takes hundreds of ms), against its bound; the
-    # plain version's time is phase 3e's on the same frame's band of tile
-    # rows, beside the kernel's on the band's tables (ms_band).
+    # launches), against its bound, and the skip on each 7680x4320 frame:
+    # the pairs the kernel evaluated (its ``evaluated`` output) must equal
+    # the bbox-overlapping pairs; the intervals K8's walk visits and those
+    # the y-extent test skips. The plain version's time is phase 3e's on
+    # the same frame's band of tile rows, beside the kernel's on the band's
+    # tables (ms_band).
     w, h = POSTER
-    frames = poster_frames(dev, POSTER, (DEM_MAIN,))
+    frames = poster_frames(dev, POSTER, (DEM_MAIN, SRTM))
     at = {"vf_seg_shade_shipped": f"spike g{VGRID}", "vf_seg_gbuffer": f"Renderer DEM-{DEM_MAIN}"}
-    fields, frame = tall_spike_frame(frames[at["vf_seg_shade_shipped"]][0], dev)
     shade = spike_shading(dev)
-    rec = {"vf_seg_shade_shipped": {
-        "ms": cuda_ms(lambda: kernels.seg_shade_shipped(*frame, 1, w, h, *shade), reps=3,
-                      warmup=1, inner=3),
-        **seg_bound(frame[0], frame[2], overlap_pairs(fields, VGRID, w, h), w, h, shade=True)}}
-    del fields, frame
-    fields, tris, frame = tall_renderer_frame(frames[at["vf_seg_gbuffer"]][0])
-    rec["vf_seg_gbuffer"] = {
-        "ms": cuda_ms(lambda: kernels.seg_gbuffer(*frame, 1, w, h), reps=3, warmup=1, inner=3),
-        **seg_bound(frame[0], frame[2], overlap_pairs(fields, tris, w, h), w, h, shade=False)}
+    rec, skip = {}, {}
+    for label, (obj, _) in frames.items():
+        if label.startswith("spike"):
+            fields, frame = tall_spike_frame(obj, dev)
+            pairs = overlap_pairs(fields, VGRID, w, h)
+            name = "vf_seg_shade_shipped"
+            call = lambda e=None: kernels.seg_shade_shipped(*frame, 1, w, h, *shade, evaluated=e)
+        else:
+            fields, tris, frame = tall_renderer_frame(obj)
+            pairs = overlap_pairs(fields, tris, w, h)
+            name = "vf_seg_gbuffer"
+            call = lambda e=None: kernels.seg_gbuffer(*frame, 1, w, h, evaluated=e)
+        del fields
+        evaluated = torch.full(frame[3].tile_order.shape, -1, dtype=torch.int32, device=dev)
+        call(evaluated)
+        sync()
+        n_eval = int(evaluated.sum(dtype=torch.int64))
+        if n_eval != pairs:
+            raise AssertionError(f"{label}: {name} evaluated {n_eval} (tile, record) pairs, "
+                                 f"the bboxes overlap {pairs}")
+        ms = cuda_ms(call, reps=3, warmup=1, inner=3)
+        skip[label] = {"kernel": name, "ms": ms, "ms_band": band[label]["ms_band"],
+                       "evaluated_pairs": n_eval, "overlap_pairs": pairs,
+                       "walked_pairs": walked_pairs(frame[3]), **skip_counts(frame[3]),
+                       "max_tile_evaluated": int(evaluated.max())}
+        if label == at[name]:
+            rec[name] = {"ms": ms, **seg_bound(frame[0], frame[3], pairs, w, h,
+                                               shade=name == "vf_seg_shade_shipped")}
+        del frame, evaluated, call
+        torch.cuda.empty_cache()
     for name, r in rec.items():
         b = band[at[name]]
         r["plain_ms"] = b["shade_plain_ms" if name == "vf_seg_shade_shipped" else "plain_ms"]
         r["plain_at"] = (f"{w}x{h} {at[name]}, the {BAND_ROWS} tile rows of most walk "
                          f"{b['band_tile_rows']} (phase 3e)")
         r["ms_band"] = b["ms_band"][name]
-    del fields, tris, frame, frames
+    del frames
     torch.cuda.empty_cache()
     say("seg_timing", card=smi, config="segment route vs the route each tall frame took before "
         "(vtx for the spike, indexed for the Renderer), in turns (segment, old, old, segment; 5 "
@@ -2211,7 +2272,8 @@ def phase4e_seg_timing(smi, dev, band):
         old_route_faster_everywhere=all(v["old"]["median_ms"] < v["segment"]["median_ms"]
                                         for v in latency.values()),
         segment_stage_ms=stages, walk=walk,
-        kernel_at={name: f"{at[name]} {w}x{h}" for name in at}, kernel_ms=rec)
+        kernel_at={name: f"{at[name]} {w}x{h}" for name in at}, kernel_ms=rec,
+        skip={f"{label} {w}x{h}": v for label, v in skip.items()})
     return rec
 
 

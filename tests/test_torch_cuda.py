@@ -455,12 +455,18 @@ def test_renderer_device_none_raises_without_card(monkeypatch):
 
 # (grid, W, H, eye, batch, near, columns): tall frames (H >= 4089) of the
 # spike grid; a close-in camera, a w-crossing one (near plane closer than a
-# cell), a forced column-major walk and a batch of two frames.
+# cell), a forced column-major walk and a batch of two frames; a close-in
+# camera at g256 whose walk the skip tests cut to 22% (485,248 walked
+# pairs, 108,512 overlapping), and a grazing camera at g512 whose busiest
+# tile row walks 448 of 511 mesh rows (881,751 walked pairs, 40,083
+# overlapping).
 SEG_CASES = [(64, 256, 4352, (2.0, 1.5, 2.5), 1, 0.1, False),
              (64, 256, 4352, (2.0, 1.5, 2.5), 1, 0.1, True),
              (96, 200, 4100, (0.15, 0.7, 0.1), 1, 0.1, False),
              (128, 160, 4096, (0.3, 0.35, 0.2), 1, 0.001, False),
-             (48, 130, 4200, (-2.0, 1.4, 2.6), 2, 0.1, False)]
+             (48, 130, 4200, (-2.0, 1.4, 2.6), 2, 0.1, False),
+             (256, 256, 4352, (0.2, 0.15, 0.2), 1, 0.1, False),
+             (512, 256, 4352, (3.0, 0.3, 3.0), 1, 0.1, False)]
 
 
 def _segment_inputs(grid, W, H, eye, batch, near, columns, dev):
@@ -486,16 +492,27 @@ def _segment_inputs(grid, W, H, eye, batch, near, columns, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("grid,W,H,eye,batch,near,columns", SEG_CASES)
 def test_segment_kernels_match_plain(cuda, grid, W, H, eye, batch, near, columns):
-    records, ids, binning = _segment_inputs(grid, W, H, eye, batch, near, columns, cuda)
+    """Both kernels bit-equal to the plain walk over every interval; the
+    pairs each tile evaluated equal the torch mirror of the skip tests
+    (``segments.overlap_walk``)."""
+    records, ids, bbox, binning = _segment_inputs(grid, W, H, eye, batch, near, columns, cuda)
     lut, _ = _colormap.build_lut("terrain")
     t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=cuda)
     shade = (t(lut), t(1.0), t(1.1), t([0.35, 0.9, 0.2]))
+    evaluated = [torch.full(binning.tile_order.shape, -1, dtype=torch.int32, device=cuda)
+                 for _ in range(2)]
     n = (kernels.seg_gbuffer.launches, kernels.seg_shade_shipped.launches)
-    got = kernels.seg_gbuffer(records, ids, binning, batch, W, H)
-    img = kernels.seg_shade_shipped(records, ids, binning, batch, W, H, *shade)
+    got = kernels.seg_gbuffer(records, ids, bbox, binning, batch, W, H, evaluated=evaluated[0])
+    img = kernels.seg_shade_shipped(records, ids, bbox, binning, batch, W, H, *shade,
+                                    evaluated=evaluated[1])
     torch.cuda.synchronize()
     assert (kernels.seg_gbuffer.launches, kernels.seg_shade_shipped.launches) == (n[0] + 1,
                                                                                  n[1] + 1)
+    offsets = segments.overlap_walk(bbox, binning, batch, W, H)[1]
+    mirror = (offsets[1:] - offsets[:-1]).view(batch, -1).to(torch.int32)
+    assert int(mirror.sum()) > 0
+    for e in evaluated:
+        assert torch.equal(e, mirror)
     want = segments.render_gbuffer_segments_plain(records, ids, binning, batch, W, H)
     assert 0 < int(want[3].sum())
     for a, b in zip(got, want):
@@ -505,14 +522,20 @@ def test_segment_kernels_match_plain(cuda, grid, W, H, eye, batch, near, columns
 
 @pytest.mark.gpu
 def test_segment_kernels_reject_bad_inputs(cuda):
-    records, ids, binning = _segment_inputs(16, 64, 4096, (2.0, 1.5, 2.5), 1, 0.1, False, cuda)
+    records, ids, bbox, binning = _segment_inputs(16, 64, 4096, (2.0, 1.5, 2.5), 1, 0.1, False,
+                                                  cuda)
     with pytest.raises(ValueError, match="ids is on"):
-        kernels.seg_gbuffer(records, ids.cpu(), binning, 1, 64, 4096)
+        kernels.seg_gbuffer(records, ids.cpu(), bbox, binning, 1, 64, 4096)
+    with pytest.raises(ValueError, match="bbox is on"):
+        kernels.seg_gbuffer(records, ids, bbox.cpu(), binning, 1, 64, 4096)
     with pytest.raises(ValueError, match="binning.row_base is on"):
-        kernels.seg_gbuffer(records, ids, binning._replace(row_base=binning.row_base.cpu()),
+        kernels.seg_gbuffer(records, ids, bbox, binning._replace(row_base=binning.row_base.cpu()),
+                            1, 64, 4096)
+    with pytest.raises(ValueError, match="binning.seg_y is on"):
+        kernels.seg_gbuffer(records, ids, bbox, binning._replace(seg_y=binning.seg_y.cpu()),
                             1, 64, 4096)
     with pytest.raises(ValueError, match="ids must be original"):
-        kernels.seg_gbuffer(records, ids - 2**30 - 1, binning, 1, 64, 4096)
+        kernels.seg_gbuffer(records, ids - 2**30 - 1, bbox, binning, 1, 64, 4096)
 
 
 @pytest.mark.gpu

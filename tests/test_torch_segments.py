@@ -83,13 +83,14 @@ def test_compact_valid_order_preserving():
     T = 20
     bbox = _bbox({3: (0, 5, 0, 5), 7: (10, 20, 0, 5), 15: (30, 40, 0, 5)}, T)
     records = np.arange(T + 1, dtype=np.float32)[:, None] * np.ones((1, 40), np.float32)
-    crec, ids = tseg.compact_valid(torch.from_numpy(records), torch.from_numpy(bbox))
+    crec, ids, _ = tseg.compact_valid(torch.from_numpy(records), torch.from_numpy(bbox))
     _, src = jseg.compact_valid(jnp.asarray(records), jnp.asarray(bbox), cap=8)
     assert ids.dtype == torch.int32 and ids.tolist() == [3, 7, 15] == np.asarray(src)[:3].tolist()
     assert crec[:, 0].tolist() == [3.0, 7.0, 15.0] and crec.shape == (3, 40)
     # A permuted stream: each position takes its original row.
     perm = torch.arange(T - 1, -1, -1)
-    crec, ids = tseg.compact_valid(torch.from_numpy(records), torch.from_numpy(bbox)[perm], perm)
+    crec, ids, _ = tseg.compact_valid(torch.from_numpy(records), torch.from_numpy(bbox)[perm],
+                                      perm)
     assert ids.tolist() == [15, 7, 3] and crec[:, 0].tolist() == [15.0, 7.0, 3.0]
 
 
@@ -134,7 +135,7 @@ def test_tables_and_axis_choice_match_reference(case):
         cap = jpipe._round_capacity(int((bbox[:, 1] >= bbox[:, 0]).sum()))
         crec_j, src = jseg.compact_valid(jnp.asarray(records), jnp.asarray(b), cap,
                                          ids=None if p is None else jnp.asarray(p))
-        crec, ids = tseg.compact_valid(torch.from_numpy(records), torch.from_numpy(b),
+        crec, ids, _ = tseg.compact_valid(torch.from_numpy(records), torch.from_numpy(b),
                                        None if p is None else torch.from_numpy(p))
         src = np.asarray(src)[:ids.numel()]
         np.testing.assert_array_equal(ids.numpy(), src if p is None else p[src])
@@ -182,9 +183,9 @@ def test_plain_walk_matches_k8(k8_scene, walk, budget, monkeypatch):
     records, walks, out, W, H = k8_scene
     p, b, rs = walks[walk]
     b = torch.from_numpy(b)
-    crec, ids = tseg.compact_valid(torch.from_numpy(records), b,
-                                   None if p is None else torch.from_numpy(p))
-    frame = tseg.stack_frames([(crec, ids, tseg.segment_bin(b, W, H, rs))])
+    frame = tseg.stack_frames([(*tseg.compact_valid(torch.from_numpy(records), b,
+                                                    None if p is None else torch.from_numpy(p)),
+                                tseg.segment_bin(b, W, H, rs))])
     got = tseg.render_gbuffer_segments_batch(*frame, 1, W, H)
     want = out[walk]
     assert 0 < int(got[3].sum()) < W * H
@@ -211,7 +212,7 @@ def test_ids_above_2_24_are_told_apart():
     for hi in (0, 1):
         ids = torch.tensor([2**24 + 1 - hi, 2**24 + hi], dtype=torch.int32)
         v0, _, _, mask = tseg.render_gbuffer_segments_batch(
-            *tseg.stack_frames([(records[:2], ids, sb)]), 1, W, H)
+            *tseg.stack_frames([(records[:2], ids, bbox, sb)]), 1, W, H)
         assert int(mask.sum()) > 0
         assert set(v0[mask].tolist()) == {1.0 + hi}
 
@@ -239,28 +240,28 @@ def test_segment_wrappers_take_cpu_tensors_to_plain_and_check_inputs(k8_scene):
     records, walks, _, W, H = k8_scene
     _, b, rs = walks["row_major"]
     b = torch.from_numpy(b)
-    rec, ids, sb = tseg.stack_frames([(*tseg.compact_valid(torch.from_numpy(records), b),
+    rec, ids, bb, sb = tseg.stack_frames([(*tseg.compact_valid(torch.from_numpy(records), b),
                                        tseg.segment_bin(b, W, H, rs))])
     before = (kernels.seg_gbuffer.launches, kernels.seg_shade_shipped.launches)
-    gbuf = kernels.seg_gbuffer(rec, ids, sb, 1, W, H)
+    gbuf = kernels.seg_gbuffer(rec, ids, bb, sb, 1, W, H)
     for a, c in zip(gbuf, tseg.render_gbuffer_segments_plain(rec, ids, sb, 1, W, H)):
         assert torch.equal(a, c)
     shade = (torch.ones(256, 4), torch.tensor(1.0), torch.tensor(1.0), torch.tensor([0., 1., 0.]))
-    assert torch.equal(kernels.seg_shade_shipped(rec, ids, sb, 1, W, H, *shade),
+    assert torch.equal(kernels.seg_shade_shipped(rec, ids, bb, sb, 1, W, H, *shade),
                        tseg.render_image_segments_plain(rec, ids, sb, 1, W, H, *shade))
     assert (kernels.seg_gbuffer.launches, kernels.seg_shade_shipped.launches) == before
     with pytest.raises(ValueError, match="records"):
-        kernels.seg_gbuffer(rec.double(), ids, sb, 1, W, H)
+        kernels.seg_gbuffer(rec.double(), ids, bb, sb, 1, W, H)
     with pytest.raises(ValueError, match="ids"):
-        kernels.seg_gbuffer(rec, ids.long(), sb, 1, W, H)
+        kernels.seg_gbuffer(rec, ids.long(), bb, sb, 1, W, H)
     with pytest.raises(ValueError, match="ids must be original"):
-        kernels.seg_gbuffer(rec, -ids - 1, sb, 1, W, H)
+        kernels.seg_gbuffer(rec, -ids - 1, bb, sb, 1, W, H)
     with pytest.raises(ValueError, match="binning.seg_lo"):
-        kernels.seg_gbuffer(rec, ids, sb._replace(seg_lo=sb.seg_lo[0]), 1, W, H)
+        kernels.seg_gbuffer(rec, ids, bb, sb._replace(seg_lo=sb.seg_lo[0]), 1, W, H)
     with pytest.raises(ValueError, match="binning.r_bounds"):
-        kernels.seg_gbuffer(rec, ids, sb, 1, W, H + 8)
+        kernels.seg_gbuffer(rec, ids, bb, sb, 1, W, H + 8)
     with pytest.raises(ValueError, match="lut"):
-        kernels.seg_shade_shipped(rec, ids, sb, 1, W, H, torch.ones(255, 4), *shade[1:])
+        kernels.seg_shade_shipped(rec, ids, bb, sb, 1, W, H, torch.ones(255, 4), *shade[1:])
 
 
 # ---------------- (c) tall frames through the public API ----------------

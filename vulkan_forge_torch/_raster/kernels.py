@@ -102,10 +102,10 @@ _SIGNATURES = {
     "vf_packed_cover_big": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "vf_packed_resolve_gbuffer": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "vf_packed_big_pixels": [],
-    "vf_seg_gbuffer": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P],
-    "vf_seg_shade_shipped": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _P, _P, _P, _P],
+    "vf_seg_gbuffer": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P],
+    "vf_seg_shade_shipped": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P, _P, _P],
     "vf_seg_tile_h": [],
     "vf_seg_tile_w": [],
 }
@@ -614,54 +614,84 @@ packed_resolve_gbuffer.launches = 0
 
 # ---------------- tall-frame route (csrc/segments.cu) ----------------
 
-def _check_segments(records: torch.Tensor, ids: torch.Tensor, binning,
-                    n_frames: int, width: int, height: int) -> None:
+def _check_segments(records: torch.Tensor, ids: torch.Tensor, bbox: torch.Tensor, binning,
+                    n_frames: int, width: int, height: int, evaluated=None) -> None:
     if records.dtype != torch.float32 or records.dim() != 2 \
             or records.shape[1] != REC_WIDTH or not records.is_contiguous():
         raise ValueError(f"records must be contiguous float32 (N, {REC_WIDTH}), "
                          f"got {records.dtype} {tuple(records.shape)}")
-    if ids.dtype != torch.int32 or ids.shape != records.shape[:1] or not ids.is_contiguous():
-        raise ValueError(f"ids must be contiguous int32 ({records.shape[0]},), got "
+    n = records.shape[0]
+    if ids.dtype != torch.int32 or ids.shape != (n,) or not ids.is_contiguous():
+        raise ValueError(f"ids must be contiguous int32 ({n},), got "
                          f"{ids.dtype} {tuple(ids.shape)}")
-    if records.shape[0] >= 2**31:
+    if bbox.dtype != torch.int32 or bbox.shape != (n, 4) or not bbox.is_contiguous():
+        raise ValueError(f"bbox must be contiguous int32 ({n}, 4), got "
+                         f"{bbox.dtype} {tuple(bbox.shape)}")
+    if n >= 2**31:
         raise ValueError("the stacked records must stay below 2**31 rows")
     ntx, nty = segments.seg_grid(width, height)
     rows = binning.seg_lo.shape[-1]
     shapes = {"seg_lo": (n_frames, ntx, rows), "seg_hi": (n_frames, ntx, rows),
-              "row_base": (n_frames, rows), "r_bounds": (n_frames, 2, nty)}
-    for name, shape in shapes.items():
-        t = getattr(binning, name)
+              "row_base": (n_frames, rows), "r_bounds": (n_frames, 2, nty),
+              "seg_y": (n_frames, ntx, rows, 2), "tile_order": (n_frames, nty * ntx)}
+    tensors = {f"binning.{name}": (getattr(binning, name), shape)
+               for name, shape in shapes.items()}
+    if evaluated is not None:
+        tensors["evaluated"] = (evaluated, (n_frames, nty * ntx))
+    for name, (t, shape) in tensors.items():
         if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"binning.{name} must be contiguous int32 {shape}, got "
+            raise ValueError(f"{name} must be contiguous int32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != records.device:
-            raise ValueError(f"binning.{name} is on {t.device}, records on {records.device}")
-    if ids.device != records.device:
-        raise ValueError(f"ids is on {ids.device}, records on {records.device}")
+            raise ValueError(f"{name} is on {t.device}, records on {records.device}")
+    for name, t in (("ids", ids), ("bbox", bbox)):
+        if t.device != records.device:
+            raise ValueError(f"{name} is on {t.device}, records on {records.device}")
     if records.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {records.device}")
+    # The kernels copy records and read bboxes 16 bytes at a time.
+    if records.data_ptr() % 16 or bbox.data_ptr() % 16:
+        raise ValueError("records and bbox must start on a 16-byte boundary")
     if ids.numel() and int(ids.min()) < 0:
         raise ValueError("ids must be original triangle ids, >= 0")
+    order = binning.tile_order
+    if order.numel() and not torch.equal(
+            order.sort(-1).values, torch.arange(nty * ntx, device=order.device,
+                                                dtype=torch.int32).expand_as(order)):
+        raise ValueError("binning.tile_order must be a permutation of each frame's tiles")
 
 
-def _seg_args(records, ids, binning, n_frames, width, height):
+def _seg_args(records, ids, bbox, binning, n_frames, width, height):
     ntx, nty = segments.seg_grid(width, height)
-    return [records.data_ptr(), REC_WIDTH, ids.data_ptr(), binning.seg_lo.data_ptr(),
-            binning.seg_hi.data_ptr(), binning.row_base.data_ptr(),
-            binning.r_bounds.data_ptr(), n_frames, binning.seg_lo.shape[-1], ntx, nty,
+    return [records.data_ptr(), REC_WIDTH, ids.data_ptr(), bbox.data_ptr(),
+            binning.seg_lo.data_ptr(), binning.seg_hi.data_ptr(), binning.seg_y.data_ptr(),
+            binning.row_base.data_ptr(), binning.r_bounds.data_ptr(),
+            binning.tile_order.data_ptr(), n_frames, binning.seg_lo.shape[-1], ntx, nty,
             width, height]
 
 
-def seg_gbuffer(records: torch.Tensor, ids: torch.Tensor, binning, n_frames: int,
-                width: int, height: int):
+def _plain_evaluated(evaluated, bbox, binning, n_frames, width, height):
+    """Fill ``evaluated`` (if given) with the pairs each tile's kernel would
+    evaluate, from the torch mirror of its skip tests."""
+    if evaluated is not None:
+        offsets = segments.overlap_walk(bbox, binning, n_frames, width, height)[1]
+        evaluated.copy_((offsets[1:] - offsets[:-1]).view(evaluated.shape))
+
+
+def seg_gbuffer(records: torch.Tensor, ids: torch.Tensor, bbox: torch.Tensor, binning,
+                n_frames: int, width: int, height: int, evaluated=None):
     """Compacted records -> g-buffer (v0, v1, v2, mask), each (B, H, W),
     through the segment walk (see segments.render_gbuffer_segments_batch).
+    ``evaluated``, a (B, NTY*NTX) int32 tensor or None, receives the
+    (tile, record) pairs each tile evaluated (a check; the route passes
+    None).
 
-    CPU tensors: segments.render_gbuffer_segments_plain. CUDA tensors:
-    ``vf_seg_gbuffer``.
+    CPU tensors: segments.render_gbuffer_segments_plain (``evaluated`` from
+    segments.overlap_walk). CUDA tensors: ``vf_seg_gbuffer``.
     """
-    _check_segments(records, ids, binning, n_frames, width, height)
+    _check_segments(records, ids, bbox, binning, n_frames, width, height, evaluated)
     if records.device.type == "cpu":
+        _plain_evaluated(evaluated, bbox, binning, n_frames, width, height)
         return segments.render_gbuffer_segments_plain(records, ids, binning, n_frames,
                                                       width, height)
     shape = (n_frames, height, width)
@@ -670,9 +700,10 @@ def seg_gbuffer(records: torch.Tensor, ids: torch.Tensor, binning, n_frames: int
     mask = torch.empty(shape, dtype=torch.bool, device=records.device)
     lib = load()
     with torch.cuda.device(records.device):
-        err = lib.vf_seg_gbuffer(*_seg_args(records, ids, binning, n_frames, width, height),
-                                 v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
-                                 _stream(records.device))
+        err = lib.vf_seg_gbuffer(
+            *_seg_args(records, ids, bbox, binning, n_frames, width, height),
+            v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
+            None if evaluated is None else evaluated.data_ptr(), _stream(records.device))
     _raise_on(err, "vf_seg_gbuffer")
     seg_gbuffer.launches += 1
     return v0, v1, v2, mask
@@ -681,18 +712,20 @@ def seg_gbuffer(records: torch.Tensor, ids: torch.Tensor, binning, n_frames: int
 seg_gbuffer.launches = 0
 
 
-def seg_shade_shipped(records: torch.Tensor, ids: torch.Tensor, binning, n_frames: int,
-                      width: int, height: int, lut: torch.Tensor, h_range: torch.Tensor,
-                      exposure: torch.Tensor, sun_dir: torch.Tensor) -> torch.Tensor:
+def seg_shade_shipped(records: torch.Tensor, ids: torch.Tensor, bbox: torch.Tensor, binning,
+                      n_frames: int, width: int, height: int, lut: torch.Tensor,
+                      h_range: torch.Tensor, exposure: torch.Tensor, sun_dir: torch.Tensor,
+                      evaluated=None) -> torch.Tensor:
     """Compacted records -> (B, H, W) uint32 RGBA through the segment walk
-    and the shipped shader.
+    and the shipped shader; ``evaluated`` as in ``seg_gbuffer``.
 
     CPU tensors: segments.render_image_segments_plain. CUDA tensors:
     ``vf_seg_shade_shipped``.
     """
-    _check_segments(records, ids, binning, n_frames, width, height)
+    _check_segments(records, ids, bbox, binning, n_frames, width, height, evaluated)
     _check_shading(lut, h_range, exposure, sun_dir, records.device)
     if records.device.type == "cpu":
+        _plain_evaluated(evaluated, bbox, binning, n_frames, width, height)
         return segments.render_image_segments_plain(records, ids, binning, n_frames, width,
                                                     height, lut, h_range, exposure, sun_dir)
     lut_rgb, par = _shading_params(lut, h_range, exposure, sun_dir)
@@ -700,8 +733,9 @@ def seg_shade_shipped(records: torch.Tensor, ids: torch.Tensor, binning, n_frame
     lib = load()
     with torch.cuda.device(records.device):
         err = lib.vf_seg_shade_shipped(
-            *_seg_args(records, ids, binning, n_frames, width, height),
-            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(), _stream(records.device))
+            *_seg_args(records, ids, bbox, binning, n_frames, width, height),
+            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(),
+            None if evaluated is None else evaluated.data_ptr(), _stream(records.device))
     _raise_on(err, "vf_seg_shade_shipped")
     seg_shade_shipped.launches += 1
     return image.view(torch.uint32)

@@ -293,7 +293,7 @@ def segment_frame(fields, indices, grid_n, width: int, height: int, row_size=Non
     mesh (its indices are not read) and through the index buffer
     otherwise; the walk order (``segments.walk_order``, with ``row_size``
     as ``render_terrain_u8`` defaults it); the compacted stream. Returns
-    (records, ids, binning) for ``segments.stack_frames``."""
+    (records, ids, bbox, binning) for ``segments.stack_frames``."""
     f = [fields[:, k] for k in range(vtx.FIELDS)]
     n_tris = int(np.prod(np.shape(indices))) // 3
     if use_vtx_route(grid_n, fields.shape[2], n_tris):
@@ -306,8 +306,8 @@ def segment_frame(fields, indices, grid_n, width: int, height: int, row_size=Non
     if not row_size:
         row_size = 2 * (int(grid_n) - 1) if grid_n else n_tris
     perm, binning = segments.walk_order(bbox, width, height, int(row_size))
-    crecords, ids = segments.compact_valid(records, bbox if perm is None else bbox[perm], perm)
-    return crecords, ids, binning
+    return (*segments.compact_valid(records, bbox if perm is None else bbox[perm], perm),
+            binning)
 
 
 def render_terrain_segments_u32(xyuv, indices, heights, view, proj, *, spacing,

@@ -21,6 +21,14 @@ framebuffer tile column form one contiguous id interval. The route
      of ``segments._seg_kernel`` (K8, segments.py:159), or the plain
      version here for CPU tensors.
 
+The kernels reach the per-pixel evaluation only with the (tile, record)
+pairs whose bbox overlaps the tile: they skip an interval whose y-extent
+(``seg_y``) misses the tile row and a record whose bbox (compacted beside
+the records) misses the tile, and launch the tiles in ``tile_order``,
+heaviest first. ``overlap_walk`` mirrors both tests for the checks; the
+plain walk (``render_gbuffer_segments_plain``) walks every interval, as K8
+does, and is what the kernels are held to bit for bit.
+
 Tiles are the reference's 8x128 (``setup.py:86-87``), so the tables equal
 JAX's. The original ids travel as an int32 vector beside the compacted
 records, not in record columns 32..34 as the reference writes them
@@ -55,17 +63,24 @@ _PLAIN_ELEMS = {"cuda": 1 << 22, "cpu": 1 << 16}
 
 
 class SegmentBinning(NamedTuple):
-    """The walk tables of ``segment_bin`` (the reference's fields). One
-    frame: seg_lo/seg_hi (NTX, ROWS) int32, inclusive interval of compacted
-    in-row positions (empty: lo > hi); row_base (ROWS,) int32, compacted
-    stream offset of each row; r_bounds (2, NTY) int32, the active mesh-row
-    range [r_lo; r_hi] of each tile row; counts_est (NTY*NTX,) int32, the
-    records each tile walks. ``stack_frames`` adds a leading frame axis."""
+    """The walk tables of ``segment_bin``: the reference's five fields, then
+    the port's two for the kernels' skip. One frame: seg_lo/seg_hi (NTX,
+    ROWS) int32, inclusive interval of compacted in-row positions (empty:
+    lo > hi); row_base (ROWS,) int32, compacted stream offset of each row;
+    r_bounds (2, NTY) int32, the active mesh-row range [r_lo; r_hi] of each
+    tile row; counts_est (NTY*NTX,) int32, the records each tile walks;
+    seg_y (NTX, ROWS, 2) int32, each interval's pixel y-extent [min y0,
+    max y1] over the triangles that join it (empty: [1 << 28, -1]);
+    tile_order (NTY*NTX,) int32, the tiles (ty*NTX + tx) by the records
+    they scan after the interval test, most first (stable).
+    ``stack_frames`` adds a leading frame axis."""
     seg_lo: torch.Tensor
     seg_hi: torch.Tensor
     row_base: torch.Tensor
     r_bounds: torch.Tensor
     counts_est: torch.Tensor
+    seg_y: torch.Tensor
+    tile_order: torch.Tensor
 
 
 def seg_grid(width: int, height: int):
@@ -82,11 +97,12 @@ def compact_valid(records: torch.Tensor, bbox: torch.Tensor, ids=None):
     stream position -> original id when the stream is permuted (the
     column-major walk): each position then takes its original row, so
     geometry and painter id agree. Returns (compacted records (N,
-    REC_WIDTH), original ids (N,) int32), N the valid count.
+    REC_WIDTH), original ids (N,) int32, compacted bbox (N, 4) int32 in
+    stream order), N the valid count.
     """
     src = torch.nonzero(bbox[:, 1] >= bbox[:, 0]).squeeze(1)
     orig = src if ids is None else ids.to(torch.long)[src]
-    return records[orig], orig.to(torch.int32)
+    return records[orig], orig.to(torch.int32), bbox[src].to(torch.int32).contiguous()
 
 
 def segment_bin(bbox: torch.Tensor, width: int, height: int, row_size: int) -> SegmentBinning:
@@ -99,7 +115,10 @@ def segment_bin(bbox: torch.Tensor, width: int, height: int, row_size: int) -> S
     its bbox spans, and its row is active in every tile row its bbox spans.
     The reference takes a min and a max over every triangle once per tile
     column (O(T * NTX)); here each (triangle, tile column) pair is
-    scattered once, which gives the same tables.
+    scattered once, which gives the same tables. The same pairs give each
+    interval's y-extent (``seg_y``); the records each tile scans after the
+    kernels' interval test (every non-empty interval's length in each tile
+    row of its extent) give ``tile_order``.
     """
     T = bbox.shape[0]
     ntx, nty = seg_grid(width, height)
@@ -122,6 +141,11 @@ def segment_bin(bbox: torch.Tensor, width: int, height: int, row_size: int) -> S
     seg_hi = torch.full((ntx * rows,), _NO_HI, dtype=torch.long, device=dev)
     seg_lo.scatter_reduce_(0, key, rank[pair], "amin")
     seg_hi.scatter_reduce_(0, key, rank[pair], "amax")
+    seg_y0 = torch.full((ntx * rows,), _NO_LO, dtype=torch.long, device=dev)
+    seg_y1 = torch.full((ntx * rows,), _NO_HI, dtype=torch.long, device=dev)
+    seg_y0.scatter_reduce_(0, key, b[pair, 2], "amin")
+    seg_y1.scatter_reduce_(0, key, b[pair, 3], "amax")
+    seg_y = torch.stack([seg_y0, seg_y1], 1).view(ntx, rows, 2)
     seg_lo, seg_hi = seg_lo.view(ntx, rows), seg_hi.view(ntx, rows)
 
     row_ty0 = torch.full((rows,), _NO_TY, dtype=torch.long, device=dev)
@@ -138,9 +162,25 @@ def segment_bin(bbox: torch.Tensor, width: int, height: int, row_size: int) -> S
     # (the reference's f32 einsum, exact here in f64).
     seg_len = torch.clamp_min(seg_hi - seg_lo + 1, 0)
     est = row_act.T.to(torch.float64) @ seg_len.T.to(torch.float64)       # (NTY, NTX)
+
+    # Records each tile scans once the intervals whose y-extent misses its
+    # tile row are skipped: a difference array over tile rows per column.
+    # (An interval's extent lies inside its row's active tile rows, so
+    # these are walked.)
+    n = seg_len.reshape(-1)
+    live = n > 0
+    cell = torch.div(torch.arange(ntx * rows, device=dev), rows, rounding_mode="floor") * (nty + 1)
+    first = torch.where(live, torch.div(seg_y0, TILE_H, rounding_mode="floor"), 0)
+    past = torch.where(live, torch.div(seg_y1, TILE_H, rounding_mode="floor") + 1, 0)
+    diff = torch.zeros(ntx * (nty + 1), dtype=torch.long, device=dev)
+    diff.scatter_add_(0, cell + first, n)
+    diff.scatter_add_(0, cell + past, -n)
+    scan = torch.cumsum(diff.view(ntx, nty + 1)[:, :nty], 1).T               # (NTY, NTX)
+    order = torch.argsort(scan.reshape(-1), descending=True, stable=True)
     i32 = lambda a: a.to(torch.int32).contiguous()
     return SegmentBinning(i32(seg_lo), i32(seg_hi), i32(row_base),
-                          i32(torch.stack([r_lo, r_hi])), i32(est.reshape(-1)))
+                          i32(torch.stack([r_lo, r_hi])), i32(est.reshape(-1)), i32(seg_y),
+                          i32(order))
 
 
 def column_major_perm(cells_rows: int, cells_cols: int, device=None) -> torch.Tensor:
@@ -176,29 +216,37 @@ def walk_order(bbox: torch.Tensor, width: int, height: int, row_size: int):
 
 
 def stack_frames(frames):
-    """B single frames [(compacted records, ids, SegmentBinning)] -> one
-    stream: (records, ids, binning with a leading frame axis), each
-    frame's row_base offset by its start in the stacked records and its
-    tables padded with empty rows to the longest walk's ROWS."""
-    rows = max(f[2].seg_lo.shape[1] for f in frames)
+    """B single frames [(compacted records, ids, bbox, SegmentBinning)] ->
+    one stream: (records, ids, bbox, binning with a leading frame axis),
+    each frame's row_base offset by its start in the stacked records and
+    its tables padded with empty rows to the longest walk's ROWS."""
+    rows = max(f[3].seg_lo.shape[1] for f in frames)
     starts = [0]
-    for rec, _, _ in frames[:-1]:
+    for rec, *_ in frames[:-1]:
         starts.append(starts[-1] + rec.shape[0])
 
     def pad(a, value):
         return torch.nn.functional.pad(a, (0, rows - a.shape[-1]), value=value)
+    tables = [f[3] for f in frames]
     binning = SegmentBinning(
-        torch.stack([pad(f[2].seg_lo, _NO_LO) for f in frames]),
-        torch.stack([pad(f[2].seg_hi, _NO_HI) for f in frames]),
-        torch.stack([pad(f[2].row_base + s, 0) for f, s in zip(frames, starts)]),
-        torch.stack([f[2].r_bounds for f in frames]),
-        torch.stack([f[2].counts_est for f in frames]))
-    return (torch.cat([f[0] for f in frames]), torch.cat([f[1] for f in frames]), binning)
+        torch.stack([pad(t.seg_lo, _NO_LO) for t in tables]),
+        torch.stack([pad(t.seg_hi, _NO_HI) for t in tables]),
+        torch.stack([pad(t.row_base + s, 0) for t, s in zip(tables, starts)]),
+        torch.stack([t.r_bounds for t in tables]),
+        torch.stack([t.counts_est for t in tables]),
+        torch.stack([torch.stack([pad(t.seg_y[..., 0], _NO_LO), pad(t.seg_y[..., 1], _NO_HI)], -1)
+                     for t in tables]),
+        torch.stack([t.tile_order for t in tables]))
+    return tuple(torch.cat([f[k] for f in frames]) for k in range(3)) + (binning,)
 
 
-def _walk_lists(binning: SegmentBinning, n_frames: int, width: int, height: int):
-    """Every tile's walk, in the kernel's order, as CSR: (stream positions
-    of the entries, per-tile offsets); tile = (frame*NTY + ty)*NTX + tx."""
+def _walk_lists(binning: SegmentBinning, n_frames: int, width: int, height: int,
+                bbox=None):
+    """Every tile's walk, in K8's order, as CSR: (stream positions of the
+    entries, per-tile offsets); tile = (frame*NTY + ty)*NTX + tx. With the
+    compacted ``bbox``, only the entries the kernels evaluate: those of
+    intervals whose y-extent meets the tile row, then of records whose
+    bbox overlaps the tile."""
     ntx, nty = seg_grid(width, height)
     dev = binning.seg_lo.device
     n_tiles = n_frames * nty * ntx
@@ -218,19 +266,47 @@ def _walk_lists(binning: SegmentBinning, n_frames: int, width: int, height: int)
     f, x, r = frame[pt], tx[pt], r_lo[pt] + k
     lo = binning.seg_lo[f, x, r].to(torch.long)
     n = torch.clamp_min(binning.seg_hi[f, x, r].to(torch.long) - lo + 1, 0)
+    if bbox is not None:                                  # the interval test
+        ey, y0 = binning.seg_y[f, x, r], ty[pt] * TILE_H
+        n = torch.where((ey[:, 1] >= y0) & (ey[:, 0] < y0 + TILE_H), n, 0)
     start = binning.row_base[f, r].to(torch.long) + lo
     pe, k = expand(n)                                     # (tile, record) entries
-    pos = start[pe] + k
+    pos, owner = start[pe] + k, pt[pe]
+    if bbox is not None:                                  # the record test
+        b, x0, y0 = bbox[pos], tx[owner] * TILE_W, ty[owner] * TILE_H
+        keep = ((b[:, 0] < x0 + TILE_W) & (b[:, 1] >= x0)
+                & (b[:, 2] < y0 + TILE_H) & (b[:, 3] >= y0))
+        pos, owner = pos[keep], owner[keep]
     offsets = torch.zeros(n_tiles + 1, dtype=torch.long, device=dev)
-    offsets[1:] = torch.cumsum(torch.bincount(pt[pe], minlength=n_tiles), 0)
+    offsets[1:] = torch.cumsum(torch.bincount(owner, minlength=n_tiles), 0)
     return pos, offsets
+
+
+def overlap_walk(bbox: torch.Tensor, binning: SegmentBinning, n_frames: int, width: int,
+                 height: int):
+    """The (tile, record) pairs the kernels evaluate, in a torch mirror of
+    their two skip tests (for the checks; the route never calls it): of
+    K8's walk, the intervals whose y-extent meets the tile row, then the
+    records whose bbox overlaps the tile. CSR as ``render_gbuffer_walk``
+    takes it; offsets[t+1] - offsets[t] is tile t's count of evaluated
+    pairs, the kernels' ``evaluated`` output."""
+    return _walk_lists(binning, n_frames, width, height, bbox)
 
 
 def render_gbuffer_segments_plain(records: torch.Tensor, ids: torch.Tensor,
                                   binning: SegmentBinning, n_frames: int,
                                   width: int, height: int):
-    """Plain version of ``vf_seg_gbuffer``: the segment walk, vectorized
-    over tiles.
+    """Plain version of ``vf_seg_gbuffer``: K8's segment walk over every
+    interval (``render_gbuffer_walk``). Returns (v0, v1, v2, mask), each
+    (B, H, W), uncovered pixels 0."""
+    return render_gbuffer_walk(records, ids, _walk_lists(binning, n_frames, width, height),
+                               n_frames, width, height)
+
+
+def render_gbuffer_walk(records: torch.Tensor, ids: torch.Tensor, walk, n_frames: int,
+                        width: int, height: int):
+    """The max-id g-buffer over given per-tile lists ``walk`` = (stream
+    positions, per-tile offsets), vectorized over tiles.
 
     From step p every tile whose walk is longer than p evaluates its next
     k records (``tiles.eval_records``, the fused multiply-adds of every
@@ -243,7 +319,7 @@ def render_gbuffer_segments_plain(records: torch.Tensor, ids: torch.Tensor,
     """
     ntx, nty = seg_grid(width, height)
     dev = records.device
-    pos, offsets = _walk_lists(binning, n_frames, width, height)
+    pos, offsets = walk
     n_tiles = offsets.numel() - 1
     counts = offsets[1:] - offsets[:-1]
     # Longest walks first: the tiles still walking at step p are a prefix.
@@ -292,22 +368,23 @@ def render_gbuffer_segments_plain(records: torch.Tensor, ids: torch.Tensor,
 
 
 def render_gbuffer_segments_batch(records: torch.Tensor, ids: torch.Tensor,
-                                  binning: SegmentBinning, n_frames: int,
-                                  width: int, height: int):
+                                  bbox: torch.Tensor, binning: SegmentBinning,
+                                  n_frames: int, width: int, height: int):
     """B frames of compacted records through the segment walk (the
     counterpart of JAX's entry of the same name, segments.py:338):
-    ``kernels.seg_gbuffer``. records (N, REC_WIDTH) f32, ids (N,) int32 and
-    a binning with a leading frame axis, from ``stack_frames``. Returns
-    (v0, v1, v2, mask), each (B, H, W)."""
-    return kernels.seg_gbuffer(records, ids, binning, n_frames, width, height)
+    ``kernels.seg_gbuffer``. records (N, REC_WIDTH) f32, ids (N,) int32,
+    bbox (N, 4) int32 and a binning with a leading frame axis, from
+    ``stack_frames``. Returns (v0, v1, v2, mask), each (B, H, W)."""
+    return kernels.seg_gbuffer(records, ids, bbox, binning, n_frames, width, height)
 
 
 def render_image_segments_batch(records: torch.Tensor, ids: torch.Tensor,
-                                binning: SegmentBinning, n_frames: int, width: int,
-                                height: int, lut, h_range, exposure, sun_dir):
+                                bbox: torch.Tensor, binning: SegmentBinning,
+                                n_frames: int, width: int, height: int, lut, h_range,
+                                exposure, sun_dir):
     """``render_gbuffer_segments_batch`` with the shipped shader fused:
     ``kernels.seg_shade_shipped``. Returns (B, H, W) uint32 RGBA."""
-    return kernels.seg_shade_shipped(records, ids, binning, n_frames, width, height,
+    return kernels.seg_shade_shipped(records, ids, bbox, binning, n_frames, width, height,
                                      lut, h_range, exposure, sun_dir)
 
 
