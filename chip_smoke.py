@@ -18,15 +18,21 @@ Phases, each printing one line, in order:
      its plain version (vtx.py) at 800x600: grid=256 with 2 orbit cameras,
      a close-in camera and a w-crossing camera, and the main path's shape,
      grid=1024 with 4 orbit cameras. Winners and big-triangle lists exact,
-     g-buffer and images under the same bounds. Then the vtx route against
-     the record route (two independent kernels) at grid=1024, 800x600: the
-     batch of 4 orbit cameras and the close-in + w-crossing pair.
+     g-buffer and images under the same bounds; vf_vtx_cover_big's tiles
+     walked per list entry (its walked output) equal the torch mirror of
+     its rejects (vtx.big_tile_walk), sorted by entry. Then the vtx route
+     against the record route (two independent kernels) at grid=1024,
+     800x600: the batch of 4 orbit cameras and the close-in + w-crossing
+     pair, g-buffers bit-equal.
   2c. indexed kernel vs plain: each of the three indexed-mesh kernels
      (csrc/packed.cu) against its plain version (packed.py) at 800x600: a
      Renderer DEM-256 at its default camera, close in, and with w-crossing
      triangles (asserted), a 50K-triangle soup made from a seed, and a
      DEM-2048 at the default camera. Winners and lists exact, g-buffer
-     within 1e-5*max(1,|x|).
+     within 1e-5*max(1,|x|); vf_packed_cover_big's tiles walked per list
+     entry equal the torch mirror's, as in 2b. Then the indexed route
+     against the record route on 4c's first loaded pair (DEM-2048 close-in
+     + w-crossing), g-buffers bit-equal.
   2d. hw kernel vs plain: vf_raster_gbuffer_hw and vf_raster_shade_shipped_hw
      (the hardware fill rule, VF_FILL_RULE=hw) against their plain versions
      over records set up under "hw": the grid-16 160x120 scene, whose mask
@@ -93,16 +99,23 @@ Phases, each printing one line, in order:
      the vtx route needs a size crossover, and the loaded big-triangle
      case: vf_vtx_cover_big and both whole routes at grid=1024 on a
      close-in + w-crossing camera pair (5 turned sets), where the list
-     holds thousands of triangles. The kernels line reports
-     vf_vtx_cover_big on that pair (at the orbit cameras its list is
-     empty).
+     holds thousands of triangles: the kernel's walk counts held to the
+     mirror's, and per set the bbox pixels of the listed triangles
+     (bbox_pairs), the pixels of the tiles the kernel walked
+     (walked_pairs), the covered (triangle, pixel) pairs of the plain pass
+     (covered_big_pairs), the triangles rejected whole, the tiles of the
+     entry that walks the most and the kernel's time over it alone, the
+     bound on the covered pairs and the one on the bbox pairs. The kernels
+     line reports vf_vtx_cover_big on that pair (at the orbit cameras its
+     list is empty).
   4c. timing, slice 3: render_rgba() latency at DEM-1024, DEM-2048 and
      DEM-3601 (median and p80 of 20 calls, readback included), the stages of a
      DEM-2048 frame (CUDA events), each indexed kernel and its plain
      version over 5 turned cameras (vf_packed_cover_big on a close-in +
-     w-crossing pair, where its list is full), both routes on the DEM-2048
-     frame with their peak device memory, and the route sweep (DEMs 32^2 to
-     2048^2) that sets the indexed route's threshold.
+     w-crossing pair, where its list is full, with 4b's walk counts and
+     work per set), both routes on the DEM-2048 frame with their peak
+     device memory, and the route sweep (DEMs 32^2 to 2048^2) that sets
+     the indexed route's threshold.
   4d. timing, slice 4: each 3d frame under hw against inclusive (median and
      p80 of 20 calls, peak device memory), and each hw kernel per launch
      (20 back-to-back launches) against its inclusive counterpart, its
@@ -167,7 +180,9 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 #              and 6 three-term sums, 7 compares;
 #   SETUP_OPS  setup_fields_core for one triangle (raster_common.cuh): ~159
 #              arithmetic ops and ~60 compares;
-#   COVER_OPS  one bbox pixel of a cover walk (a0..a2 not evaluated);
+#   COVER_OPS  one pixel of a cover walk (a0..a2 not evaluated); the big
+#              passes' bound charges it per covered (triangle, pixel) pair,
+#              the least a walk must evaluate, not per bbox pixel;
 #   RESOLVE_OPS the divide of tiles.py:97 at one pixel;
 #   SHADE_OPS  the shipped shader at one pixel (raster_common.cuh).
 EVAL_OPS, SETUP_OPS, COVER_OPS, RESOLVE_OPS, SHADE_OPS = 52, 220, 38, 5, 75
@@ -428,9 +443,35 @@ def spike_shading(dev):
             tensor(a["exposure"], dev), tensor(a["sun_dir"], dev))
 
 
+def big_walk_work(corners_of, T, big, count):
+    """The torch mirror of the big-triangle kernels' rejects on a sorted
+    list (the plain cover pass's): the tiles walked per entry, in list
+    order, and the work: bbox_pairs (every bbox pixel of the listed
+    triangles), walked_tiles, walked_pairs (their pixels, clipped to the
+    bbox), rejected_triangles (walked no tile)."""
+    cols, px0, px1, py0, py1, _, _ = vtx.listed_setup(corners_of, T, big, count, W, H)
+    owner, x0, x1, y0, y1 = vtx.big_tile_walk(cols, px0, px1, py0, py1)
+    per = torch.bincount(owner, minlength=px0.numel()).to(torch.int32)
+    area = (px1 - px0 + 1).to(torch.long) * (py1 - py0 + 1).to(torch.long)
+    return per, {"bbox_pairs": int(area.sum()), "walked_tiles": int(owner.numel()),
+                 "walked_pairs": int(((x1 - x0 + 1) * (y1 - y0 + 1)).sum()),
+                 "rejected_triangles": int((per == 0).sum())}
+
+
+def check_walk_counts(big, count, walked, p_big, want, label, name):
+    """A big-triangle kernel's tiles walked per list entry (its list in any
+    order) against the mirror's on the plain pass's sorted list."""
+    k = int(count[0])
+    order = torch.argsort(big[:k])
+    if not (torch.equal(big[:k][order], p_big[:k]) and torch.equal(walked[:k][order], want)):
+        raise AssertionError(f"{label}: {name}'s tiles walked per entry differ from "
+                             "the torch mirror's")
+
+
 def check_vtx_passes(fields, grid, shade, label):
     """Each vtx kernel against its plain version on the same CUDA tensors.
-    Returns the per-kernel errors and the big-list length."""
+    Returns the per-kernel errors, the big-list length and the big pass's
+    walk (big_walk_work)."""
     winner, big, count = kernels.vtx_cover(fields, grid, W, H)
     p_winner, p_big, p_count = vtx.cover_plain(fields, grid, W, H)
     k = int(count[0])
@@ -438,11 +479,15 @@ def check_vtx_passes(fields, grid, shade, label):
     if err["vf_vtx_cover"] or k != int(p_count[0]) \
             or not torch.equal(torch.sort(big[:k]).values, p_big[:k]):
         raise AssertionError(f"{label}: vf_vtx_cover differs from its plain version")
-    kernels.vtx_cover_big(fields, grid, winner, big, count)
+    walked = torch.full_like(big, -1)
+    kernels.vtx_cover_big(fields, grid, winner, big, count, walked)
     vtx.cover_big_plain(fields, grid, p_winner, p_big, p_count)
     err["vf_vtx_cover_big"] = int((winner - p_winner).abs().max())
     if err["vf_vtx_cover_big"]:
         raise AssertionError(f"{label}: vf_vtx_cover_big differs from its plain version")
+    want, walk = big_walk_work(lambda f, t: vtx.tri_corners(fields, grid, f, t),
+                               vtx.n_triangles(grid), p_big, p_count)
+    check_walk_counts(big, count, walked, p_big, want, label, "vf_vtx_cover_big")
     err["vf_vtx_resolve_gbuffer"] = assert_gbuffer_close(
         kernels.vtx_resolve_gbuffer(fields, grid, winner),
         vtx.resolve_gbuffer_plain(fields, grid, winner), label)
@@ -451,7 +496,7 @@ def check_vtx_passes(fields, grid, shade, label):
                             label)
     err["vf_vtx_resolve_shade_shipped"] = float(d)
     sync()
-    return err, k
+    return err, k, walk
 
 
 def record_route(grid, views, projs, dev, fill_rule="inclusive"):
@@ -473,12 +518,13 @@ def phase2b_vtx_kernels(dev):
              ("g256 close-in", 256, tuple(a[:1] for a in close_wcross)),
              ("g256 w-crossing", 256, tuple(a[1:] for a in close_wcross)),
              (f"g{VGRID} orbit x{VBATCH}", VGRID, orbit_cameras(VBATCH, W, H))]
-    errs, listed = {}, {}
+    errs, listed, walks = {}, {}, {}
     for label, grid, (views, projs) in cases:
         fields = grid_fields(grid, views, projs, dev)
         if "w-crossing" in label and w_crossing_valid(fields, grid) == 0:
             raise AssertionError(f"{label}: no valid triangle crosses w = 0")
-        err, listed[label] = check_vtx_passes(fields, grid, shade, f"{label} 800x600")
+        err, listed[label], walks[label] = check_vtx_passes(fields, grid, shade,
+                                                            f"{label} 800x600")
         for name, e in err.items():
             errs[name] = max(errs.get(name, 0.0), float(e))
         del fields
@@ -503,8 +549,9 @@ def phase2b_vtx_kernels(dev):
         peak = torch.cuda.max_memory_allocated()
         g_err = assert_gbuffer_close(got, want, f"{label}: vtx vs record route")
         d, frac = assert_fs_policy(img, ref_img, f"{label}: vtx vs record route image")
-        vs_record[label] = {"gbuffer_max_abs_err": g_err,
-                            "gbuffer_bit_equal": all(torch.equal(a, c) for a, c in zip(got, want)),
+        if not all(torch.equal(a, c) for a, c in zip(got, want)):
+            raise AssertionError(f"{label}: the vtx g-buffer is not the record route's")
+        vs_record[label] = {"gbuffer_max_abs_err": g_err, "gbuffer_bit_equal": True,
                             "image_max_byte_delta": d, "image_frac_bytes_differ": frac,
                             "record_route_peak_bytes": int(peak),
                             "record_route_pairs": int(binning.rows.numel())}
@@ -512,8 +559,8 @@ def phase2b_vtx_kernels(dev):
         torch.cuda.empty_cache()
     say("vtx_kernel_vs_plain", tolerance=f"winners and lists exact; masks exact; varyings "
         f"<= {VARYING_RTOL}*max(1,|x|); images: bytes off by <= 1 on <= {FS_MAX_FRACTION} "
-        "of bytes", cases=[c[0] for c in cases], max_err=errs, big_listed=listed,
-        vtx_vs_record_route=vs_record)
+        "of bytes; big-pass walk counts equal the mirror's", cases=[c[0] for c in cases],
+        max_err=errs, big_listed=listed, big_walk=walks, vtx_vs_record_route=vs_record)
     return errs
 
 
@@ -768,10 +815,13 @@ def compare_routes(grid, batch, dev, reps=REPS, cams=None):
     return {r: statistics.median(t) for r, t in times.items()}, times
 
 
-def vtx_bounds(fields, winner, big, count, grid):
+def vtx_bounds(fields, winner, big, count, grid, covered_big):
     """bound_ms of each vtx kernel on these inputs: the larger of the bytes
     it must move over HBM's rate and the f32 operations it does over the
-    f32 peak, counted from this run's data; and what binds."""
+    f32 peak, counted from this run's data; and what binds. covered_big:
+    the (listed triangle, pixel) pairs the plain big pass covered; the big
+    pass's bound charges those, its bound over every bbox pixel is
+    reported beside it as bbox_bound_ms."""
     B = fields.shape[0]
     T = vtx.n_triangles(grid)
     c0, c1, c2 = setup.grid_corners([fields[:, f] for f in range(7)], grid)
@@ -779,7 +829,7 @@ def vtx_bounds(fields, winner, big, count, grid):
     area = (px1 - px0 + 1).to(torch.long) * (py1 - py0 + 1).to(torch.long)
     small = valid & (area <= vtx.BIG_PIXELS)
     pairs_small = int(area[small].sum())
-    pairs_big = int(area[valid & ~small].sum())
+    bbox_pairs = int(area[valid & ~small].sum())
     listed = int(count[0])
     pixels = B * H * W
     covered = int((winner > 0).sum())
@@ -788,13 +838,13 @@ def vtx_bounds(fields, winner, big, count, grid):
     winners = int(won.numel())
     vertex_bytes = vtx.FIELDS * 4                  # one vertex's fields
     won_vertices = distinct_vertices(won, grid)
-    listed_vertices = distinct_vertices(big[:listed].to(torch.long), grid)
+    listed_bytes = listed * 4 + 4 + distinct_vertices(big[:listed].to(torch.long), grid) \
+        * vertex_bytes
     work = {
         "vf_vtx_cover": (fields.numel() * 4 + pixels * 4 + listed * 4 + 4,
                          B * T * SETUP_OPS + pairs_small * COVER_OPS),
-        "vf_vtx_cover_big": (listed * 4 + 4 + listed_vertices * vertex_bytes
-                             + min(pairs_big, pixels) * 8,
-                             listed * SETUP_OPS + pairs_big * COVER_OPS),
+        "vf_vtx_cover_big": (listed_bytes + min(covered_big, pixels) * 8,
+                             listed * SETUP_OPS + covered_big * COVER_OPS),
         "vf_vtx_resolve_gbuffer": (pixels * 4 + won_vertices * vertex_bytes + pixels * 13,
                                    covered * (SETUP_OPS + EVAL_OPS) + pixels * RESOLVE_OPS),
         "vf_vtx_resolve_shade_shipped": (pixels * 4 + won_vertices * vertex_bytes + pixels * 4
@@ -803,10 +853,52 @@ def vtx_bounds(fields, winner, big, count, grid):
                                          + pixels * (RESOLVE_OPS + SHADE_OPS)),
     }
     out = {name: bound_of(*w) for name, w in work.items()}
+    bbox_bound = bound_of(listed_bytes + min(bbox_pairs, pixels) * 8,
+                          listed * SETUP_OPS + bbox_pairs * COVER_OPS)["bound_ms"]
     data = {"triangles": B * T, "valid": int(valid.sum()), "pairs_small": pairs_small,
-            "listed": listed, "pairs_big": pairs_big, "covered_pixels": covered,
+            "listed": listed, "bbox_pairs": bbox_pairs, "covered_big_pairs": covered_big,
+            "bbox_bound_ms": bbox_bound, "covered_pixels": covered,
             "distinct_winners": winners, "distinct_winner_vertices": won_vertices}
     return out, data
+
+
+def loaded_big_pass(label, name, kern, plain, corners_of, T, winner, big, count, p_big,
+                    p_count, bounds_of, warmup):
+    """One loaded set of a big-triangle kernel: its winners against the plain
+    pass's from the same cover-pass winner (max_abs_err), its tiles walked
+    per entry against the mirror's, its time (KERNEL_INNER launches), its
+    time over the list entry that walks the most tiles alone
+    (heaviest_alone_ms: whether one triangle sets the tail), the plain
+    pass's time (one timed call after ``warmup``), and the work and bounds
+    of bounds_of(covered_big_pairs). ``kern(winner, big, count, walked)``
+    and ``plain(winner, stats)`` run the two passes in place."""
+    k = int(count[0])
+    if k == 0:
+        raise AssertionError(f"{label}: the big-triangle list is empty")
+    start = winner.clone()
+    walked = torch.full_like(big, -1)
+    kern(winner, big, count, walked)
+    want, walk = big_walk_work(corners_of, T, p_big, p_count)
+    check_walk_counts(big, count, walked, p_big, want, label, name)
+    ms = cuda_ms(lambda: kern(winner, big, count), reps=1, inner=KERNEL_INNER)
+    heaviest = big.clone()
+    heaviest[0] = big[int(torch.argmax(walked[:k]))]
+    one = torch.ones_like(count)
+    alone_ms = cuda_ms(lambda: kern(winner, heaviest, one), reps=1, inner=KERNEL_INNER)
+    stats, out = {}, {}
+
+    def run_plain():
+        out["winner"] = plain(start.clone(), stats)
+    plain_ms = cuda_ms(run_plain, reps=1, warmup=warmup)
+    err = int((out["winner"] - winner).abs().max())
+    if err:
+        raise AssertionError(f"{label}: {name} differs from its plain version")
+    bounds, data = bounds_of(stats["covered_pairs"])
+    if data["bbox_pairs"] != walk["bbox_pairs"]:
+        raise AssertionError(f"{label}: the mirror's bboxes are not the listed triangles'")
+    return {**data, **walk, "heaviest_tiles": int(want.max()), "heaviest_alone_ms": alone_ms,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **{key: bounds[name][key] for key in ("bound_ms", "bytes", "ops", "bound_by")}}, bounds
 
 
 def distinct_vertices(entries, grid):
@@ -859,12 +951,13 @@ def phase4b_vtx_timing(smi, dev):
         fields = grid_fields(VGRID, views, projs, dev)
         winner, big, count = kernels.vtx_cover(fields, VGRID, W, H)
         kernels.vtx_cover_big(fields, VGRID, winner, big, count)
+        stats = {}
         per = {
             "vf_vtx_cover": (lambda: kernels.vtx_cover(fields, VGRID, W, H),
                              lambda: vtx.cover_plain(fields, VGRID, W, H)),
             "vf_vtx_cover_big": (
                 lambda: kernels.vtx_cover_big(fields, VGRID, winner, big, count),
-                lambda: vtx.cover_big_plain(fields, VGRID, winner.clone(), big, count)),
+                lambda: vtx.cover_big_plain(fields, VGRID, winner.clone(), big, count, stats)),
             "vf_vtx_resolve_gbuffer": (
                 lambda: kernels.vtx_resolve_gbuffer(fields, VGRID, winner),
                 lambda: vtx.resolve_gbuffer_plain(fields, VGRID, winner)),
@@ -872,10 +965,12 @@ def phase4b_vtx_timing(smi, dev):
                 lambda: kernels.vtx_resolve_shade_shipped(fields, VGRID, winner, *shade),
                 lambda: vtx.resolve_shade_shipped_plain(fields, VGRID, winner, *shade)),
         }
-        bounds, orbit_work = vtx_bounds(fields, winner, big, count, VGRID)
         for name, (k, p) in per.items():
             runs[name]["ms"].append(cuda_ms(k, reps=1, inner=KERNEL_INNER))
             runs[name]["plain_ms"].append(cuda_ms(p, reps=1, warmup=1))
+        bounds, orbit_work = vtx_bounds(fields, winner, big, count, VGRID,
+                                        stats["covered_pairs"])
+        for name in per:
             runs[name]["bound_ms"].append(bounds[name]["bound_ms"])
         del fields, winner, big
     rec = {}
@@ -893,25 +988,24 @@ def phase4b_vtx_timing(smi, dev):
     turns = [special_cameras(W, H, turn=0.1 * r) for r in range(REPS + 1)]
     loaded = {"ms": [], "plain_ms": [], "bound_ms": []}
     loaded_work = []
-    for views, projs in turns[:REPS]:
+    for r, (views, projs) in enumerate(turns[:REPS]):
         fields = grid_fields(VGRID, views, projs, dev)
         if w_crossing_valid(fields, VGRID) == 0:
             raise AssertionError("loaded case: no valid triangle crosses w = 0")
+        corners_of = lambda f, t: vtx.tri_corners(fields, VGRID, f, t)
+        kern = lambda w, b, c, walked=None: kernels.vtx_cover_big(fields, VGRID, w, b, c, walked)
+        plain = lambda w, st=None: vtx.cover_big_plain(fields, VGRID, w, big, count, st)
         winner, big, count = kernels.vtx_cover(fields, VGRID, W, H)
-        kernels.vtx_cover_big(fields, VGRID, winner, big, count)
-        bounds, data = vtx_bounds(fields, winner, big, count, VGRID)
-        if data["listed"] == 0:
-            raise AssertionError("loaded case: the big-triangle list is empty")
-        loaded["ms"].append(cuda_ms(
-            lambda: kernels.vtx_cover_big(fields, VGRID, winner, big, count),
-            reps=1, inner=KERNEL_INNER))
-        loaded["plain_ms"].append(cuda_ms(
-            lambda: vtx.cover_big_plain(fields, VGRID, winner.clone(), big, count),
-            reps=1, warmup=1))
-        loaded["bound_ms"].append(bounds["vf_vtx_cover_big"]["bound_ms"])
-        loaded_work.append({**data, **{k: bounds["vf_vtx_cover_big"][k]
-                                       for k in ("bytes", "ops", "bound_by")}})
-        del fields, winner, big
+        _, p_big, p_count = vtx.cover_plain(fields, VGRID, W, H)
+        data, bounds = loaded_big_pass(f"loaded set {r}", "vf_vtx_cover_big", kern, plain,
+                                       corners_of, vtx.n_triangles(VGRID), winner, big,
+                                       count, p_big, p_count,
+                                       lambda cov: vtx_bounds(fields, winner, big, count,
+                                                              VGRID, cov), warmup=1)
+        for k in loaded:
+            loaded[k].append(data[k])
+        loaded_work.append(data)
+        del fields, winner, big, p_big
     rec["vf_vtx_cover_big"] = {k: statistics.median(v) for k, v in loaded.items()}
     rec["vf_vtx_cover_big"].update(bound_by=bounds["vf_vtx_cover_big"]["bound_by"], all=loaded)
     loaded_routes, loaded_routes_all = compare_routes(VGRID, 2, dev, cams=turns)
@@ -1069,8 +1163,8 @@ def soup_frame(dev, n_tris=50_000, n_verts=20_000, seed=7):
 
 def check_packed_passes(fields, tris, label):
     """Each indexed kernel against its plain version on the same CUDA
-    tensors. Returns the per-kernel errors, the big-list length and the
-    g-buffer's bit equality."""
+    tensors. Returns the per-kernel errors, the big-list length, the
+    g-buffer's bit equality and the big pass's walk (big_walk_work)."""
     winner, big, count = kernels.packed_cover(fields, tris, W, H)
     p_winner, p_big, p_count = packed.cover_plain(fields, tris, W, H)
     k = int(count[0])
@@ -1078,16 +1172,20 @@ def check_packed_passes(fields, tris, label):
     if err["vf_packed_cover"] or k != int(p_count[0]) \
             or not torch.equal(torch.sort(big[:k]).values, p_big[:k]):
         raise AssertionError(f"{label}: vf_packed_cover differs from its plain version")
-    kernels.packed_cover_big(fields, tris, winner, big, count)
+    walked = torch.full_like(big, -1)
+    kernels.packed_cover_big(fields, tris, winner, big, count, walked)
     packed.cover_big_plain(fields, tris, p_winner, p_big, p_count)
     err["vf_packed_cover_big"] = int((winner - p_winner).abs().max())
     if err["vf_packed_cover_big"]:
         raise AssertionError(f"{label}: vf_packed_cover_big differs from its plain version")
+    want, walk = big_walk_work(lambda f, t: packed.tri_corners(fields, tris, f, t),
+                               tris.shape[0], p_big, p_count)
+    check_walk_counts(big, count, walked, p_big, want, label, "vf_packed_cover_big")
     got = kernels.packed_resolve_gbuffer(fields, tris, winner)
     want = packed.resolve_gbuffer_plain(fields, tris, winner)
     err["vf_packed_resolve_gbuffer"] = assert_gbuffer_close(got, want, label)
     sync()
-    return err, k, all(torch.equal(a, b) for a, b in zip(got, want))
+    return err, k, all(torch.equal(a, b) for a, b in zip(got, want)), walk
 
 
 def w_crossing_valid_indexed(fields, tris):
@@ -1111,23 +1209,39 @@ def phase2c_packed_kernels(dev):
              ("soup 50K", soup_frame(dev)),
              (f"DEM-{DEM_MAIN} default camera",
               renderer_frame(make_renderer(DEM_MAIN, dev, seed=3)))]
-    errs, listed, bit_equal = {}, {}, {}
+    errs, listed, bit_equal, walks = {}, {}, {}, {}
     for label, (xyuv, tris, heights, views, projs) in cases:
         fields = frame_fields(xyuv, heights, views, projs)
         if "w-crossing" in label and w_crossing_valid_indexed(fields, tris) == 0:
             raise AssertionError(f"{label}: no valid triangle crosses w = 0")
-        err, listed[label], bit_equal[label] = check_packed_passes(fields, tris,
-                                                                   f"{label} {W}x{H}")
+        err, listed[label], bit_equal[label], walks[label] = check_packed_passes(
+            fields, tris, f"{label} {W}x{H}")
         for name, e in err.items():
             errs[name] = max(errs.get(name, 0.0), float(e))
         del fields
     for label in (f"DEM-{DEM_CHECK} close-in", f"DEM-{DEM_CHECK} w-crossing"):
         if listed[label] == 0:
             raise AssertionError(f"{label}: the big-triangle pass got no triangle")
+
+    # Two independent kernels on 4c's first loaded pair (close-in +
+    # w-crossing at DEM-2048): the indexed g-buffer against the record
+    # route's.
+    main = make_renderer(DEM_MAIN, dev)
+    xyuv, tris, heights, views, projs = renderer_frame(main, *special_dem_cameras(main))
+    got = packed.render_gbuffer_packed_batch(frame_fields(xyuv, heights, views, projs),
+                                             tris, W, H)
+    want = record_gbuffer(xyuv, tris.long(), heights, views, projs)
+    label = f"DEM-{DEM_MAIN} close-in + w-crossing vs record route"
+    assert_gbuffer_close(got, want, label)
+    bit_equal[label] = all(torch.equal(a, b) for a, b in zip(got, want))
+    if not bit_equal[label]:
+        raise AssertionError(f"{label}: the indexed g-buffer is not the record route's")
+    del main, xyuv, tris, heights, got, want
     torch.cuda.empty_cache()
     say("packed_kernel_vs_plain", tolerance=f"winners and lists exact; masks exact; varyings "
-        f"<= {VARYING_RTOL}*max(1,|x|)", cases=[c[0] for c in cases], max_err=errs,
-        big_listed=listed, gbuffer_bit_equal=bit_equal)
+        f"<= {VARYING_RTOL}*max(1,|x|); big-pass walk counts equal the mirror's",
+        cases=[c[0] for c in cases], max_err=errs, big_listed=listed, big_walk=walks,
+        gbuffer_bit_equal=bit_equal)
     return errs
 
 
@@ -1214,12 +1328,14 @@ def phase3c_renderer_main_path(dev):
     return launches
 
 
-def packed_bounds(fields, tris, winner, big, count):
+def packed_bounds(fields, tris, winner, big, count, covered_big):
     """bound_ms of each indexed kernel on these inputs, counted from this
     run's data: the fields and indices read once, the winner plane written
-    once (cover); the listed triangles' indices and distinct vertices and
-    their covered pixels (cover_big); the winner plane, the winners'
-    indices and distinct vertices, the g-buffer written (resolve)."""
+    once (cover); the listed triangles' indices and distinct vertices,
+    their setup and their covered_big (triangle, pixel) pairs (cover_big;
+    its bound over every bbox pixel beside it as bbox_bound_ms); the winner
+    plane, the winners' indices and distinct vertices, the g-buffer written
+    (resolve)."""
     B, T = fields.shape[0], tris.shape[0]
     corners = setup.indexed_corners([fields[:, f] for f in range(vtx.FIELDS)], tris)
     _, px0, px1, py0, py1, valid = setup.setup_fields_core(*corners, W, H)
@@ -1227,7 +1343,7 @@ def packed_bounds(fields, tris, winner, big, count):
     area = (px1 - px0 + 1).to(torch.long) * (py1 - py0 + 1).to(torch.long)
     small = valid & (area <= vtx.BIG_PIXELS)
     pairs_small = int(area[small].sum())
-    pairs_big = int(area[valid & ~small].sum())
+    bbox_pairs = int(area[valid & ~small].sum())
     listed = int(count[0])
     pixels = B * H * W
     covered = int((winner > 0).sum())
@@ -1239,19 +1355,21 @@ def packed_bounds(fields, tris, winner, big, count):
         f, tri = torch.div(entries, T, rounding_mode="floor"), entries % T
         return int(torch.unique(f[:, None] * nv + tris[tri].long()).numel())
     vertex_bytes = vtx.FIELDS * 4
-    listed_e = big[:listed].to(torch.long)
+    listed_bytes = listed * 16 + 4 + distinct_vertices(big[:listed].to(torch.long)) * vertex_bytes
     work = {
         "vf_packed_cover": (fields.numel() * 4 + tris.numel() * 4 + pixels * 4 + listed * 4 + 4,
                             B * T * SETUP_OPS + pairs_small * COVER_OPS),
-        "vf_packed_cover_big": (listed * 16 + 4 + distinct_vertices(listed_e) * vertex_bytes
-                                + min(pairs_big, pixels) * 8,
-                                listed * SETUP_OPS + pairs_big * COVER_OPS),
+        "vf_packed_cover_big": (listed_bytes + min(covered_big, pixels) * 8,
+                                listed * SETUP_OPS + covered_big * COVER_OPS),
         "vf_packed_resolve_gbuffer": (pixels * 4 + won.numel() * 12
                                       + distinct_vertices(won) * vertex_bytes + pixels * 13,
                                       covered * (SETUP_OPS + EVAL_OPS) + pixels * RESOLVE_OPS),
     }
+    bbox_bound = bound_of(listed_bytes + min(bbox_pairs, pixels) * 8,
+                          listed * SETUP_OPS + bbox_pairs * COVER_OPS)["bound_ms"]
     data = {"triangles": B * T, "valid": int(valid.sum()), "pairs_small": pairs_small,
-            "listed": listed, "pairs_big": pairs_big, "covered_pixels": covered,
+            "listed": listed, "bbox_pairs": bbox_pairs, "covered_big_pairs": covered_big,
+            "bbox_bound_ms": bbox_bound, "covered_pixels": covered,
             "distinct_winners": int(won.numel())}
     return {name: bound_of(*w) for name, w in work.items()}, data
 
@@ -1361,20 +1479,24 @@ def phase4c_packed_timing(smi, dev):
         fields = frame_fields(xyuv, heights, views, projs)
         winner, big, count = kernels.packed_cover(fields, tris, W, H)
         kernels.packed_cover_big(fields, tris, winner, big, count)
+        stats = {}
         per = {
             "vf_packed_cover": (lambda: kernels.packed_cover(fields, tris, W, H),
                                 lambda: packed.cover_plain(fields, tris, W, H)),
             "vf_packed_cover_big": (
                 lambda: kernels.packed_cover_big(fields, tris, winner, big, count),
-                lambda: packed.cover_big_plain(fields, tris, winner.clone(), big, count)),
+                lambda: packed.cover_big_plain(fields, tris, winner.clone(), big, count,
+                                               stats)),
             "vf_packed_resolve_gbuffer": (
                 lambda: kernels.packed_resolve_gbuffer(fields, tris, winner),
                 lambda: packed.resolve_gbuffer_plain(fields, tris, winner)),
         }
-        bounds, default_work = packed_bounds(fields, tris, winner, big, count)
         for name, (kern, plain) in per.items():
             runs[name]["ms"].append(cuda_ms(kern, reps=1, inner=KERNEL_INNER))
             runs[name]["plain_ms"].append(cuda_ms(plain, reps=1, warmup=1))
+        bounds, default_work = packed_bounds(fields, tris, winner, big, count,
+                                             stats["covered_pairs"])
+        for name in per:
             runs[name]["bound_ms"].append(bounds[name]["bound_ms"])
         del fields, winner, big
     rec = {}
@@ -1395,22 +1517,23 @@ def phase4c_packed_timing(smi, dev):
         fields = frame_fields(xyuv, heights, views, projs)
         if w_crossing_valid_indexed(fields, tris) == 0:
             raise AssertionError("loaded case: no valid triangle crosses w = 0")
+        corners_of = lambda f, t: packed.tri_corners(fields, tris, f, t)
+        kern = lambda w, b, c, walked=None: kernels.packed_cover_big(fields, tris, w, b, c,
+                                                                     walked)
+        plain = lambda w, st=None: packed.cover_big_plain(fields, tris, w, big, count, st)
         winner, big, count = kernels.packed_cover(fields, tris, W, H)
-        kernels.packed_cover_big(fields, tris, winner, big, count)
-        bounds, data = packed_bounds(fields, tris, winner, big, count)
-        if data["listed"] == 0:
-            raise AssertionError("loaded case: the big-triangle list is empty")
-        loaded["ms"].append(cuda_ms(
-            lambda: kernels.packed_cover_big(fields, tris, winner, big, count),
-            reps=1, inner=KERNEL_INNER))
-        # ~8 s per call on an H100: its first call, timed alone, is the measurement.
-        loaded["plain_ms"].append(cuda_ms(
-            lambda: packed.cover_big_plain(fields, tris, winner.clone(), big, count),
-            reps=1, warmup=0))
-        loaded["bound_ms"].append(bounds["vf_packed_cover_big"]["bound_ms"])
-        loaded_work.append({**data, **{k: bounds["vf_packed_cover_big"][k]
-                                       for k in ("bytes", "ops", "bound_by")}})
-        del fields, winner, big
+        _, p_big, p_count = packed.cover_plain(fields, tris, W, H)
+        # The plain pass takes ~8 s on an H100: its first call, timed alone,
+        # is the measurement.
+        data, bounds = loaded_big_pass(f"loaded set {k}", "vf_packed_cover_big", kern, plain,
+                                       corners_of, tris.shape[0], winner, big, count, p_big,
+                                       p_count,
+                                       lambda cov: packed_bounds(fields, tris, winner, big,
+                                                                 count, cov), warmup=0)
+        for key in loaded:
+            loaded[key].append(data[key])
+        loaded_work.append(data)
+        del fields, winner, big, p_big
     rec["vf_packed_cover_big"] = {k: statistics.median(v) for k, v in loaded.items()}
     rec["vf_packed_cover_big"].update(bound_by=bounds["vf_packed_cover_big"]["bound_by"],
                                       all=loaded)

@@ -273,6 +273,40 @@ def test_vtx_route_matches_record_route_on_card(cuda, grid, W, H, eye, batch, ne
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["vtx", "packed"])
+def test_big_kernel_walks_the_mirrors_tiles(cuda, route):
+    """At a w-crossing camera each big-triangle kernel walks, for each list
+    entry, the tiles the torch mirror of its rejects keeps
+    (vtx.big_tile_walk, the same f64 ops), and its winners equal the plain
+    full-bbox walk's."""
+    if route == "vtx":
+        grid, W, H = 128, 200, 150
+        fields = _vtx_fields(grid, W, H, (0.3, 0.35, 0.2), cuda, 2, near=0.001)
+        winner, big, count = kernels.vtx_cover(fields, grid, W, H)
+        _, p_big, p_count = vtx.cover_plain(fields, grid, W, H)
+        run = lambda w, walked: kernels.vtx_cover_big(fields, grid, w, big, count, walked)
+        plain = vtx.cover_big_plain(fields, grid, winner.clone(), big, count)
+        want = vtx.big_walk_counts(fields, grid, p_big, p_count, W, H)
+    else:
+        fields, idx, W, H = _indexed_inputs("w_cross", cuda)
+        winner, big, count = kernels.packed_cover(fields, idx, W, H)
+        _, p_big, p_count = packed.cover_plain(fields, idx, W, H)
+        run = lambda w, walked: kernels.packed_cover_big(fields, idx, w, big, count, walked)
+        plain = packed.cover_big_plain(fields, idx, winner.clone(), big, count)
+        want = packed.big_walk_counts(fields, idx, p_big, p_count, W, H)
+    k = int(count[0])
+    assert k > 0, "the camera must exercise the big-triangle pass"
+    walked = torch.full_like(big, -1)
+    got = run(winner, walked)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    order = torch.argsort(big[:k])
+    assert torch.equal(big[:k][order], p_big[:k])
+    assert torch.equal(walked[:k][order], want)
+    assert 0 < int(want.sum()) and int((want == 0).sum()) > 0
+
+
+@pytest.mark.gpu
 def test_vtx_kernels_reject_bad_inputs(cuda):
     fields = _vtx_fields(8, 32, 24, (2.0, 1.5, 2.5), cuda)
     with pytest.raises(ValueError, match="fields"):

@@ -94,12 +94,13 @@ _SIGNATURES = {
     "vf_raster_shade_shipped_hw": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "vf_tile": [],
     "vf_vtx_cover": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "vf_vtx_cover_big": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "vf_vtx_cover_big": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_vtx_resolve_gbuffer": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vf_vtx_resolve_shade_shipped": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_vtx_big_pixels": [],
+    "vf_big_tile": [],
     "vf_packed_cover": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
-    "vf_packed_cover_big": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "vf_packed_cover_big": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_packed_resolve_gbuffer": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "vf_packed_big_pixels": [],
     "vf_seg_gbuffer": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -198,6 +199,9 @@ def load():
             if fn() != vtx.BIG_PIXELS:
                 raise RuntimeError(f"csrc/{src} lists triangles above {fn()} "
                                    f"pixels but vtx.BIG_PIXELS is {vtx.BIG_PIXELS}")
+        if lib.vf_big_tile() != vtx.BIG_TILE:
+            raise RuntimeError(f"csrc/raster_common.cuh walks {lib.vf_big_tile()}-pixel big "
+                               f"tiles but vtx.BIG_TILE is {vtx.BIG_TILE}")
         if (lib.vf_seg_tile_h(), lib.vf_seg_tile_w()) != (segments.TILE_H, segments.TILE_W):
             raise RuntimeError(f"csrc/segments.cu walks {lib.vf_seg_tile_h()}x"
                                f"{lib.vf_seg_tile_w()} tiles but segments.py bins "
@@ -394,29 +398,45 @@ def vtx_cover(fields: torch.Tensor, grid_n: int, width: int, height: int):
 vtx_cover.launches = 0
 
 
-def vtx_cover_big(fields: torch.Tensor, grid_n: int, winner: torch.Tensor,
-                  big: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """Big-triangle pass: deposits the listed triangles into ``winner`` in
-    place and returns it.
-
-    CPU tensors: vtx.cover_big_plain. CUDA tensors: ``vf_vtx_cover_big``.
-    """
-    _check_fields(fields, grid_n)
-    _check_winner(winner, fields)
-    for name, t in (("big", big), ("count", count)):
+def _check_big_list(fields: torch.Tensor, big: torch.Tensor, count: torch.Tensor,
+                    walked, entries: int) -> None:
+    for name, t in (("big", big), ("count", count), ("walked", walked)):
+        if t is None:
+            continue
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous 1-D int32")
         if t.device != fields.device:
             raise ValueError(f"{name} is on {t.device}, fields on {fields.device}")
-    if big.numel() != fields.shape[0] * vtx.n_triangles(grid_n) or count.numel() != 1:
+    if big.numel() != entries or count.numel() != 1:
         raise ValueError("big must hold frames * triangles entries and count one")
-    if fields.device.type == "cpu":
-        return vtx.cover_big_plain(fields, grid_n, winner, big, count)
+    if walked is not None and walked.numel() != entries:
+        raise ValueError("walked must hold frames * triangles entries, as big")
+
+
+def vtx_cover_big(fields: torch.Tensor, grid_n: int, winner: torch.Tensor,
+                  big: torch.Tensor, count: torch.Tensor, walked=None) -> torch.Tensor:
+    """Big-triangle pass: deposits the listed triangles into ``winner`` in
+    place and returns it. ``walked``, an int32 tensor shaped as ``big`` or
+    None, receives the tiles walked for each list entry (``walked[i]`` for
+    ``big[i]``, i < count; a check, the route passes None).
+
+    CPU tensors: vtx.cover_big_plain (``walked`` from vtx.big_walk_counts).
+    CUDA tensors: ``vf_vtx_cover_big``.
+    """
+    _check_fields(fields, grid_n)
+    _check_winner(winner, fields)
+    _check_big_list(fields, big, count, walked, fields.shape[0] * vtx.n_triangles(grid_n))
     _, height, width = winner.shape
+    if fields.device.type == "cpu":
+        if walked is not None:
+            walked[:int(count[0])] = vtx.big_walk_counts(fields, grid_n, big, count,
+                                                         width, height)
+        return vtx.cover_big_plain(fields, grid_n, winner, big, count)
     lib = load()
     with torch.cuda.device(fields.device):
         err = lib.vf_vtx_cover_big(fields.data_ptr(), grid_n, width, height,
                                    big.data_ptr(), count.data_ptr(), winner.data_ptr(),
+                                   None if walked is None else walked.data_ptr(),
                                    _stream(fields.device))
     _raise_on(err, "vf_vtx_cover_big")
     vtx_cover_big.launches += 1
@@ -550,30 +570,29 @@ packed_cover.launches = 0
 
 
 def packed_cover_big(fields: torch.Tensor, indices: torch.Tensor, winner: torch.Tensor,
-                     big: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+                     big: torch.Tensor, count: torch.Tensor, walked=None) -> torch.Tensor:
     """Big-triangle pass of the indexed route: deposits the listed
-    triangles into ``winner`` in place and returns it.
+    triangles into ``winner`` in place and returns it; ``walked`` as in
+    ``vtx_cover_big``.
 
-    CPU tensors: packed.cover_big_plain. CUDA tensors:
-    ``vf_packed_cover_big``.
+    CPU tensors: packed.cover_big_plain (``walked`` from
+    packed.big_walk_counts). CUDA tensors: ``vf_packed_cover_big``.
     """
     _check_indexed(fields, indices)
     _check_winner(winner, fields)
-    for name, t in (("big", big), ("count", count)):
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous 1-D int32")
-        if t.device != fields.device:
-            raise ValueError(f"{name} is on {t.device}, fields on {fields.device}")
-    if big.numel() != fields.shape[0] * indices.shape[0] or count.numel() != 1:
-        raise ValueError("big must hold frames * triangles entries and count one")
-    if fields.device.type == "cpu":
-        return packed.cover_big_plain(fields, indices, winner, big, count)
+    _check_big_list(fields, big, count, walked, fields.shape[0] * indices.shape[0])
     _, height, width = winner.shape
+    if fields.device.type == "cpu":
+        if walked is not None:
+            walked[:int(count[0])] = packed.big_walk_counts(fields, indices, big, count,
+                                                            width, height)
+        return packed.cover_big_plain(fields, indices, winner, big, count)
     lib = load()
     with torch.cuda.device(fields.device):
         err = lib.vf_packed_cover_big(fields.data_ptr(), fields.shape[2], indices.data_ptr(),
                                       indices.shape[0], width, height, big.data_ptr(),
                                       count.data_ptr(), winner.data_ptr(),
+                                      None if walked is None else walked.data_ptr(),
                                       _stream(fields.device))
     _raise_on(err, "vf_packed_cover_big")
     packed_cover_big.launches += 1

@@ -12,7 +12,8 @@ form, merged with K5, as three passes per batch:
      corners and a walk of its pixel-centre bbox; every covered pixel keeps
      the maximum ``id + 1`` (0 = uncovered). A triangle whose bbox holds
      more than ``vtx.BIG_PIXELS`` pixels is listed instead and walked by a
-     whole block in a second kernel;
+     whole block in a second kernel, which skips the triangles and tiles
+     it cannot cover (``vtx.big_tile_walk``);
   2. resolve: per pixel, the winner's record is built again from its
      indexed corners and evaluated at the pixel centre.
 
@@ -57,12 +58,24 @@ def cover_plain(fields: torch.Tensor, indices: torch.Tensor, width: int, height:
 
 
 def cover_big_plain(fields: torch.Tensor, indices: torch.Tensor, winner: torch.Tensor,
-                    big: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+                    big: torch.Tensor, count: torch.Tensor,
+                    stats: dict | None = None) -> torch.Tensor:
     """Plain version of ``vf_packed_cover_big``: deposits the listed
-    triangles into ``winner`` in place (as the kernel's atomicMax does)."""
+    triangles into ``winner`` in place (as the kernel's atomicMax does),
+    walking their whole bboxes (``stats`` as in
+    ``vtx.cover_big_from_corners``)."""
     return vtx.cover_big_from_corners(
         lambda frame, tri: tri_corners(fields, indices, frame, tri),
-        indices.shape[0], winner, big, count)
+        indices.shape[0], winner, big, count, stats)
+
+
+def big_walk_counts(fields: torch.Tensor, indices: torch.Tensor, big: torch.Tensor,
+                    count: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """The tiles ``vf_packed_cover_big`` walks for each list entry, from the
+    torch mirror of its rejects (``vtx.walk_counts_from_corners``)."""
+    return vtx.walk_counts_from_corners(
+        lambda frame, tri: tri_corners(fields, indices, frame, tri),
+        indices.shape[0], big, count, width, height)
 
 
 def resolve_gbuffer_plain(fields: torch.Tensor, indices: torch.Tensor,

@@ -11,7 +11,9 @@ MXU deposit, slot cap and overflow): two passes per batch,
   1. cover: per triangle, setup and a walk of its pixel-centre bbox; every
      covered pixel keeps the maximum ``id + 1`` (0 = uncovered). A
      triangle whose bbox holds more than ``BIG_PIXELS`` pixels is listed
-     instead and walked by a whole block in a second kernel;
+     instead and walked by a whole block in a second kernel, which skips
+     the triangles and the ``BIG_TILE``-pixel tiles of the bbox that it
+     cannot cover (``big_tile_walk`` mirrors that test);
   2. resolve: per pixel, the winner's record is built again and evaluated
      at the pixel centre: the g-buffer (K3a) or the shipped shader's u32
      word (K3b).
@@ -43,6 +45,14 @@ FIELDS = 7          # x_fb, y_fb, w_clip, var0, var1, var2, z_ndc
 BIG_PIXELS = 64
 # Pairs evaluated at once by the plain version (bounds its memory).
 _PAIR_CHUNK = 1 << 22
+# The big-triangle kernels test their bbox in square tiles of this many
+# pixels a side (kBigTile in csrc/raster_common.cuh; kernels.load() checks).
+BIG_TILE = 16
+# Margins of big_tile_walk's rejects (the kernels' kEdgeMargin, kDotMargin,
+# kFloor and kLimit; csrc/raster_common.cuh derives them).
+_EDGE_MARGIN, _DOT_MARGIN, _FLOOR, _LIMIT = 2.0 ** -20, 2.0 ** -19, 2.0 ** -100, 2.0 ** 120
+# Tiles tested at once by big_tile_walk (bounds its memory).
+_TILE_CHUNK = 1 << 18
 
 
 def n_triangles(n: int) -> int:
@@ -79,10 +89,12 @@ def tri_corners(fields: torch.Tensor, n: int, frame: torch.Tensor,
     return [[fields[frame, f, v] for f in range(FIELDS)] for v in verts]
 
 
-def _deposit(winner, cols, px0, px1, py0, py1, frame, ids):
+def _deposit(winner, cols, px0, px1, py0, py1, frame, ids, stats=None):
     """Max-combine ``ids + 1`` into ``winner`` (B, H, W) int32 at every
     covered pixel of each listed triangle's bbox (1-D per-triangle inputs,
-    all triangles valid)."""
+    all triangles valid). ``stats``, a dict or None, receives
+    ``covered_pairs``, the number of covered (triangle, pixel) pairs."""
+    covered = 0
     _, height, width = winner.shape
     flat = winner.view(-1)
     bw = (px1 - px0 + 1).to(torch.long)
@@ -109,6 +121,10 @@ def _deposit(winner, cols, px0, px1, py0, py1, frame, ids):
         cov = eval_records(col, px, py)[4]
         pix = (frame[tri] * height + y) * width + x
         flat.scatter_reduce_(0, pix[cov], (ids[tri][cov] + 1).to(torch.int32), "amax")
+        if stats is not None:
+            covered += int(cov.sum())
+    if stats is not None:
+        stats["covered_pairs"] = covered
     return winner
 
 
@@ -138,17 +154,116 @@ def cover_from_corners(c0, c1, c2, width: int, height: int):
     return winner, big, count
 
 
-def cover_big_from_corners(corners_of, T: int, winner: torch.Tensor,
-                           big: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """The big-triangle pass: deposits the listed triangles into ``winner``
-    in place (as the kernels' atomicMax does). ``corners_of(frame, tri)``
+def listed_setup(corners_of, T: int, big: torch.Tensor, count: torch.Tensor,
+                 width: int, height: int):
+    """Setup of the triangles the cover pass listed, in list order:
+    (cols, px0, px1, py0, py1, frame, tri). ``corners_of(frame, tri)``
     (1-D int64) gives their corners."""
-    _, height, width = winner.shape
     e = big[:int(count[0])].to(torch.long)
     frame = torch.div(e, T, rounding_mode="floor")
     tri = e % T
     cols, px0, px1, py0, py1, _ = setup_fields_core(*corners_of(frame, tri), width, height)
-    return _deposit(winner, cols, px0, px1, py0, py1, frame, tri)
+    return cols, px0, px1, py0, py1, frame, tri
+
+
+def cover_big_from_corners(corners_of, T: int, winner: torch.Tensor,
+                           big: torch.Tensor, count: torch.Tensor,
+                           stats: dict | None = None) -> torch.Tensor:
+    """The big-triangle pass: deposits the listed triangles into ``winner``
+    in place (as the kernels' atomicMax does), walking every pixel of each
+    bbox. ``corners_of(frame, tri)`` (1-D int64) gives their corners.
+    ``stats``, a dict or None, receives ``covered_pairs``: the (triangle,
+    pixel) pairs whose coverage test passed, before the max."""
+    _, height, width = winner.shape
+    cols, px0, px1, py0, py1, frame, tri = listed_setup(corners_of, T, big, count,
+                                                        width, height)
+    return _deposit(winner, cols, px0, px1, py0, py1, frame, tri, stats)
+
+
+def _outside(c, px, py):
+    """(N, 6) bool: functional j (edges f0..f2, aw, az, asum - az) is below
+    zero, with the kernels' margin, at pixel centres (px, py) (f64). ``c``:
+    the 31 record columns as f64, each (N,). The f64 ops of
+    vf::outside_mask (csrc/raster_common.cuh) in their order, so the
+    decisions are the kernels' bit for bit."""
+    E, M = [], []
+    for k in (0, 4, 8):
+        a = c[k + 2] * (px - c[k])
+        b = c[k + 3] * (py - c[k + 1])
+        E.append(a - b)
+        M.append((torch.abs(a) + torch.abs(b)) + _FLOOR)
+    ok = (M[0] < _LIMIT) & (M[1] < _LIMIT) & (M[2] < _LIMIT)
+    out = [(e + m * _EDGE_MARGIN < 0.0) & (m < _LIMIT) for e, m in zip(E, M)]
+    D, S = {}, {}
+    for k in (21, 25, 28):
+        D[k] = (E[0] * c[k] + E[1] * c[k + 1]) + E[2] * c[k + 2]
+        S[k] = (torch.abs(c[k]) * M[0] + torch.abs(c[k + 1]) * M[1]) + torch.abs(c[k + 2]) * M[2]
+    for k in (21, 25):
+        out.append(ok & (S[k] < _LIMIT) & (D[k] + (S[k] * _DOT_MARGIN + _FLOOR) < 0.0))
+    out.append(ok & (S[25] < _LIMIT) & (S[28] < _LIMIT)
+               & ((D[28] - D[25]) + ((S[28] + S[25]) * _DOT_MARGIN + _FLOOR) < 0.0))
+    return torch.stack(out, dim=1)
+
+
+def _rejected(c, x0, x1, y0, y1):
+    """(N,) bool: one functional is below zero, with its margin, at all four
+    corner pixel centres of the rectangles [x0, x1] x [y0, y1] (int)."""
+    cx = [x.double() + 0.5 for x in (x0, x1)]
+    cy = [y.double() + 0.5 for y in (y0, y1)]
+    out = (_outside(c, cx[0], cy[0]) & _outside(c, cx[1], cy[0])
+           & _outside(c, cx[0], cy[1]) & _outside(c, cx[1], cy[1]))
+    return out.any(dim=1)
+
+
+def big_tile_walk(cols, px0, px1, py0, py1):
+    """The tiles the big-triangle kernels walk, for listed triangles given
+    by their record columns (31 tensors (N,)) and pixel-centre bboxes (N,).
+
+    A kernel rejects a whole triangle, and otherwise each ``BIG_TILE`` x
+    ``BIG_TILE`` tile of its bbox (tile (i, j) spans x from px0 +
+    BIG_TILE*i, y from py0 + BIG_TILE*j, clipped to the bbox), when one of
+    the six functionals of the coverage test is below zero by more than
+    its f32 error bound at all four corner pixel centres (the maximum of an
+    affine function over a rectangle lies at a corner). A record with a
+    non-finite column keeps every tile. Returns the kept tiles, by owner
+    and then row-major: (owner (K,) int64 index into the N triangles, x0,
+    x1, y0, y1 (K,) int64 inclusive pixel ranges). The same f64 ops as
+    the kernels, so the counts per owner are the kernels' walk counts.
+    """
+    dev = px0.device
+    c = [col.double() for col in cols]
+    finite = torch.stack([torch.isfinite(col) for col in cols], dim=1).all(dim=1)
+    bx0, bx1, by0, by1 = (p.to(torch.long) for p in (px0, px1, py0, py1))
+    alive = ~finite | ~_rejected(c, bx0, bx1, by0, by1)
+    ntx = torch.div(bx1 - bx0 + BIG_TILE, BIG_TILE, rounding_mode="floor")
+    nty = torch.div(by1 - by0 + BIG_TILE, BIG_TILE, rounding_mode="floor")
+    ntiles = torch.where(alive, ntx * nty, 0)
+    ends = torch.cumsum(ntiles, 0)
+    total = int(ends[-1]) if ends.numel() else 0
+    kept = []
+    for lo in range(0, total, _TILE_CHUNK):
+        g = torch.arange(lo, min(lo + _TILE_CHUNK, total), device=dev)
+        owner = torch.searchsorted(ends, g, right=True)
+        k = g - (ends[owner] - ntiles[owner])
+        ty = torch.div(k, ntx[owner], rounding_mode="floor")
+        x0 = bx0[owner] + BIG_TILE * (k - ty * ntx[owner])
+        y0 = by0[owner] + BIG_TILE * ty
+        x1 = torch.minimum(x0 + BIG_TILE - 1, bx1[owner])
+        y1 = torch.minimum(y0 + BIG_TILE - 1, by1[owner])
+        keep = ~finite[owner] | ~_rejected([col[owner] for col in c], x0, x1, y0, y1)
+        kept.append(torch.stack([owner, x0, x1, y0, y1])[:, keep])
+    if not kept:
+        return tuple(torch.zeros(0, dtype=torch.long, device=dev) for _ in range(5))
+    return tuple(torch.cat(kept, dim=1))
+
+
+def walk_counts_from_corners(corners_of, T: int, big: torch.Tensor, count: torch.Tensor,
+                             width: int, height: int) -> torch.Tensor:
+    """(count,) int32: the tiles the big-triangle kernels walk for each list
+    entry (``big_tile_walk``), in list order."""
+    cols, px0, px1, py0, py1, _, _ = listed_setup(corners_of, T, big, count, width, height)
+    owner = big_tile_walk(cols, px0, px1, py0, py1)[0]
+    return torch.bincount(owner, minlength=px0.numel()).to(torch.int32)
 
 
 def resolve_from_corners(corners_of, winner: torch.Tensor):
@@ -182,11 +297,21 @@ def cover_plain(fields: torch.Tensor, n: int, width: int, height: int):
 
 
 def cover_big_plain(fields: torch.Tensor, n: int, winner: torch.Tensor,
-                    big: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+                    big: torch.Tensor, count: torch.Tensor,
+                    stats: dict | None = None) -> torch.Tensor:
     """Plain version of ``vf_vtx_cover_big``: deposits the listed
-    triangles into ``winner`` in place."""
+    triangles into ``winner`` in place, walking their whole bboxes
+    (``stats`` as in ``cover_big_from_corners``)."""
     return cover_big_from_corners(lambda frame, tri: tri_corners(fields, n, frame, tri),
-                                  n_triangles(n), winner, big, count)
+                                  n_triangles(n), winner, big, count, stats)
+
+
+def big_walk_counts(fields: torch.Tensor, n: int, big: torch.Tensor, count: torch.Tensor,
+                    width: int, height: int) -> torch.Tensor:
+    """The tiles ``vf_vtx_cover_big`` walks for each list entry, from the
+    torch mirror of its rejects (``walk_counts_from_corners``)."""
+    return walk_counts_from_corners(lambda frame, tri: tri_corners(fields, n, frame, tri),
+                                    n_triangles(n), big, count, width, height)
 
 
 def resolve_gbuffer_plain(fields: torch.Tensor, n: int, winner: torch.Tensor):

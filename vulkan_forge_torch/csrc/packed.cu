@@ -27,8 +27,12 @@
 //     pixels (near the camera; every w-crossing triangle, whose bbox is the
 //     full screen) goes to a device-side list as frame*T + id instead.
 //   vf_packed_cover_big: persistent blocks stride over that list, the
-//     count read on the device (no host sync); a block's threads share one
-//     triangle's bbox pixels, with the same atomicMax.
+//     count read on the device (no host sync). Warp 0 builds 32 listed
+//     triangles' records into shared memory at once, the block rejects a
+//     triangle, or else each 16x16 tile of its bbox, where one coverage
+//     functional is negative with a margin over its f32 error at all four
+//     corners, and walks the surviving tiles' pixels with the same
+//     atomicMax (vf::big_walk, raster_common.cuh, shared with vtx.cu).
 //   vf_packed_resolve_gbuffer: one thread per pixel. The winner's record
 //     is built again from its indexed corners and evaluated at the pixel
 //     centre, then divided as tiles.py:97 does (K6's _varyings_from_ids in
@@ -56,6 +60,13 @@
 // the repeats when neighbouring threads hold neighbouring triangles, as a
 // grid's index order gives. Later work: stage vertex rows through shared
 // memory, keep per-tile winners in shared memory.
+//
+// The big pass's least work is its listed triangles' indices, corners and
+// setup, and the pixels they cover, each written once. It used to walk
+// every bbox pixel: 2-3 x 10^9 at a close-in + w-crossing camera pair over
+// DEM-2048, whose w-crossing triangles have full-screen bboxes and mostly
+// cover nothing. The triangle and tile rejects of vf::big_walk leave the
+// pixels of the tiles a triangle may cover.
 //
 // Numerics: -fmad=false, no fast math (see raster_common.cuh).
 
@@ -117,30 +128,17 @@ packed_cover_kernel(const float* __restrict__ fields, int frames, int nv,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(vf::kBigThreads)
 packed_cover_big_kernel(const float* __restrict__ fields, int nv,
                         const int* __restrict__ indices, int T, int width,
                         int height, const int* __restrict__ big,
                         const int* __restrict__ count,
-                        int* __restrict__ winner) {
-  const int total = *count;
-  for (int i = blockIdx.x; i < total; i += gridDim.x) {
-    const int e = big[i];
-    const int b = e / T;
-    const int id = e - b * T;
-    Record r;
-    indexed_record(fields + (size_t)b * kFields * nv, nv, indices, id, width,
-                   height, r);
-    int* plane = winner + (size_t)b * width * height;
-    const int bw = r.px1 - r.px0 + 1;
-    const int npix = bw * (r.py1 - r.py0 + 1);
-    for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-      const int y = r.py0 + p / bw;
-      const int x = r.px0 + (p - (p / bw) * bw);
-      deposit(r, (float)x + 0.5f, (float)y + 0.5f, plane + y * width + x,
-              id + 1);
-    }
-  }
+                        int* __restrict__ winner, int* __restrict__ walked) {
+  vf::big_pass(big, count, T, width, height, winner, walked,
+               [&](int b, int id, Record& r) {
+                 indexed_record(fields + (size_t)b * kFields * nv, nv, indices,
+                                id, width, height, r);
+               });
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -205,16 +203,20 @@ int vf_packed_cover(const float* fields, int frames, int nv,
   return (int)cudaGetLastError();
 }
 
-// Walks the triangles vf_packed_cover listed in big[0 .. *count).
+// Walks the triangles vf_packed_cover listed in big[0 .. *count). walked:
+// null, or (frames * T) int32 that receives the tiles walked for each list
+// entry (walked[i] for big[i], i < *count).
 int vf_packed_cover_big(const float* fields, int nv, const int* indices,
                         int T, int width, int height, const int* big,
-                        const int* count, int* winner, void* stream) {
+                        const int* count, int* winner, int* walked,
+                        void* stream) {
   int device = 0, sms = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (T > 0) {
-    packed_cover_big_kernel<<<4 * sms, kThreads, 0, (cudaStream_t)stream>>>(
-        fields, nv, indices, T, width, height, big, count, winner);
+    packed_cover_big_kernel<<<4 * sms, vf::kBigThreads, 0,
+                              (cudaStream_t)stream>>>(
+        fields, nv, indices, T, width, height, big, count, winner, walked);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 // Device code shared by the port's raster kernels (raster.cu, vtx.cu,
-// packed.cu).
+// packed.cu, segments.cu).
 //
 // Built with -fmad=false and without fast math (see raster.cu), so every
 // +, -, *, / and sqrtf rounds once, as the plain PyTorch versions round
@@ -261,6 +261,228 @@ __device__ __forceinline__ void setup_fields_core(const Corner& c0,
 __device__ __forceinline__ void deposit(const Record& r, float px, float py,
                                         int* dst, int value) {
   if (eval_pixel(r.col, px, py).cov) atomicMax(dst, value);
+}
+
+// ---- The big-triangle walk (vtx.cu, packed.cu) ----
+//
+// A listed triangle's bbox can be the whole screen (every w-crossing
+// triangle's is), yet most such triangles cover no pixel or a few tiles.
+// A block of kBigThreads threads walks listed triangles (big_pass):
+//   1. the lanes of warp 0 each build one listed triangle's record into
+//      shared memory (a batch of kBigBatch) and reject it whole if one
+//      functional is negative, with its margin, at its bbox's four corner
+//      pixel centres;
+//   2. for each surviving triangle the block cuts the bbox into kBigTile x
+//      kBigTile tiles (tile (i, j) starts at (px0 + 16 i, py0 + 16 j),
+//      clipped to the bbox), tests kBigThreads tiles at a time the same
+//      way, one per thread, and compacts the survivors into a shared list
+//      (a shared counter: the deposit is a max, so their order does not
+//      matter);
+//   3. and walks each surviving tile's pixels, one per thread, with
+//      eval_pixel and atomicMax as deposit does, bit for bit.
+// vtx.big_tile_walk mirrors steps 1 and 2 in torch with these f64 ops in
+// this order, so its tiles per triangle are the kernels' walk counts.
+//
+// Why a reject is conservative. In exact arithmetic the six quantities the
+// coverage test compares with zero are affine in the pixel centre (px, py):
+// the edges F_i = r[4i+2] (px - r[4i]) - r[4i+3] (py - r[4i+1]), and the
+// three-term sums D_k = F_0 r[k] + F_1 r[k+1] + F_2 r[k+2] for aw (k = 21)
+// and az (k = 25), and D_28 - D_25 for asum - az. eval_pixel evaluates them
+// in f32 (u = 2^-24): with M_i = |r[4i+2]||px - r[4i]| + |r[4i+3]||py - r[4i+1]|,
+// f_i = F_i + e_i, |e_i| <= 3.0001 u M_i (two subtractions, a product and a
+// fused multiply-add, each rounded once); a sum's error is at most
+// sum_i |r[k+i]| |e_i| + 3.001 u sum_i |r[k+i]| (|F_i| + |e_i|), and |F_i| <= M_i,
+// so under 6.002 u S_k with S_k = sum_i |r[k+i]| M_i; asum - az adds one
+// rounding, under 7.01 u (S_25 + S_28). The margins are 2^-20 M_i = 16 u M_i
+// for an edge, 2^-19 S_k = 32 u S_k for a sum and 2^-19 (S_25 + S_28) for
+// asum - az: at least 4x each bound. Each margin is a sum of non-negative
+// multiples of |affine| terms, so value + margin is convex, and its maximum
+// over a tile lies at a corner. So value + margin < 0 at the four corner
+// pixel centres means the f32 value is negative at every pixel of the tile,
+// and the test there fails (an edge needs f >= 0, aw > 0, az >= 0,
+// asum - az >= 0). The f64 evaluation of value and margin errs by a few
+// 2^-53 of the same magnitudes, negligible against margins of 2^-20
+// relative. kFloor (2^-100, absolute) covers f32 underflow, whose absolute
+// error is under 2^-148 per rounding. A functional whose magnitudes reach
+// kLimit (2^120) never rejects, so no f32 intermediate of a rejecting
+// functional can overflow; a record with any non-finite column never
+// rejects, and its whole bbox is walked.
+
+constexpr int kBigTile = 16;
+constexpr int kBigThreads = kBigTile * kBigTile;  // one tile pixel per thread
+constexpr double kEdgeMargin = 0x1p-20;
+constexpr double kDotMargin = 0x1p-19;
+constexpr double kFloor = 0x1p-100;
+constexpr double kLimit = 0x1p120;
+
+// Bit j set: functional j (f0, f1, f2, aw, az, asum - az) plus its margin
+// is below zero at the pixel centre (px, py).
+__device__ __forceinline__ unsigned outside_mask(const float* r, double px,
+                                                 double py) {
+  double E[3], M[3];
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const double a = (double)r[4 * i + 2] * (px - (double)r[4 * i]);
+    const double b = (double)r[4 * i + 3] * (py - (double)r[4 * i + 1]);
+    E[i] = a - b;
+    M[i] = (fabs(a) + fabs(b)) + kFloor;
+    if ((E[i] + M[i] * kEdgeMargin < 0.0) & (M[i] < kLimit)) bits |= 1u << i;
+  }
+  const bool ok = (M[0] < kLimit) & (M[1] < kLimit) & (M[2] < kLimit);
+  double D[3], S[3];
+  const int base[3] = {21, 25, 28};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const double c0 = r[base[j]], c1 = r[base[j] + 1], c2 = r[base[j] + 2];
+    D[j] = (E[0] * c0 + E[1] * c1) + E[2] * c2;
+    S[j] = (fabs(c0) * M[0] + fabs(c1) * M[1]) + fabs(c2) * M[2];
+  }
+  if (ok & (S[0] < kLimit) & (D[0] + (S[0] * kDotMargin + kFloor) < 0.0))
+    bits |= 1u << 3;
+  if (ok & (S[1] < kLimit) & (D[1] + (S[1] * kDotMargin + kFloor) < 0.0))
+    bits |= 1u << 4;
+  if (ok & (S[1] < kLimit) & (S[2] < kLimit) &
+      ((D[2] - D[1]) + ((S[2] + S[1]) * kDotMargin + kFloor) < 0.0))
+    bits |= 1u << 5;
+  return bits;
+}
+
+// Nonzero: one functional is below zero, with its margin, at all four
+// corner pixel centres of the pixel rectangle [x0, x1] x [y0, y1].
+__device__ __forceinline__ unsigned rect_mask(const float* r, int x0, int x1,
+                                              int y0, int y1) {
+  const double ax = (double)x0 + 0.5, bx = (double)x1 + 0.5;
+  const double ay = (double)y0 + 0.5, by = (double)y1 + 0.5;
+  unsigned m = outside_mask(r, ax, ay);
+  if (m) m &= outside_mask(r, bx, ay);
+  if (m) m &= outside_mask(r, ax, by);
+  if (m) m &= outside_mask(r, bx, by);
+  return m;
+}
+
+// Shared state of one block's big-triangle pass: a batch of up to
+// kBigBatch listed triangles staged by warp 0, and the tile list of the
+// one being walked.
+constexpr int kBigBatch = 32;  // one listed triangle per lane of warp 0
+
+struct BigBatch {
+  float col[kBigBatch][31];
+  int box[kBigBatch][4];  // px0, px1, py0, py1
+  int frame[kBigBatch];
+  int value[kBigBatch];   // id + 1
+  int finite[kBigBatch];
+  int order[kBigBatch];   // the batch slots not rejected whole
+  int alive;
+  int kept;
+  int list[kBigThreads];
+};
+
+// All kBigThreads threads: deposit s's slot j at every covered pixel of the
+// surviving tiles of its bbox (plane: its frame's winner plane). Returns
+// the tiles walked, the same in every thread. Syncs before it returns.
+__device__ __forceinline__ int big_walk(BigBatch& s, int j, int* plane,
+                                        int width) {
+  const int t = threadIdx.x;
+  float c[31];
+#pragma unroll
+  for (int k = 0; k < 31; ++k) c[k] = s.col[j][k];
+  const int px0 = s.box[j][0], px1 = s.box[j][1];
+  const int py0 = s.box[j][2], py1 = s.box[j][3];
+  const bool finite = s.finite[j];
+  const int value = s.value[j];
+  const int ntx = (px1 - px0 + kBigTile) / kBigTile;
+  const int ntiles = ntx * ((py1 - py0 + kBigTile) / kBigTile);
+  const int lx = t % kBigTile, ly = t / kBigTile;
+  int walked = 0;
+  for (int base = 0; base < ntiles; base += kBigThreads) {
+    if (t == 0) s.kept = 0;
+    __syncthreads();
+    const int tile = base + t;
+    if (tile < ntiles) {
+      const int ty = tile / ntx;
+      const int x0 = px0 + kBigTile * (tile - ty * ntx);
+      const int y0 = py0 + kBigTile * ty;
+      if (!finite || rect_mask(c, x0, min(x0 + kBigTile - 1, px1), y0,
+                               min(y0 + kBigTile - 1, py1)) == 0) {
+        s.list[atomicAdd(&s.kept, 1)] = tile;
+      }
+    }
+    __syncthreads();
+    const int kept = s.kept;
+    walked += kept;
+    for (int i = 0; i < kept; ++i) {
+      const int tj = s.list[i];
+      const int ty = tj / ntx;
+      const int x = px0 + kBigTile * (tj - ty * ntx) + lx;
+      const int y = py0 + kBigTile * ty + ly;
+      if (x <= px1 && y <= py1 &&
+          eval_pixel(c, (float)x + 0.5f, (float)y + 0.5f).cov) {
+        atomicMax(plane + y * width + x, value);
+      }
+    }
+    __syncthreads();
+  }
+  return walked;
+}
+
+// The body of both big-triangle kernels, for a block of kBigThreads threads
+// in a persistent grid striding over big[0 .. *count) (entries frame*T +
+// id). Block b takes entries b, b + G, b + 2G, ... (G = gridDim.x), a batch
+// of kBigBatch at a time: lane k of warp 0 builds the record of entry
+// first + k*G with build(frame, id, Record&), stages it in shared memory
+// and tests its bbox's corners (the whole-triangle reject); the block then
+// walks the batch's surviving triangles one after another (big_walk).
+// walked: null, or receives the tiles walked per entry (0 if rejected
+// whole).
+template <class Build>
+__device__ __forceinline__ void big_pass(const int* __restrict__ big,
+                                         const int* __restrict__ count, int T,
+                                         int width, int height, int* winner,
+                                         int* walked, Build build) {
+  __shared__ BigBatch s;
+  const int t = threadIdx.x;
+  const int total = *count;
+  const int G = gridDim.x;
+  for (int first = blockIdx.x; first < total; first += G * kBigBatch) {
+    if (t < kBigBatch) {
+      const int i = first + t * G;
+      bool alive = false;
+      if (i < total) {
+        const int e = big[i];
+        const int b = e / T;
+        Record r;
+        build(b, e - b * T, r);
+        bool finite = true;
+#pragma unroll
+        for (int k = 0; k < 31; ++k) {
+          s.col[t][k] = r.col[k];
+          finite &= isfinite(r.col[k]);
+        }
+        s.box[t][0] = r.px0;
+        s.box[t][1] = r.px1;
+        s.box[t][2] = r.py0;
+        s.box[t][3] = r.py1;
+        s.frame[t] = b;
+        s.value[t] = e - b * T + 1;
+        s.finite[t] = finite;
+        alive = !finite || rect_mask(r.col, r.px0, r.px1, r.py0, r.py1) == 0;
+        if (!alive && walked != nullptr) walked[i] = 0;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, alive);
+      if (alive) s.order[__popc(m & ((1u << t) - 1u))] = t;
+      if (t == 0) s.alive = __popc(m);
+    }
+    __syncthreads();
+    const int alive = s.alive;
+    for (int a = 0; a < alive; ++a) {
+      const int j = s.order[a];
+      const int tiles =
+          big_walk(s, j, winner + (size_t)s.frame[j] * width * height, width);
+      if (walked != nullptr && t == 0) walked[first + j * G] = tiles;
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace vf

@@ -28,8 +28,12 @@
 //     w-crossing triangle, whose bbox is the full screen) goes to a
 //     device-side list instead.
 //   vf_vtx_cover_big: persistent blocks stride over that list; the count
-//     is read on the device (no host sync). A block's threads share one
-//     triangle's bbox pixels, with the same atomicMax.
+//     is read on the device (no host sync). Warp 0 builds 32 listed
+//     triangles' records into shared memory at once, the block rejects a
+//     triangle, or else each 16x16 tile of its bbox, where one coverage
+//     functional is negative with a margin over its f32 error at all four
+//     corners, and walks the surviving tiles' pixels with the same
+//     atomicMax (vf::big_walk, raster_common.cuh, shared with packed.cu).
 //   vf_vtx_resolve_*: one thread per pixel. The winner's record is built
 //     again from its corners and evaluated at the pixel centre, then
 //     divided as tiles.py:97 does; uncovered pixels get zero varyings (or
@@ -50,7 +54,11 @@
 // from setup_fields_core: 3 near-plane crossings of ~22 ops, four
 // 6-way min/max chains of 12, the 31 columns, the flags) over 8.37M
 // triangles, ~1.9 GFLOP, ~29 us at 67 TFLOP/s, plus ~25 ops per bbox
-// pixel of the walk. So it is memory-bound at ~0.035 ms per batch. The
+// pixel of the walk. So it is memory-bound at ~0.035 ms per batch. The big
+// pass's least work is its listed triangles' setup and the pixels they
+// cover (not their bboxes: a w-crossing triangle's is the whole screen and
+// it often covers nothing); the tile rejects bring the pixels it evaluates
+// from the bboxes' ~10^8-10^9 down towards the covered ones. The
 // resolve reads the winner (7.7 MB) and the winners' corner vertices and
 // writes the image (7.7 MB) or g-buffer (25 MB). The design reads the
 // fields once and never writes (T, 40) records or a (tile, id) pair sort
@@ -144,29 +152,16 @@ vtx_cover_kernel(const float* __restrict__ fields, int frames, int n,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(vf::kBigThreads)
 vtx_cover_big_kernel(const float* __restrict__ fields, int n, int width,
                      int height, const int* __restrict__ big,
-                     const int* __restrict__ count, int* __restrict__ winner) {
-  const int total = *count;
-  const int T = 2 * (n - 1) * (n - 1);
-  for (int i = blockIdx.x; i < total; i += gridDim.x) {
-    const int e = big[i];
-    const int b = e / T;
-    const int id = e - b * T;
-    Record r;
-    triangle_record(fields + (size_t)b * kFields * n * n, n, id, width, height,
-                    r);
-    int* plane = winner + (size_t)b * width * height;
-    const int bw = r.px1 - r.px0 + 1;
-    const int npix = bw * (r.py1 - r.py0 + 1);
-    for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-      const int y = r.py0 + p / bw;
-      const int x = r.px0 + (p - (p / bw) * bw);
-      deposit(r, (float)x + 0.5f, (float)y + 0.5f, plane + y * width + x,
-              id + 1);
-    }
-  }
+                     const int* __restrict__ count, int* __restrict__ winner,
+                     int* __restrict__ walked) {
+  vf::big_pass(big, count, 2 * (n - 1) * (n - 1), width, height, winner,
+               walked, [&](int b, int id, Record& r) {
+                 triangle_record(fields + (size_t)b * kFields * n * n, n, id,
+                                 width, height, r);
+               });
 }
 
 template <bool kShade>
@@ -243,17 +238,23 @@ int vf_vtx_cover(const float* fields, int frames, int n, int width,
   return (int)cudaGetLastError();
 }
 
-// Walks the triangles vf_vtx_cover listed in big[0 .. *count).
+// Walks the triangles vf_vtx_cover listed in big[0 .. *count). walked: null,
+// or (frames * 2*(n-1)^2) int32 that receives the tiles walked for each
+// list entry (walked[i] for big[i], i < *count).
 int vf_vtx_cover_big(const float* fields, int n, int width, int height,
                      const int* big, const int* count, int* winner,
-                     void* stream) {
+                     int* walked, void* stream) {
   int device = 0, sms = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  vtx_cover_big_kernel<<<4 * sms, kThreads, 0, (cudaStream_t)stream>>>(
-      fields, n, width, height, big, count, winner);
+  vtx_cover_big_kernel<<<4 * sms, vf::kBigThreads, 0, (cudaStream_t)stream>>>(
+      fields, n, width, height, big, count, winner, walked);
   return (int)cudaGetLastError();
 }
+
+// The big-triangle pass's tile side; kernels.load() requires it to equal
+// vtx.BIG_TILE, the torch mirror's.
+int vf_big_tile() { return vf::kBigTile; }
 
 // Outputs (frames, height, width): v0..v2 f32 and mask u8.
 int vf_vtx_resolve_gbuffer(const float* fields, int frames, int n, int width,
