@@ -8,7 +8,8 @@ Phases, each printing one line, in order:
      flags; requires a CUDA device of compute capability 9.0.
   1. build: compiles csrc/raster.cu, vtx.cu, packed.cu and segments.cu with
      nvcc (one process per source, started together) and prints the seconds and, per kernel,
-     the registers, shared memory, stack and spills ptxas reports.
+     the registers, shared memory, stack and spills ptxas reports and the
+     blocks per SM they allow.
   2. kernel vs plain: each record-route kernel against its plain PyTorch
      version on the same CUDA tensors at the main path's shapes (triangle
      800x600, Scene 160x120 g32, spike 800x600 g128). Masks exact, varyings
@@ -16,9 +17,13 @@ Phases, each printing one line, in order:
      byte off by 1, at most 1e-4 of the bytes differ).
   2b. vtx kernel vs plain: each of the four vertex-stream kernels against
      its plain version (vtx.py) at 800x600: grid=256 with 2 orbit cameras,
-     a close-in camera and a w-crossing camera, and the main path's shape,
-     grid=1024 with 4 orbit cameras. Winners and big-triangle lists exact,
-     g-buffer and images under the same bounds; vf_vtx_cover_big's tiles
+     a close-in camera, a w-crossing camera and a camera whose near plane
+     cuts the grid (valid triangles straddling it, asserted), and the main
+     path's shape, grid=1024 with 4 orbit cameras. Winners and big-triangle
+     lists exact, vf_vtx_cover's survivors (the triangles that passed its
+     bbox test) equal to the plain count of valid triangles of at most
+     vtx.BIG_PIXELS bbox pixels, g-buffer and images under the same
+     bounds; vf_vtx_cover_big's tiles
      walked per list entry (its walked output) equal the torch mirror of
      its rejects (vtx.big_tile_walk), sorted by entry. Then the vtx route
      against the record route (two independent kernels) at grid=1024,
@@ -26,13 +31,14 @@ Phases, each printing one line, in order:
      pair, g-buffers bit-equal.
   2c. indexed kernel vs plain: each of the three indexed-mesh kernels
      (csrc/packed.cu) against its plain version (packed.py) at 800x600: a
-     Renderer DEM-256 at its default camera, close in, and with w-crossing
-     triangles (asserted), a 50K-triangle soup made from a seed, and a
-     DEM-2048 at the default camera. Winners and lists exact, g-buffer
-     within 1e-5*max(1,|x|); vf_packed_cover_big's tiles walked per list
-     entry equal the torch mirror's, as in 2b. Then the indexed route
-     against the record route on 4c's first loaded pair (DEM-2048 close-in
-     + w-crossing), g-buffers bit-equal.
+     Renderer DEM-256 at its default camera, close in, with w-crossing
+     triangles (asserted) and with a near plane that cuts the mesh
+     (asserted), a 50K-triangle soup made from a seed, and a DEM-2048 at
+     the default camera. Winners and lists exact, survivors equal to the
+     plain count, g-buffer within 1e-5*max(1,|x|); vf_packed_cover_big's
+     tiles walked per list entry equal the torch mirror's, as in 2b. Then
+     the indexed route against the record route on 4c's first loaded pair
+     (DEM-2048 close-in + w-crossing), g-buffers bit-equal.
   2d. hw kernel vs plain: vf_raster_gbuffer_hw and vf_raster_shade_shipped_hw
      (the hardware fill rule, VF_FILL_RULE=hw) against their plain versions
      over records set up under "hw": the grid-16 160x120 scene, whose mask
@@ -94,7 +100,9 @@ Phases, each printing one line, in order:
      routes (record, vtx, vtx, record; median of 5 distinct camera sets;
      Mpix/s), the vtx route's stages, single-frame latency of
      make_terrain(800,600,1024).render_rgba(), each vtx kernel and its
-     plain version (CUDA events), the record route's peak device memory,
+     plain version (CUDA events) with vf_vtx_cover's survivor share, its
+     bound (cover_bound) and the former one (full_setup_bound_ms), the
+     record route's peak device memory,
      the route sweep (grids 8..1024, 1 and 4 frames) that shows whether
      the vtx route needs a size crossover, and the loaded big-triangle
      case: vf_vtx_cover_big and both whole routes at grid=1024 on a
@@ -111,7 +119,8 @@ Phases, each printing one line, in order:
   4c. timing, slice 3: render_rgba() latency at DEM-1024, DEM-2048 and
      DEM-3601 (median and p80 of 20 calls, readback included), the stages of a
      DEM-2048 frame (CUDA events), each indexed kernel and its plain
-     version over 5 turned cameras (vf_packed_cover_big on a close-in +
+     version over 5 turned cameras (vf_packed_cover's survivor share and
+     bounds as in 4b; vf_packed_cover_big on a close-in +
      w-crossing pair, where its list is full, with 4b's walk counts and
      work per set), both routes on the DEM-2048 frame with their peak
      device memory, and the route sweep (DEMs 32^2 to 2048^2) that sets
@@ -180,12 +189,23 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 #              and 6 three-term sums, 7 compares;
 #   SETUP_OPS  setup_fields_core for one triangle (raster_common.cuh): ~159
 #              arithmetic ops and ~60 compares;
+#   TEST_OPS   the cover passes' bbox test of one triangle (vf::setup_bbox
+#              without crossings, and the area test): area, the clip flags,
+#              four 6-way min/max chains, the pixel conversions;
+#   CROSS_OPS  one near-plane crossing (vf::crossing), which setup_bbox
+#              computes only on an edge that straddles z_clip = 0;
+#   RECORD_OPS the coverage columns of one survivor's record
+#              (vf::setup_columns without the varyings, which coverage never
+#              reads): the edges, the signs, 1/w, rw*t and zn*t;
 #   COVER_OPS  one pixel of a cover walk (a0..a2 not evaluated); the big
 #              passes' bound charges it per covered (triangle, pixel) pair,
 #              the least a walk must evaluate, not per bbox pixel;
 #   RESOLVE_OPS the divide of tiles.py:97 at one pixel;
 #   SHADE_OPS  the shipped shader at one pixel (raster_common.cuh).
 EVAL_OPS, SETUP_OPS, COVER_OPS, RESOLVE_OPS, SHADE_OPS = 52, 220, 38, 5, 75
+TEST_OPS, CROSS_OPS, RECORD_OPS = 100, 25, 41
+# The position planes the cover passes read (x_fb, y_fb, w_clip, z_ndc).
+POSITION_FIELDS = 4
 
 
 def say(phase, **fields):
@@ -306,8 +326,21 @@ ENTRIES = (("raster_kernelILb0ELb0", "vf_raster_gbuffer"),
            ("seg_kernelILb1", "vf_seg_shade_shipped"))
 
 
+def blocks_per_sm(registers, smem_bytes, threads=256):
+    """Resident blocks of `threads` threads per SM of an H100 (64K registers,
+    allocated per warp in units of 256; 228 KB of shared memory, 1 KB of it
+    reserved per block; 64 warps, 32 blocks). Every kernel of the port
+    launches 256 threads with static shared memory only."""
+    warps = threads // 32
+    per_warp = -(-registers * 32 // 256) * 256
+    by_regs = (65536 // per_warp) // warps if per_warp else 32
+    by_smem = (233472 // (smem_bytes + 1024)) if smem_bytes else 32
+    return min(by_regs, by_smem, 64 // warps, 32)
+
+
 def ptxas_summary(log):
-    """Per kernel: registers, shared memory, stack and spills from ptxas -v."""
+    """Per kernel: registers, shared memory, stack and spills from ptxas -v,
+    and the blocks per SM they allow."""
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -321,6 +354,8 @@ def ptxas_summary(log):
             out[cur]["registers"] = int(words[words.index("registers") - 1])
             out[cur]["smem_bytes"] = (int(words[words.index("smem") - 2])
                                       if "smem" in words else 0)
+            out[cur]["blocks_per_sm"] = blocks_per_sm(out[cur]["registers"],
+                                                      out[cur]["smem_bytes"])
     return out
 
 
@@ -468,17 +503,30 @@ def check_walk_counts(big, count, walked, p_big, want, label, name):
                              "the torch mirror's")
 
 
+def check_survivors(survivors, stats, label, name):
+    """A cover kernel's survivors (per frame) against the plain pass's count
+    of valid triangles of at most BIG_PIXELS bbox pixels: phase A took the
+    plain setup's decisions. Returns the count."""
+    if not torch.equal(survivors.long(), stats["survivors"]):
+        raise AssertionError(f"{label}: {name}'s survivors {survivors.tolist()} differ from "
+                             f"the plain count {stats['survivors'].tolist()}")
+    return int(survivors.sum())
+
+
 def check_vtx_passes(fields, grid, shade, label):
     """Each vtx kernel against its plain version on the same CUDA tensors.
-    Returns the per-kernel errors, the big-list length and the big pass's
-    walk (big_walk_work)."""
-    winner, big, count = kernels.vtx_cover(fields, grid, W, H)
-    p_winner, p_big, p_count = vtx.cover_plain(fields, grid, W, H)
+    Returns the per-kernel errors, the big-list length, the big pass's
+    walk (big_walk_work) and the cover pass's survivors."""
+    survivors = torch.full((fields.shape[0],), -1, dtype=torch.int32, device=fields.device)
+    stats = {}
+    winner, big, count = kernels.vtx_cover(fields, grid, W, H, survivors=survivors)
+    p_winner, p_big, p_count = vtx.cover_plain(fields, grid, W, H, stats)
     k = int(count[0])
     err = {"vf_vtx_cover": int((winner - p_winner).abs().max())}
     if err["vf_vtx_cover"] or k != int(p_count[0]) \
             or not torch.equal(torch.sort(big[:k]).values, p_big[:k]):
         raise AssertionError(f"{label}: vf_vtx_cover differs from its plain version")
+    kept = check_survivors(survivors, stats, label, "vf_vtx_cover")
     walked = torch.full_like(big, -1)
     kernels.vtx_cover_big(fields, grid, winner, big, count, walked)
     vtx.cover_big_plain(fields, grid, p_winner, p_big, p_count)
@@ -496,7 +544,7 @@ def check_vtx_passes(fields, grid, shade, label):
                             label)
     err["vf_vtx_resolve_shade_shipped"] = float(d)
     sync()
-    return err, k, walk
+    return err, k, walk, kept
 
 
 def record_route(grid, views, projs, dev, fill_rule="inclusive"):
@@ -509,6 +557,22 @@ def record_route(grid, views, projs, dev, fill_rule="inclusive"):
         fill_rule=fill_rule)
 
 
+def near_cut_camera(width, height):
+    """An orbit camera of the spike (bench.py's eye height, 45 degrees)
+    whose near plane (3.5) cuts the grid: valid triangles in front of the
+    camera straddle z_clip = 0 and take their bbox from the crossings."""
+    aspect = np.float32(width) / np.float32(height)
+    view = _camera.look_at_rh((3.0, 2.0, 0.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    proj = _camera.perspective_wgpu(np.float32(math.radians(45.0)), aspect, np.float32(3.5),
+                                    np.float32(100.0))
+    return view[None], proj[None]
+
+
+def near_cut_valid(corners):
+    """Valid triangles whose bbox the near-plane crossings set."""
+    return int(setup.near_cut(*corners, setup.setup_fields_core(*corners, W, H)[5]).sum())
+
+
 def phase2b_vtx_kernels(dev):
     """The vtx kernels against their plain versions and against the record
     route; returns each kernel's max error over the cases."""
@@ -517,14 +581,20 @@ def phase2b_vtx_kernels(dev):
     cases = [("g256 orbit x2", 256, orbit_cameras(2, W, H, phase=0.2)),
              ("g256 close-in", 256, tuple(a[:1] for a in close_wcross)),
              ("g256 w-crossing", 256, tuple(a[1:] for a in close_wcross)),
+             ("g256 near-cut", 256, near_cut_camera(W, H)),
              (f"g{VGRID} orbit x{VBATCH}", VGRID, orbit_cameras(VBATCH, W, H))]
-    errs, listed, walks = {}, {}, {}
+    errs, listed, walks, kept, cut = {}, {}, {}, {}, {}
     for label, grid, (views, projs) in cases:
         fields = grid_fields(grid, views, projs, dev)
         if "w-crossing" in label and w_crossing_valid(fields, grid) == 0:
             raise AssertionError(f"{label}: no valid triangle crosses w = 0")
-        err, listed[label], walks[label] = check_vtx_passes(fields, grid, shade,
-                                                            f"{label} 800x600")
+        if "near-cut" in label:
+            cut[label] = near_cut_valid(setup.grid_corners([fields[:, f] for f in range(7)],
+                                                           grid))
+            if cut[label] == 0:
+                raise AssertionError(f"{label}: the near plane cuts no valid triangle")
+        err, listed[label], walks[label], kept[label] = check_vtx_passes(
+            fields, grid, shade, f"{label} 800x600")
         for name, e in err.items():
             errs[name] = max(errs.get(name, 0.0), float(e))
         del fields
@@ -559,8 +629,9 @@ def phase2b_vtx_kernels(dev):
         torch.cuda.empty_cache()
     say("vtx_kernel_vs_plain", tolerance=f"winners and lists exact; masks exact; varyings "
         f"<= {VARYING_RTOL}*max(1,|x|); images: bytes off by <= 1 on <= {FS_MAX_FRACTION} "
-        "of bytes; big-pass walk counts equal the mirror's", cases=[c[0] for c in cases],
-        max_err=errs, big_listed=listed, big_walk=walks, vtx_vs_record_route=vs_record)
+        "of bytes; big-pass walk counts equal the mirror's; survivors equal the plain count",
+        cases=[c[0] for c in cases], max_err=errs, big_listed=listed, big_walk=walks,
+        survivors=kept, near_cut_straddling_valid=cut, vtx_vs_record_route=vs_record)
     return errs
 
 
@@ -815,21 +886,48 @@ def compare_routes(grid, batch, dev, reps=REPS, cams=None):
     return {r: statistics.median(t) for r, t in times.items()}, times
 
 
+def cover_work(corners):
+    """What the cover passes' bbox test finds on these inputs: per triangle
+    valid, its bbox pixels and whether it is a survivor (valid, at most
+    BIG_PIXELS bbox pixels), and the edges that straddle z_clip = 0 (each
+    triangle computes its own crossings)."""
+    _, px0, px1, py0, py1, valid = setup.setup_fields_core(*corners, W, H)
+    area = (px1 - px0 + 1).to(torch.long) * (py1 - py0 + 1).to(torch.long)
+    small = valid & (area <= vtx.BIG_PIXELS)
+    return valid, area, small, int(setup.straddling_edges(*corners).sum())
+
+
+def cover_bound(position_bytes, other_bytes, field_bytes, triangles, survivors,
+                straddling, pairs_small):
+    """The cover pass's bound on these inputs, and the former one
+    (full_setup_bound_ms): every triangle tested (TEST_OPS, CROSS_OPS per
+    straddling edge), the coverage columns of the survivors (RECORD_OPS)
+    and their bbox pixels (COVER_OPS); the 4 position planes read once
+    (coverage never reads the varyings). The former bound charged the
+    whole record to every triangle and all 7 planes."""
+    bound = bound_of(position_bytes + other_bytes,
+                     triangles * TEST_OPS + straddling * CROSS_OPS + survivors * RECORD_OPS
+                     + pairs_small * COVER_OPS)
+    full = bound_of(field_bytes + other_bytes,
+                    triangles * SETUP_OPS + pairs_small * COVER_OPS)["bound_ms"]
+    return bound, full
+
+
 def vtx_bounds(fields, winner, big, count, grid, covered_big):
     """bound_ms of each vtx kernel on these inputs: the larger of the bytes
     it must move over HBM's rate and the f32 operations it does over the
-    f32 peak, counted from this run's data; and what binds. covered_big:
-    the (listed triangle, pixel) pairs the plain big pass covered; the big
-    pass's bound charges those, its bound over every bbox pixel is
-    reported beside it as bbox_bound_ms."""
+    f32 peak, counted from this run's data; and what binds. The cover
+    pass's as cover_bound counts it (the former bound beside it as
+    full_setup_bound_ms). covered_big: the (listed triangle, pixel) pairs
+    the plain big pass covered; the big pass's bound charges those, its
+    bound over every bbox pixel is reported beside it as bbox_bound_ms."""
     B = fields.shape[0]
     T = vtx.n_triangles(grid)
-    c0, c1, c2 = setup.grid_corners([fields[:, f] for f in range(7)], grid)
-    _, px0, px1, py0, py1, valid = setup.setup_fields_core(c0, c1, c2, W, H)
-    area = (px1 - px0 + 1).to(torch.long) * (py1 - py0 + 1).to(torch.long)
-    small = valid & (area <= vtx.BIG_PIXELS)
+    valid, area, small, straddling = cover_work(
+        setup.grid_corners([fields[:, f] for f in range(7)], grid))
     pairs_small = int(area[small].sum())
     bbox_pairs = int(area[valid & ~small].sum())
+    survivors = int(small.sum())
     listed = int(count[0])
     pixels = B * H * W
     covered = int((winner > 0).sum())
@@ -840,9 +938,10 @@ def vtx_bounds(fields, winner, big, count, grid, covered_big):
     won_vertices = distinct_vertices(won, grid)
     listed_bytes = listed * 4 + 4 + distinct_vertices(big[:listed].to(torch.long), grid) \
         * vertex_bytes
+    cover, full_setup = cover_bound(B * grid * grid * POSITION_FIELDS * 4,
+                                    pixels * 4 + listed * 4 + 4, fields.numel() * 4, B * T,
+                                    survivors, straddling, pairs_small)
     work = {
-        "vf_vtx_cover": (fields.numel() * 4 + pixels * 4 + listed * 4 + 4,
-                         B * T * SETUP_OPS + pairs_small * COVER_OPS),
         "vf_vtx_cover_big": (listed_bytes + min(covered_big, pixels) * 8,
                              listed * SETUP_OPS + covered_big * COVER_OPS),
         "vf_vtx_resolve_gbuffer": (pixels * 4 + won_vertices * vertex_bytes + pixels * 13,
@@ -852,10 +951,12 @@ def vtx_bounds(fields, winner, big, count, grid, covered_big):
                                          covered * (SETUP_OPS + EVAL_OPS)
                                          + pixels * (RESOLVE_OPS + SHADE_OPS)),
     }
-    out = {name: bound_of(*w) for name, w in work.items()}
+    out = {"vf_vtx_cover": cover, **{name: bound_of(*w) for name, w in work.items()}}
     bbox_bound = bound_of(listed_bytes + min(bbox_pairs, pixels) * 8,
                           listed * SETUP_OPS + bbox_pairs * COVER_OPS)["bound_ms"]
-    data = {"triangles": B * T, "valid": int(valid.sum()), "pairs_small": pairs_small,
+    data = {"triangles": B * T, "valid": int(valid.sum()), "survivors": survivors,
+            "survivor_share": survivors / (B * T), "straddling_edges": straddling,
+            "pairs_small": pairs_small, "full_setup_bound_ms": full_setup,
             "listed": listed, "bbox_pairs": bbox_pairs, "covered_big_pairs": covered_big,
             "bbox_bound_ms": bbox_bound, "covered_pixels": covered,
             "distinct_winners": winners, "distinct_winner_vertices": won_vertices}
@@ -972,6 +1073,8 @@ def phase4b_vtx_timing(smi, dev):
                                         stats["covered_pairs"])
         for name in per:
             runs[name]["bound_ms"].append(bounds[name]["bound_ms"])
+        for key in ("full_setup_bound_ms", "survivor_share"):
+            runs["vf_vtx_cover"].setdefault(key, []).append(orbit_work[key])
         del fields, winner, big
     rec = {}
     for name, r in runs.items():
@@ -1133,6 +1236,19 @@ def special_dem_cameras(r, turn=0.0):
     return np.stack(views), np.stack(projs)
 
 
+def near_cut_dem_camera(r):
+    """The Renderer's default camera with its near plane at 0.8 of the
+    distance to the DEM centre, which cuts the mesh (fovy 45)."""
+    terr = r._terrain
+    view, _ = r._default_terrain_camera(terr)
+    extent = max((terr.width - 1) * terr.spacing[0], (terr.height - 1) * terr.spacing[1])
+    near = 0.8 * math.sqrt(2.0) * 0.9 * extent
+    proj = _camera.perspective_wgpu(np.float32(math.radians(45.0)),
+                                    np.float32(W) / np.float32(H), np.float32(near),
+                                    np.float32(10.0 * near))
+    return view[None], proj[None]
+
+
 def frame_fields(xyuv, heights, views, projs):
     one = tensor(1.0, xyuv.device)
     return vtx.vs_fields(xyuv, heights, views, projs, one, one, W, H, "extended")
@@ -1164,14 +1280,18 @@ def soup_frame(dev, n_tris=50_000, n_verts=20_000, seed=7):
 def check_packed_passes(fields, tris, label):
     """Each indexed kernel against its plain version on the same CUDA
     tensors. Returns the per-kernel errors, the big-list length, the
-    g-buffer's bit equality and the big pass's walk (big_walk_work)."""
-    winner, big, count = kernels.packed_cover(fields, tris, W, H)
-    p_winner, p_big, p_count = packed.cover_plain(fields, tris, W, H)
+    g-buffer's bit equality, the big pass's walk (big_walk_work) and the
+    cover pass's survivors."""
+    survivors = torch.full((fields.shape[0],), -1, dtype=torch.int32, device=fields.device)
+    stats = {}
+    winner, big, count = kernels.packed_cover(fields, tris, W, H, survivors=survivors)
+    p_winner, p_big, p_count = packed.cover_plain(fields, tris, W, H, stats)
     k = int(count[0])
     err = {"vf_packed_cover": int((winner - p_winner).abs().max())}
     if err["vf_packed_cover"] or k != int(p_count[0]) \
             or not torch.equal(torch.sort(big[:k]).values, p_big[:k]):
         raise AssertionError(f"{label}: vf_packed_cover differs from its plain version")
+    kept = check_survivors(survivors, stats, label, "vf_packed_cover")
     walked = torch.full_like(big, -1)
     kernels.packed_cover_big(fields, tris, winner, big, count, walked)
     packed.cover_big_plain(fields, tris, p_winner, p_big, p_count)
@@ -1185,7 +1305,7 @@ def check_packed_passes(fields, tris, label):
     want = packed.resolve_gbuffer_plain(fields, tris, winner)
     err["vf_packed_resolve_gbuffer"] = assert_gbuffer_close(got, want, label)
     sync()
-    return err, k, all(torch.equal(a, b) for a, b in zip(got, want)), walk
+    return err, k, all(torch.equal(a, b) for a, b in zip(got, want)), walk, kept
 
 
 def w_crossing_valid_indexed(fields, tris):
@@ -1203,18 +1323,25 @@ def phase2c_packed_kernels(dev):
     xyuv, tris, heights, _, _ = renderer_frame(small)
     close, wcross = (tuple(tensor(a[i:i + 1], dev) for a in special_dem_cameras(small))
                      for i in (0, 1))
+    cut_cam = tuple(tensor(a, dev) for a in near_cut_dem_camera(small))
     cases = [(f"DEM-{DEM_CHECK} default camera", renderer_frame(small)),
              (f"DEM-{DEM_CHECK} close-in", (xyuv, tris, heights, *close)),
              (f"DEM-{DEM_CHECK} w-crossing", (xyuv, tris, heights, *wcross)),
+             (f"DEM-{DEM_CHECK} near-cut", (xyuv, tris, heights, *cut_cam)),
              ("soup 50K", soup_frame(dev)),
              (f"DEM-{DEM_MAIN} default camera",
               renderer_frame(make_renderer(DEM_MAIN, dev, seed=3)))]
-    errs, listed, bit_equal, walks = {}, {}, {}, {}
+    errs, listed, bit_equal, walks, kept, cut = {}, {}, {}, {}, {}, {}
     for label, (xyuv, tris, heights, views, projs) in cases:
         fields = frame_fields(xyuv, heights, views, projs)
         if "w-crossing" in label and w_crossing_valid_indexed(fields, tris) == 0:
             raise AssertionError(f"{label}: no valid triangle crosses w = 0")
-        err, listed[label], bit_equal[label], walks[label] = check_packed_passes(
+        if "near-cut" in label:
+            cut[label] = near_cut_valid(
+                setup.indexed_corners([fields[:, f] for f in range(vtx.FIELDS)], tris))
+            if cut[label] == 0:
+                raise AssertionError(f"{label}: the near plane cuts no valid triangle")
+        err, listed[label], bit_equal[label], walks[label], kept[label] = check_packed_passes(
             fields, tris, f"{label} {W}x{H}")
         for name, e in err.items():
             errs[name] = max(errs.get(name, 0.0), float(e))
@@ -1239,8 +1366,9 @@ def phase2c_packed_kernels(dev):
     del main, xyuv, tris, heights, got, want
     torch.cuda.empty_cache()
     say("packed_kernel_vs_plain", tolerance=f"winners and lists exact; masks exact; varyings "
-        f"<= {VARYING_RTOL}*max(1,|x|); big-pass walk counts equal the mirror's",
-        cases=[c[0] for c in cases], max_err=errs, big_listed=listed, big_walk=walks,
+        f"<= {VARYING_RTOL}*max(1,|x|); big-pass walk counts equal the mirror's; survivors "
+        "equal the plain count", cases=[c[0] for c in cases], max_err=errs, big_listed=listed,
+        big_walk=walks, survivors=kept, near_cut_straddling_valid=cut,
         gbuffer_bit_equal=bit_equal)
     return errs
 
@@ -1330,20 +1458,19 @@ def phase3c_renderer_main_path(dev):
 
 def packed_bounds(fields, tris, winner, big, count, covered_big):
     """bound_ms of each indexed kernel on these inputs, counted from this
-    run's data: the fields and indices read once, the winner plane written
-    once (cover); the listed triangles' indices and distinct vertices,
-    their setup and their covered_big (triangle, pixel) pairs (cover_big;
-    its bound over every bbox pixel beside it as bbox_bound_ms); the winner
-    plane, the winners' indices and distinct vertices, the g-buffer written
-    (resolve)."""
+    run's data: the cover pass's as cover_bound counts it, with the
+    indices read once and the winner plane written once (its former bound
+    beside it as full_setup_bound_ms); the listed triangles' indices and
+    distinct vertices, their setup and their covered_big (triangle, pixel)
+    pairs (cover_big; its bound over every bbox pixel beside it as
+    bbox_bound_ms); the winner plane, the winners' indices and distinct
+    vertices, the g-buffer written (resolve)."""
     B, T = fields.shape[0], tris.shape[0]
-    corners = setup.indexed_corners([fields[:, f] for f in range(vtx.FIELDS)], tris)
-    _, px0, px1, py0, py1, valid = setup.setup_fields_core(*corners, W, H)
-    del corners
-    area = (px1 - px0 + 1).to(torch.long) * (py1 - py0 + 1).to(torch.long)
-    small = valid & (area <= vtx.BIG_PIXELS)
+    valid, area, small, straddling = cover_work(
+        setup.indexed_corners([fields[:, f] for f in range(vtx.FIELDS)], tris))
     pairs_small = int(area[small].sum())
     bbox_pairs = int(area[valid & ~small].sum())
+    survivors = int(small.sum())
     listed = int(count[0])
     pixels = B * H * W
     covered = int((winner > 0).sum())
@@ -1356,9 +1483,11 @@ def packed_bounds(fields, tris, winner, big, count, covered_big):
         return int(torch.unique(f[:, None] * nv + tris[tri].long()).numel())
     vertex_bytes = vtx.FIELDS * 4
     listed_bytes = listed * 16 + 4 + distinct_vertices(big[:listed].to(torch.long)) * vertex_bytes
+    cover, full_setup = cover_bound(B * nv * POSITION_FIELDS * 4,
+                                    tris.numel() * 4 + pixels * 4 + listed * 4 + 4,
+                                    fields.numel() * 4, B * T, survivors, straddling,
+                                    pairs_small)
     work = {
-        "vf_packed_cover": (fields.numel() * 4 + tris.numel() * 4 + pixels * 4 + listed * 4 + 4,
-                            B * T * SETUP_OPS + pairs_small * COVER_OPS),
         "vf_packed_cover_big": (listed_bytes + min(covered_big, pixels) * 8,
                                 listed * SETUP_OPS + covered_big * COVER_OPS),
         "vf_packed_resolve_gbuffer": (pixels * 4 + won.numel() * 12
@@ -1367,11 +1496,13 @@ def packed_bounds(fields, tris, winner, big, count, covered_big):
     }
     bbox_bound = bound_of(listed_bytes + min(bbox_pairs, pixels) * 8,
                           listed * SETUP_OPS + bbox_pairs * COVER_OPS)["bound_ms"]
-    data = {"triangles": B * T, "valid": int(valid.sum()), "pairs_small": pairs_small,
+    data = {"triangles": B * T, "valid": int(valid.sum()), "survivors": survivors,
+            "survivor_share": survivors / (B * T), "straddling_edges": straddling,
+            "pairs_small": pairs_small, "full_setup_bound_ms": full_setup,
             "listed": listed, "bbox_pairs": bbox_pairs, "covered_big_pairs": covered_big,
             "bbox_bound_ms": bbox_bound, "covered_pixels": covered,
             "distinct_winners": int(won.numel())}
-    return {name: bound_of(*w) for name, w in work.items()}, data
+    return {"vf_packed_cover": cover, **{name: bound_of(*w) for name, w in work.items()}}, data
 
 
 def packed_route_fns(r, dev):
@@ -1498,6 +1629,8 @@ def phase4c_packed_timing(smi, dev):
                                              stats["covered_pairs"])
         for name in per:
             runs[name]["bound_ms"].append(bounds[name]["bound_ms"])
+        for key in ("full_setup_bound_ms", "survivor_share"):
+            runs["vf_packed_cover"].setdefault(key, []).append(default_work[key])
         del fields, winner, big
     rec = {}
     for name, run in runs.items():
@@ -2522,10 +2655,14 @@ def main() -> int:
                 "vf_vtx_cover_big": "vulkan_forge/_raster/vtx.py:616",
                 "vf_vtx_resolve_gbuffer": "vulkan_forge/_raster/vtx.py:590",
                 "vf_vtx_resolve_shade_shipped": "vulkan_forge/_raster/vtx.py:616"}
+    # The cover passes' former bound (the whole record for every triangle)
+    # stands beside the restated one.
+    extra = ("full_setup_bound_ms",)
     for name, _ in VTX_KERNELS:
         line.append({"name": name, "route": "cuda", "source": vsrc, "replaces": replaces[name],
                      "launches": launches[name], "max_abs_err": vtx_err[name],
-                     **{k: vtx_rec[name][k] for k in keys}, "library_ms": None})
+                     **{k: vtx_rec[name][k] for k in keys + extra if k in vtx_rec[name]},
+                     "library_ms": None})
     # K6 (packed.py:580) computes the winner id, K5 (packed.py:222) the
     # g-buffer; the cover passes and the resolve split that function so.
     replaces = {"vf_packed_cover": "vulkan_forge/_raster/packed.py:580",
@@ -2535,7 +2672,8 @@ def main() -> int:
         line.append({"name": name, "route": "cuda",
                      "source": "vulkan_forge_torch/csrc/packed.cu", "replaces": replaces[name],
                      "launches": launches[name], "max_abs_err": packed_err[name],
-                     **{k: packed_rec[name][k] for k in keys}, "library_ms": None})
+                     **{k: packed_rec[name][k] for k in keys + extra if k in packed_rec[name]},
+                     "library_ms": None})
     # K1's hw branch (pallas_backend.py:78-80) serves the triangle; K7's hw
     # mode (strips.py:261-265) the terrain frames, shipped and extended.
     replaces = {"vf_raster_gbuffer_hw": "vulkan_forge/_raster/pallas_backend.py:33",

@@ -359,8 +359,8 @@ def _dem(rows, cols, seed):
 
 def _indexed_inputs(case, dev):
     """(fields (B, 7, N), int32 indices, W, H) of a Renderer DEM frame at
-    its default camera, close in, with w-crossing triangles, or a random
-    triangle soup."""
+    its default camera, close in, with w-crossing triangles, with a near
+    plane that cuts the mesh, or a random triangle soup."""
     t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
     if case == "soup":
         rng = np.random.default_rng(5)
@@ -375,7 +375,8 @@ def _indexed_inputs(case, dev):
         views, projs = view[None], proj[None]
     else:
         rows, cols, W, H = {"renderer": (64, 80, 160, 120), "close": (48, 48, 160, 120),
-                            "w_cross": (96, 96, 200, 150), "batch": (128, 128, 320, 240)}[case]
+                            "w_cross": (96, 96, 200, 150), "batch": (128, 128, 320, 240),
+                            "near_cut": (64, 80, 160, 120)}[case]
         r = vt.Renderer(W, H, device="cpu")
         r.add_terrain(_dem(rows, cols, rows), (10.0, 12.0), 1.5, "terrain")
         xyuv, idx = trend.grid_mesh(cols, rows, 10.0, 12.0, "cpu")
@@ -389,6 +390,12 @@ def _indexed_inputs(case, dev):
                            else ((0, 15, 0), (100, -5, 90)))
             views = _camera.look_at_rh(eye, target, (0, 1, 0))[None]
             projs = _camera.perspective_wgpu(np.float32(math.radians(60)), np.float32(W / H),
+                                             np.float32(near), np.float32(1e4))[None]
+        if case == "near_cut":
+            # The default camera with its near plane at 0.8 of the distance
+            # to the DEM centre, which cuts the mesh.
+            near = 0.8 * math.sqrt(2.0) * 0.9 * max((cols - 1) * 10.0, (rows - 1) * 12.0)
+            projs = _camera.perspective_wgpu(np.float32(math.radians(45)), np.float32(W / H),
                                              np.float32(near), np.float32(1e4))[None]
         if case == "batch":
             views = np.stack([view, _camera.look_at_rh((300, 500, 200), (0, 0, 0), (0, 1, 0))])
@@ -483,6 +490,57 @@ def test_renderer_device_none_raises_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         vt.Renderer(64, 48)
+
+
+# ---------------- the cover passes' bbox test (vf_vtx_cover, vf_packed_cover) ----------------
+
+# (grid, W, H, eye, batch, near) of _vtx_fields: orbit, close in, w-crossing
+# triangles, and a near plane (3.5) that cuts the grid.
+COVER_VTX_CASES = {"orbit": (64, 161, 83, (-2.0, 1.4, 2.6), 2, 0.1),
+                   "close-in": (48, 160, 120, (0.15, 0.7, 0.1), 1, 0.1),
+                   "w-crossing": (128, 200, 150, (0.3, 0.35, 0.2), 2, 0.001),
+                   "near-cut": (128, 200, 150, (3.0, 2.0, 0.0), 2, 3.5)}
+COVER_PACKED_CASES = {"orbit": "batch", "close-in": "close", "w-crossing": "w_cross",
+                      "near-cut": "near_cut", "soup": "soup"}
+
+
+def _check_cover(cover, plain, corners, W, H, batch, case):
+    """A cover kernel against its plain version: winner plane bit-equal,
+    the big list equal as a set, survivors equal to the plain count."""
+    survivors = torch.full((batch,), -1, dtype=torch.int32, device="cuda")
+    stats = {}
+    winner, big, count = cover(survivors)
+    p_winner, p_big, p_count = plain(stats)
+    torch.cuda.synchronize()
+    assert torch.equal(winner, p_winner) and torch.equal(count, p_count)
+    k = int(count[0])
+    assert torch.equal(torch.sort(big[:k]).values, p_big[:k])
+    assert torch.equal(survivors.long(), stats["survivors"])
+    assert int(survivors.min()) > 0
+    if case == "near-cut":
+        valid = setup.setup_fields_core(*corners, W, H)[5]
+        assert int(setup.near_cut(*corners, valid).sum()) > 0, "the near plane must cut the mesh"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(COVER_VTX_CASES))
+def test_vtx_cover_survivors_equal_plain(cuda, case):
+    grid, W, H, eye, batch, near = COVER_VTX_CASES[case]
+    fields = _vtx_fields(grid, W, H, eye, cuda, batch, near=near)
+    _check_cover(lambda s: kernels.vtx_cover(fields, grid, W, H, survivors=s),
+                 lambda st: vtx.cover_plain(fields, grid, W, H, st),
+                 setup.grid_corners([fields[:, f] for f in range(vtx.FIELDS)], grid),
+                 W, H, batch, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(COVER_PACKED_CASES))
+def test_packed_cover_survivors_equal_plain(cuda, case):
+    fields, idx, W, H = _indexed_inputs(COVER_PACKED_CASES[case], cuda)
+    _check_cover(lambda s: kernels.packed_cover(fields, idx, W, H, survivors=s),
+                 lambda st: packed.cover_plain(fields, idx, W, H, st),
+                 setup.indexed_corners([fields[:, f] for f in range(vtx.FIELDS)], idx),
+                 W, H, fields.shape[0], case)
 
 
 # ---------------- tall-frame route (csrc/segments.cu) ----------------

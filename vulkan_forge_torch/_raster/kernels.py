@@ -93,13 +93,15 @@ _SIGNATURES = {
     "vf_raster_shade_shipped": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "vf_raster_shade_shipped_hw": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "vf_tile": [],
-    "vf_vtx_cover": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vf_vtx_cover": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vf_vtx_cover_patches": [_I],
     "vf_vtx_cover_big": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_vtx_resolve_gbuffer": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vf_vtx_resolve_shade_shipped": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_vtx_big_pixels": [],
     "vf_big_tile": [],
-    "vf_packed_cover": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "vf_packed_cover": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vf_packed_cover_blocks": [_I],
     "vf_packed_cover_big": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_packed_resolve_gbuffer": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "vf_packed_big_pixels": [],
@@ -371,27 +373,64 @@ def _check_winner(winner: torch.Tensor, fields: torch.Tensor) -> None:
         raise ValueError(f"winner is on {winner.device}, fields on {fields.device}")
 
 
-def vtx_cover(fields: torch.Tensor, grid_n: int, width: int, height: int):
+def _check_frame(width: int, height: int) -> None:
+    # The cover kernels keep a survivor's pixel bbox in 26 + 6 bits a side.
+    if not (0 < width < 2**26 and 0 < height < 2**26):
+        raise ValueError(f"width and height must be in [1, 2**26), got {width}x{height}")
+
+
+def _check_survivors(survivors, fields: torch.Tensor) -> None:
+    if survivors is None:
+        return
+    B = fields.shape[0]
+    if survivors.dtype != torch.int32 or tuple(survivors.shape) != (B,) \
+            or not survivors.is_contiguous():
+        raise ValueError(f"survivors must be contiguous int32 ({B},), got "
+                         f"{survivors.dtype} {tuple(survivors.shape)}")
+    if survivors.device != fields.device:
+        raise ValueError(f"survivors is on {survivors.device}, fields on {fields.device}")
+
+
+def _block_counts(survivors, blocks: int, device):
+    """Where a cover kernel writes its survivors, one count per block (the
+    wrapper sums them per frame), or None when ``survivors`` is None."""
+    return None if survivors is None else torch.empty(blocks, dtype=torch.int32, device=device)
+
+
+def vtx_cover(fields: torch.Tensor, grid_n: int, width: int, height: int, survivors=None):
     """Cover pass: (winner (B, H, W) int32 = max id+1 of the triangles of at
     most ``vtx.BIG_PIXELS`` bbox pixels, big (B*T,) int32 list of the
-    others as frame*T + id, count (1,) int32).
+    others as frame*T + id, count (1,) int32). ``survivors``, an int32 (B,)
+    tensor or None, receives per frame the triangles the pass walks (valid,
+    at most BIG_PIXELS bbox pixels: those that passed the kernel's bbox
+    test; a check, the route passes None).
 
     CPU tensors: vtx.cover_plain. CUDA tensors: ``vf_vtx_cover``.
     """
     _check_fields(fields, grid_n)
+    _check_frame(width, height)
+    _check_survivors(survivors, fields)
     if fields.device.type == "cpu":
-        return vtx.cover_plain(fields, grid_n, width, height)
+        stats = {}
+        out = vtx.cover_plain(fields, grid_n, width, height, stats)
+        if survivors is not None:
+            survivors.copy_(stats["survivors"])
+        return out
     B = fields.shape[0]
     winner = torch.zeros((B, height, width), dtype=torch.int32, device=fields.device)
     big = torch.empty(B * vtx.n_triangles(grid_n), dtype=torch.int32, device=fields.device)
     count = torch.zeros(1, dtype=torch.int32, device=fields.device)
     lib = load()
+    per = _block_counts(survivors, B * lib.vf_vtx_cover_patches(grid_n), fields.device)
     with torch.cuda.device(fields.device):
         err = lib.vf_vtx_cover(fields.data_ptr(), B, grid_n, width, height,
                                winner.data_ptr(), big.data_ptr(), count.data_ptr(),
+                               None if per is None else per.data_ptr(),
                                _stream(fields.device))
     _raise_on(err, "vf_vtx_cover")
     vtx_cover.launches += 1
+    if per is not None:
+        survivors.copy_(per.view(B, -1).sum(dim=1))
     return winner, big, count
 
 
@@ -541,28 +580,40 @@ def _check_indexed(fields: torch.Tensor, indices: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {fields.device}")
 
 
-def packed_cover(fields: torch.Tensor, indices: torch.Tensor, width: int, height: int):
+def packed_cover(fields: torch.Tensor, indices: torch.Tensor, width: int, height: int,
+                 survivors=None):
     """Cover pass of the indexed route: (winner (B, H, W) int32 = max id+1
     of the triangles of at most ``vtx.BIG_PIXELS`` bbox pixels, big (B*T,)
-    int32 list of the others as frame*T + id, count (1,) int32).
+    int32 list of the others as frame*T + id, count (1,) int32);
+    ``survivors`` as in ``vtx_cover``.
 
     CPU tensors: packed.cover_plain. CUDA tensors: ``vf_packed_cover``.
     """
     _check_indexed(fields, indices)
+    _check_frame(width, height)
+    _check_survivors(survivors, fields)
     if fields.device.type == "cpu":
-        return packed.cover_plain(fields, indices, width, height)
+        stats = {}
+        out = packed.cover_plain(fields, indices, width, height, stats)
+        if survivors is not None:
+            survivors.copy_(stats["survivors"])
+        return out
     B, _, nv = fields.shape
     T = indices.shape[0]
     winner = torch.zeros((B, height, width), dtype=torch.int32, device=fields.device)
     big = torch.empty(B * T, dtype=torch.int32, device=fields.device)
     count = torch.zeros(1, dtype=torch.int32, device=fields.device)
     lib = load()
+    per = _block_counts(survivors, B * lib.vf_packed_cover_blocks(T), fields.device)
     with torch.cuda.device(fields.device):
         err = lib.vf_packed_cover(fields.data_ptr(), B, nv, indices.data_ptr(), T,
                                   width, height, winner.data_ptr(), big.data_ptr(),
-                                  count.data_ptr(), _stream(fields.device))
+                                  count.data_ptr(), None if per is None else per.data_ptr(),
+                                  _stream(fields.device))
     _raise_on(err, "vf_packed_cover")
     packed_cover.launches += 1
+    if per is not None:
+        survivors.copy_(per.view(B, -1).sum(dim=1))
     return winner, big, count
 
 

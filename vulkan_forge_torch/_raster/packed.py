@@ -49,12 +49,13 @@ def tri_corners(fields: torch.Tensor, indices: torch.Tensor,
     return [[fields[frame, f, verts[:, j]] for f in range(vtx.FIELDS)] for j in range(3)]
 
 
-def cover_plain(fields: torch.Tensor, indices: torch.Tensor, width: int, height: int):
+def cover_plain(fields: torch.Tensor, indices: torch.Tensor, width: int, height: int,
+                stats: dict | None = None):
     """Plain version of ``vf_packed_cover``: (winner (B, H, W) int32, big
     (B*T,) int32 list of frame*T + id, count (1,) int32), as
-    ``vtx.cover_from_corners`` defines them."""
+    ``vtx.cover_from_corners`` defines them (``stats`` as there)."""
     corners = indexed_corners([fields[:, f] for f in range(vtx.FIELDS)], indices)
-    return vtx.cover_from_corners(*corners, width, height)
+    return vtx.cover_from_corners(*corners, width, height, stats)
 
 
 def cover_big_plain(fields: torch.Tensor, indices: torch.Tensor, winner: torch.Tensor,

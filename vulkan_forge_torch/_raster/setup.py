@@ -75,6 +75,28 @@ def clip_to_fb(clip: torch.Tensor, width: int, height: int):
     return x_fb, y_fb, ndc_z, w
 
 
+def _crossing(xa, ya, wa, za, xb, yb, wb, zb):
+    """Near-plane (z_clip = 0) crossing of edge a->b: (x, y, ok)."""
+    denom = za - zb
+    safe = torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
+    t = za / safe
+    crosses = (za < 0.0) != (zb < 0.0)
+    wx = wa + t * (wb - wa)
+    Xa, Ya = xa * wa, ya * wa
+    Xb, Yb = xb * wb, yb * wb
+    X = Xa + t * (Xb - Xa)
+    Y = Ya + t * (Yb - Ya)
+    ok = crosses & (wx > _W_EPS)
+    rw = 1.0 / torch.where(torch.abs(wx) < 1e-30, 1e-30, wx)
+    return X * rw, Y * rw, ok
+
+
+def _srw(w):
+    """1/w with the sign kept where |w| < 1e-12."""
+    tiny = torch.where(w < 0.0, -1e-12, 1e-12)
+    return 1.0 / torch.where(torch.abs(w) < 1e-12, tiny, w)
+
+
 def setup_fields_core(c0, c1, c2, width: int, height: int,
                       fill_rule: str = "inclusive"):
     """Triangle setup from per-corner per-FIELD tensors (field order:
@@ -107,24 +129,9 @@ def setup_fields_core(c0, c1, c2, width: int, height: int,
     clean = (w0 > _W_EPS) & (w1 > _W_EPS) & (w2 > _W_EPS)
 
     # ---- pixel-center bbox (centers at integer+0.5) ----
-    def crossing(xa, ya, wa, za, xb, yb, wb, zb):
-        """Near-plane (z_clip = 0) crossing of edge a->b."""
-        denom = za - zb
-        safe = torch.where(torch.abs(denom) < 1e-30, 1e-30, denom)
-        t = za / safe
-        crosses = (za < 0.0) != (zb < 0.0)
-        wx = wa + t * (wb - wa)
-        Xa, Ya = xa * wa, ya * wa
-        Xb, Yb = xb * wb, yb * wb
-        X = Xa + t * (Xb - Xa)
-        Y = Ya + t * (Yb - Ya)
-        ok = crosses & (wx > _W_EPS)
-        rw = 1.0 / torch.where(torch.abs(wx) < 1e-30, 1e-30, wx)
-        return X * rw, Y * rw, ok
-
-    cx01, cy01, ok01 = crossing(x0, y0, w0, zc0, x1, y1, w1, zc1)
-    cx12, cy12, ok12 = crossing(x1, y1, w1, zc1, x2, y2, w2, zc2)
-    cx20, cy20, ok20 = crossing(x2, y2, w2, zc2, x0, y0, w0, zc0)
+    cx01, cy01, ok01 = _crossing(x0, y0, w0, zc0, x1, y1, w1, zc1)
+    cx12, cy12, ok12 = _crossing(x1, y1, w1, zc1, x2, y2, w2, zc2)
+    cx20, cy20, ok20 = _crossing(x2, y2, w2, zc2, x0, y0, w0, zc0)
     vok0 = zc0 >= 0.0
     vok1 = zc1 >= 0.0
     vok2 = zc2 >= 0.0
@@ -163,11 +170,7 @@ def setup_fields_core(c0, c1, c2, width: int, height: int,
 
     # SIGNED reciprocals keep the projective functionals exact on the
     # clipped region (setup.py "Near-plane clipping").
-    def srw(w):
-        tiny = torch.where(w < 0.0, -1e-12, 1e-12)
-        return 1.0 / torch.where(torch.abs(w) < 1e-12, tiny, w)
-
-    rw0, rw1, rw2 = srw(w0), srw(w1), srw(w2)
+    rw0, rw1, rw2 = _srw(w0), _srw(w1), _srw(w2)
 
     one = torch.ones_like(x0)
     s0 = torch.where(neg1_ ^ neg2, -one, one)
@@ -205,6 +208,144 @@ def setup_fields_core(c0, c1, c2, width: int, height: int,
                  edge_bias(x2, y2, x0, y0),        # edge opp v1
                  edge_bias(x0, y0, x1, y1)]        # edge opp v2
     return cols, px0, px1, py0, py1, valid
+
+
+def vertex_terms(c):
+    """The per-vertex terms of setup: ``vf::VertexTerms``
+    (csrc/raster_common.cuh), which ``vf_vtx_cover`` computes once per
+    vertex of its patch. ``c``: one corner's 7 field tensors (the field
+    order of ``setup_fields_core``). Returns a dict: x, y, w, zc = z_ndc*w
+    (clip z), zn = z_ndc, rw = the signed 1/w and vr = [v_k * rw], the ops
+    ``setup_fields_core`` does per corner. With ``setup_from_terms``, the
+    torch mirror of the cover kernels' factored setup, for tests."""
+    w, zn = c[2], c[6]
+    rw = _srw(w)
+    return {"x": c[0], "y": c[1], "w": w, "zc": zn * w, "zn": zn, "rw": rw,
+            "vr": [c[3 + k] * rw for k in range(3)]}
+
+
+def _crossing_if_straddling(a, b):
+    """``_crossing`` of edge a->b (vertex terms) computed only where its ends
+    straddle z_clip = 0, as the kernels' setup_bbox computes it; elsewhere
+    ok is False and the point is NaN, a value the bbox must never read."""
+    shape = torch.broadcast_shapes(*(t.shape for t in (a["x"], a["w"], b["x"], b["w"])))
+    sel = ((a["zc"] < 0.0) != (b["zc"] < 0.0)).expand(shape)
+    cx = torch.full(shape, float("nan"), dtype=a["x"].dtype, device=a["x"].device)
+    cy = cx.clone()
+    ok = torch.zeros(shape, dtype=torch.bool, device=cx.device)
+    args = [t.expand(shape)[sel] for t in (a["x"], a["y"], a["w"], a["zc"],
+                                           b["x"], b["y"], b["w"], b["zc"])]
+    cx[sel], cy[sel], ok[sel] = _crossing(*args)
+    return cx, cy, ok
+
+
+def _nan3(a, b, c):
+    return torch.isnan(a) | torch.isnan(b) | torch.isnan(c)
+
+
+def setup_bbox(a, b, c, width: int, height: int):
+    """The bbox test of the cover kernels (``vf::setup_bbox``): the int32
+    pixel-centre bbox and the valid flag, (px0, px1, py0, py1, valid), from
+    three corners' ``vertex_terms`` (x, y, w and zc only), bit for bit
+    ``setup_fields_core``'s, in the kernels' form: a chain of
+    torch.maximum/minimum compared with zero as "no NaN, and one compare
+    holds"; the bbox as fmin/fmax over the selected points with a NaN flag
+    that makes the bound NaN, as the chain of torch.minimum would; a
+    near-plane crossing only on the edges that straddle z_clip = 0."""
+    x0, y0, w0, zc0 = a["x"], a["y"], a["w"], a["zc"]
+    x1, y1, w1, zc1 = b["x"], b["y"], b["w"], b["zc"]
+    x2, y2, w2, zc2 = c["x"], c["y"], c["w"], c["zc"]
+    area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    odd_neg = (w0 < 0.0) ^ (w1 < 0.0) ^ (w2 < 0.0)
+    front = torch.where(odd_neg, area2, -area2) > 0.0
+    finite = (torch.isfinite(x0) & torch.isfinite(x1) & torch.isfinite(x2)
+              & torch.isfinite(y0) & torch.isfinite(y1) & torch.isfinite(y2))
+    any_near = ~_nan3(zc0, zc1, zc2) & ((zc0 >= 0.0) | (zc1 >= 0.0) | (zc2 >= 0.0))
+    any_w = ~_nan3(w0, w1, w2) & ((w0 > _W_EPS) | (w1 > _W_EPS) | (w2 > _W_EPS))
+    f0, f1, f2 = zc0 - w0, zc1 - w1, zc2 - w2
+    any_far = ~_nan3(f0, f1, f2) & ((f0 <= 0.0) | (f1 <= 0.0) | (f2 <= 0.0))
+    clean = (w0 > _W_EPS) & (w1 > _W_EPS) & (w2 > _W_EPS)
+
+    big = torch.full_like(area2, 3.4e37)
+    sels = [zc0 >= 0.0, zc1 >= 0.0, zc2 >= 0.0]
+
+    def chain(vals, init, op):
+        out = init
+        for s, v in zip(sels, vals):
+            out = op(out, torch.where(s, v, init))
+        return out
+
+    xs, ys = [x0, x1, x2], [y0, y1, y2]
+    xmin, xmax = chain(xs, big, torch.fmin), chain(xs, -big, torch.fmax)
+    ymin, ymax = chain(ys, big, torch.fmin), chain(ys, -big, torch.fmax)
+    xnan = (sels[0] & torch.isnan(x0)) | (sels[1] & torch.isnan(x1)) | (sels[2] & torch.isnan(x2))
+    ynan = (sels[0] & torch.isnan(y0)) | (sels[1] & torch.isnan(y1)) | (sels[2] & torch.isnan(y2))
+    for p, q in ((a, b), (b, c), (c, a)):
+        cx, cy, ok = _crossing_if_straddling(p, q)
+        xmin = torch.where(ok, torch.fmin(xmin, cx), xmin)
+        xmax = torch.where(ok, torch.fmax(xmax, cx), xmax)
+        ymin = torch.where(ok, torch.fmin(ymin, cy), ymin)
+        ymax = torch.where(ok, torch.fmax(ymax, cy), ymax)
+        xnan = xnan | (ok & torch.isnan(cx))
+        ynan = ynan | (ok & torch.isnan(cy))
+    nan = float("nan")
+    xmin = torch.where(clean, torch.where(xnan, nan, xmin), 0.0)
+    xmax = torch.where(clean, torch.where(xnan, nan, xmax), float(width))
+    ymin = torch.where(clean, torch.where(ynan, nan, ymin), 0.0)
+    ymax = torch.where(clean, torch.where(ynan, nan, ymax), float(height))
+
+    def to_px(v, rnd):
+        return rnd(torch.clamp(v, -1e9, 1e9) - 0.5).to(torch.int32)
+
+    px0 = torch.clamp_min(to_px(xmin, torch.ceil), 0)
+    px1 = torch.clamp_max(to_px(xmax, torch.floor), width - 1)
+    py0 = torch.clamp_min(to_px(ymin, torch.ceil), 0)
+    py1 = torch.clamp_max(to_px(ymax, torch.floor), height - 1)
+    covers = (px0 <= px1) & (py0 <= py1)
+    return px0, px1, py0, py1, front & finite & any_near & any_w & any_far & covers
+
+
+def setup_from_terms(a, b, c, width: int, height: int):
+    """``setup_fields_core`` (inclusive rule) in the cover kernels' factored
+    form: ``setup_bbox``, then the 31 columns (``vf::setup_columns``) from
+    the three corners' ``vertex_terms``. Returns (cols, px0, px1, py0, py1,
+    valid), bit for bit ``setup_fields_core``'s."""
+    px0, px1, py0, py1, valid = setup_bbox(a, b, c, width, height)
+    x0, y0, x1, y1, x2, y2 = a["x"], a["y"], b["x"], b["y"], c["x"], c["y"]
+    area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    neg0, neg1, neg2 = a["w"] < 0.0, b["w"] < 0.0, c["w"] < 0.0
+    one = torch.ones_like(area2)
+    s0 = torch.where(neg1 ^ neg2, -one, one)
+    s1 = torch.where(neg2 ^ neg0, -one, one)
+    s2 = torch.where(neg0 ^ neg1, -one, one)
+    tau = torch.where(area2 > 0.0, -one, one)
+    t0, t1, t2 = s0 * tau, s1 * tau, s2 * tau
+    cols = [x1, y1, (y2 - y1) * s0, (x2 - x1) * s0,
+            x2, y2, (y0 - y2) * s1, (x0 - x2) * s1,
+            x0, y0, (y1 - y0) * s2, (x1 - x0) * s2]
+    for k in range(3):
+        cols += [a["vr"][k] * t0, b["vr"][k] * t1, c["vr"][k] * t2]
+    cols += [a["rw"] * t0, b["rw"] * t1, c["rw"] * t2, valid.to(torch.float32)]
+    cols += [a["zn"] * t0, b["zn"] * t1, c["zn"] * t2, t0, t1, t2]
+    return cols, px0, px1, py0, py1, valid
+
+
+def straddling_edges(c0, c1, c2):
+    """(3, ...) bool: whether the ends of edge 0->1, 1->2 and 2->0 straddle
+    z_clip = 0, the edges whose near-plane crossing setup_bbox computes.
+    Corners as ``setup_fields_core`` takes them."""
+    zc = torch.broadcast_tensors(*(c[6] * c[2] for c in (c0, c1, c2)))
+    return torch.stack([(zc[a] < 0.0) != (zc[b] < 0.0) for a, b in ((0, 1), (1, 2), (2, 0))])
+
+
+def near_cut(c0, c1, c2, valid):
+    """(...,) bool: the valid triangles in front of the camera (w above
+    the epsilon at every corner) with an edge whose ends straddle
+    z_clip = 0, whose bboxes the near-plane crossings set. Corners as
+    ``setup_fields_core`` takes them; for the tests' and chip_smoke.py's
+    near-plane-cut cameras."""
+    cut = straddling_edges(c0, c1, c2).any(dim=0)
+    return valid & cut & (c0[2] > _W_EPS) & (c1[2] > _W_EPS) & (c2[2] > _W_EPS)
 
 
 def grid_corners(fields, n: int):

@@ -128,19 +128,24 @@ def _deposit(winner, cols, px0, px1, py0, py1, frame, ids, stats=None):
     return winner
 
 
-def cover_from_corners(c0, c1, c2, width: int, height: int):
+def cover_from_corners(c0, c1, c2, width: int, height: int, stats: dict | None = None):
     """The cover pass over every triangle's corners: three lists (one per
     corner) of 7 (B, T) field tensors, triangle id = position along T.
 
     Returns (winner (B, H, W) int32 = max id+1 of the triangles of at most
     BIG_PIXELS bbox pixels, big (B*T,) int32 whose first ``count`` entries
     list the other valid triangles as frame*T + id in ascending order,
-    count (1,) int32). The kernels list them in any order.
+    count (1,) int32). The kernels list them in any order. ``stats``, a
+    dict or None, receives ``survivors``: (B,) int64, the valid triangles
+    of at most BIG_PIXELS bbox pixels per frame (those the pass walks).
     """
     B, T = c0[0].shape
     cols, px0, px1, py0, py1, valid = setup_fields_core(c0, c1, c2, width, height)
     area = ((px1 - px0 + 1).to(torch.long) * (py1 - py0 + 1).to(torch.long))
-    small = (valid & (area <= BIG_PIXELS)).reshape(-1)
+    small = valid & (area <= BIG_PIXELS)
+    if stats is not None:
+        stats["survivors"] = small.sum(dim=1)
+    small = small.reshape(-1)
     sel = torch.nonzero(small).squeeze(1)
     dev = c0[0].device
     winner = torch.zeros((B, height, width), dtype=torch.int32, device=dev)
@@ -289,11 +294,12 @@ def resolve_from_corners(corners_of, winner: torch.Tensor):
     return tuple(p.reshape(B, height, width) for p in planes)
 
 
-def cover_plain(fields: torch.Tensor, n: int, width: int, height: int):
+def cover_plain(fields: torch.Tensor, n: int, width: int, height: int,
+                stats: dict | None = None):
     """Plain version of ``vf_vtx_cover`` (``cover_from_corners`` over the
-    grid's triangles)."""
+    grid's triangles; ``stats`` as there)."""
     return cover_from_corners(*grid_corners([fields[:, f] for f in range(FIELDS)], n),
-                              width, height)
+                              width, height, stats)
 
 
 def cover_big_plain(fields: torch.Tensor, n: int, winner: torch.Tensor,

@@ -128,15 +128,6 @@ struct Record {
   bool valid;
 };
 
-__device__ __forceinline__ float tmin(float a, float b) {
-  // torch.minimum: NaN propagates.
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : (a < b ? a : b);
-}
-
-__device__ __forceinline__ float tmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : (a > b ? a : b);
-}
-
 // Vertex v of one frame's SoA fields f (kFields planes of `stride` floats).
 __device__ __forceinline__ Corner load_corner(const float* f, size_t stride,
                                               int v) {
@@ -177,14 +168,80 @@ __device__ __forceinline__ float srw(float w) {
   return 1.0f / (fabsf(w) < 1e-12f ? tiny : w);
 }
 
-// setup.setup_fields_core for one triangle, inclusive fill rule.
-__device__ __forceinline__ void setup_fields_core(const Corner& c0,
-                                                  const Corner& c1,
-                                                  const Corner& c2, int width,
-                                                  int height, Record& r) {
-  const float x0 = c0.x, y0 = c0.y, w0 = c0.w, zn0 = c0.zn;
-  const float x1 = c1.x, y1 = c1.y, w1 = c1.w, zn1 = c1.zn;
-  const float x2 = c2.x, y2 = c2.y, w2 = c2.w, zn2 = c2.zn;
+// Per-vertex terms of setup (setup.vertex_terms mirrors them in torch):
+// the per-corner ops setup_fields_core does, so that a kernel which
+// stages a vertex once (vf_vtx_cover) pays them once for the six
+// triangles around it. A kernel that only tests coverage passes zero
+// varyings: eval_pixel's a0..a2 are then never read, and record columns
+// 12..20, the only ones vr feeds, are dead code.
+struct VertexTerms {
+  float x, y, w, zc;  // what setup_bbox reads; zc = z_ndc * w (clip z)
+  float zn, rw;       // setup_columns adds these; rw = srw(w)
+  float vr[3];        // v_k * rw: record columns 12..20
+};
+
+__device__ __forceinline__ VertexTerms vertex_terms(float x, float y, float w,
+                                                    float zn, float v0,
+                                                    float v1, float v2) {
+  VertexTerms t;
+  t.x = x;
+  t.y = y;
+  t.w = w;
+  t.zc = zn * w;
+  t.zn = zn;
+  t.rw = srw(w);
+  t.vr[0] = v0 * t.rw;
+  t.vr[1] = v1 * t.rw;
+  t.vr[2] = v2 * t.rw;
+  return t;
+}
+
+// Vertex v of one frame's fields f without its varyings (the cover passes').
+__device__ __forceinline__ VertexTerms position_terms(const float* f,
+                                                      size_t stride, int v) {
+  return vertex_terms(f[v], f[stride + v], f[2 * stride + v],
+                      f[6 * stride + v], 0.0f, 0.0f, 0.0f);
+}
+
+struct Box {
+  int px0, px1, py0, py1;  // the pixel-centre bbox, clamped to the frame
+  bool valid;
+};
+
+// The cheap half of setup: the pixel-centre bbox and the valid flag, from
+// x, y, w and clip z alone, bit for bit those of _raster/setup.py:51-123
+// (setup.setup_bbox mirrors this in torch) with about half the
+// instructions:
+//  - torch.maximum/minimum propagate NaN, so a chain of them compared with
+//    zero (any_near, any_w, any_far) is "no NaN, and one compare holds";
+//  - the bbox chains take fminf/fmaxf over the selected points and flag a
+//    NaN among them, which then becomes the bound, as torch's chain
+//    gives it; a zero's sign, the one other way fminf may differ, cannot
+//    change a pixel (+-0 - 0.5 = -0.5);
+//  - a near-plane crossing is computed, and adds a point, only for an edge
+//    whose ends straddle z_clip = 0: elsewhere crossing() returns
+//    ok = false and its point is never selected. Such edges are rare, so
+//    the branch costs the common triangle one compare per edge.
+__device__ __forceinline__ void include_point(bool ok, float cx, float cy,
+                                              float& xmin, float& xmax,
+                                              float& ymin, float& ymax,
+                                              bool& xnan, bool& ynan) {
+  if (!ok) return;
+  xmin = fminf(xmin, cx);
+  xmax = fmaxf(xmax, cx);
+  ymin = fminf(ymin, cy);
+  ymax = fmaxf(ymax, cy);
+  xnan |= isnan(cx);
+  ynan |= isnan(cy);
+}
+
+__device__ __forceinline__ Box setup_bbox(const VertexTerms& a,
+                                          const VertexTerms& b,
+                                          const VertexTerms& c, int width,
+                                          int height) {
+  const float x0 = a.x, y0 = a.y, w0 = a.w, zc0 = a.zc;
+  const float x1 = b.x, y1 = b.y, w1 = b.w, zc1 = b.zc;
+  const float x2 = c.x, y2 = c.y, w2 = c.w, zc2 = c.zc;
 
   const float area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0);
   const bool neg0 = w0 < 0.0f, neg1 = w1 < 0.0f, neg2 = w2 < 0.0f;
@@ -193,51 +250,133 @@ __device__ __forceinline__ void setup_fields_core(const Corner& c0,
   const bool finite = isfinite(x0) & isfinite(x1) & isfinite(x2) &
                       isfinite(y0) & isfinite(y1) & isfinite(y2);
 
-  const float zc0 = zn0 * w0, zc1 = zn1 * w1, zc2 = zn2 * w2;
-  const bool any_near = tmax(tmax(zc0, zc1), zc2) >= 0.0f;
-  const bool any_w = tmax(tmax(w0, w1), w2) > kWEps;
-  const bool any_far = tmin(tmin(zc0 - w0, zc1 - w1), zc2 - w2) <= 0.0f;
+  const bool any_near = !(isnan(zc0) | isnan(zc1) | isnan(zc2)) &
+                        ((zc0 >= 0.0f) | (zc1 >= 0.0f) | (zc2 >= 0.0f));
+  const bool any_w = !(isnan(w0) | isnan(w1) | isnan(w2)) &
+                     ((w0 > kWEps) | (w1 > kWEps) | (w2 > kWEps));
+  const float f0 = zc0 - w0, f1 = zc1 - w1, f2 = zc2 - w2;
+  const bool any_far = !(isnan(f0) | isnan(f1) | isnan(f2)) &
+                       ((f0 <= 0.0f) | (f1 <= 0.0f) | (f2 <= 0.0f));
   const bool clean = (w0 > kWEps) & (w1 > kWEps) & (w2 > kWEps);
 
-  float cx01, cy01, cx12, cy12, cx20, cy20;
-  const bool ok01 = crossing(x0, y0, w0, zc0, x1, y1, w1, zc1, &cx01, &cy01);
-  const bool ok12 = crossing(x1, y1, w1, zc1, x2, y2, w2, zc2, &cx12, &cy12);
-  const bool ok20 = crossing(x2, y2, w2, zc2, x0, y0, w0, zc0, &cx20, &cy20);
-  const bool sel[6] = {zc0 >= 0.0f, zc1 >= 0.0f, zc2 >= 0.0f, ok01, ok12, ok20};
-  const float xs[6] = {x0, x1, x2, cx01, cx12, cx20};
-  const float ys[6] = {y0, y1, y2, cy01, cy12, cy20};
-
+  // The selected points: the corners in front of the near plane, then the
+  // crossings of the edges that straddle it.
   const float big = 3.4e37f;
-  float xmin = big, xmax = -big, ymin = big, ymax = -big;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    xmin = tmin(xmin, sel[i] ? xs[i] : big);
-    xmax = tmax(xmax, sel[i] ? xs[i] : -big);
-    ymin = tmin(ymin, sel[i] ? ys[i] : big);
-    ymax = tmax(ymax, sel[i] ? ys[i] : -big);
+  const bool s0 = zc0 >= 0.0f, s1 = zc1 >= 0.0f, s2 = zc2 >= 0.0f;
+  float xmin = fminf(fminf(s0 ? x0 : big, s1 ? x1 : big), s2 ? x2 : big);
+  float xmax = fmaxf(fmaxf(s0 ? x0 : -big, s1 ? x1 : -big), s2 ? x2 : -big);
+  float ymin = fminf(fminf(s0 ? y0 : big, s1 ? y1 : big), s2 ? y2 : big);
+  float ymax = fmaxf(fmaxf(s0 ? y0 : -big, s1 ? y1 : -big), s2 ? y2 : -big);
+  bool xnan = (s0 & isnan(x0)) | (s1 & isnan(x1)) | (s2 & isnan(x2));
+  bool ynan = (s0 & isnan(y0)) | (s1 & isnan(y1)) | (s2 & isnan(y2));
+  const bool cut01 = (zc0 < 0.0f) != (zc1 < 0.0f);
+  const bool cut12 = (zc1 < 0.0f) != (zc2 < 0.0f);
+  const bool cut20 = (zc2 < 0.0f) != (zc0 < 0.0f);
+  if (cut01 | cut12 | cut20) {
+    float cx, cy;
+    if (cut01) {
+      const bool ok = crossing(x0, y0, w0, zc0, x1, y1, w1, zc1, &cx, &cy);
+      include_point(ok, cx, cy, xmin, xmax, ymin, ymax, xnan, ynan);
+    }
+    if (cut12) {
+      const bool ok = crossing(x1, y1, w1, zc1, x2, y2, w2, zc2, &cx, &cy);
+      include_point(ok, cx, cy, xmin, xmax, ymin, ymax, xnan, ynan);
+    }
+    if (cut20) {
+      const bool ok = crossing(x2, y2, w2, zc2, x0, y0, w0, zc0, &cx, &cy);
+      include_point(ok, cx, cy, xmin, xmax, ymin, ymax, xnan, ynan);
+    }
   }
+  const float nan = __int_as_float(0x7fc00000);
   // w-crossing triangles: conservative full screen.
-  xmin = clean ? xmin : 0.0f;
-  xmax = clean ? xmax : (float)width;
-  ymin = clean ? ymin : 0.0f;
-  ymax = clean ? ymax : (float)height;
+  xmin = clean ? (xnan ? nan : xmin) : 0.0f;
+  xmax = clean ? (xnan ? nan : xmax) : (float)width;
+  ymin = clean ? (ynan ? nan : ymin) : 0.0f;
+  ymax = clean ? (ynan ? nan : ymax) : (float)height;
 
+  Box r;
   r.px0 = max((int)ceilf(clampf(xmin, -1e9f, 1e9f) - 0.5f), 0);
   r.px1 = min((int)floorf(clampf(xmax, -1e9f, 1e9f) - 0.5f), width - 1);
   r.py0 = max((int)ceilf(clampf(ymin, -1e9f, 1e9f) - 0.5f), 0);
   r.py1 = min((int)floorf(clampf(ymax, -1e9f, 1e9f) - 0.5f), height - 1);
   const bool covers = (r.px0 <= r.px1) & (r.py0 <= r.py1);
   r.valid = front & finite & any_near & any_w & any_far & covers;
+  return r;
+}
 
+// The record's 31 columns (_raster/setup.py:125-160) from its corners'
+// terms; col[24] = valid.
+__device__ __forceinline__ void setup_columns(const VertexTerms& a,
+                                              const VertexTerms& b,
+                                              const VertexTerms& c, bool valid,
+                                              float* col) {
+  const float x0 = a.x, y0 = a.y, x1 = b.x, y1 = b.y, x2 = c.x, y2 = c.y;
+  const float area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0);
+  const bool neg0 = a.w < 0.0f, neg1 = b.w < 0.0f, neg2 = c.w < 0.0f;
   // SIGNED reciprocals keep the projective functionals exact on the
   // clipped region (setup.py "Near-plane clipping").
-  const float rw0 = srw(w0), rw1 = srw(w1), rw2 = srw(w2);
   const float s0 = (neg1 ^ neg2) ? -1.0f : 1.0f;
   const float s1 = (neg2 ^ neg0) ? -1.0f : 1.0f;
   const float s2 = (neg0 ^ neg1) ? -1.0f : 1.0f;
   const float tau = area2 > 0.0f ? -1.0f : 1.0f;
   const float t0 = s0 * tau, t1 = s1 * tau, t2 = s2 * tau;
 
+  col[0] = x1;  col[1] = y1;  col[2] = (y2 - y1) * s0;  col[3] = (x2 - x1) * s0;
+  col[4] = x2;  col[5] = y2;  col[6] = (y0 - y2) * s1;  col[7] = (x0 - x2) * s1;
+  col[8] = x0;  col[9] = y0;  col[10] = (y1 - y0) * s2; col[11] = (x1 - x0) * s2;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    col[12 + 3 * k] = a.vr[k] * t0;
+    col[13 + 3 * k] = b.vr[k] * t1;
+    col[14 + 3 * k] = c.vr[k] * t2;
+  }
+  col[21] = a.rw * t0;  col[22] = b.rw * t1;  col[23] = c.rw * t2;
+  col[24] = valid ? 1.0f : 0.0f;
+  col[25] = a.zn * t0;  col[26] = b.zn * t1;  col[27] = c.zn * t2;
+  col[28] = t0;  col[29] = t1;  col[30] = t2;
+}
+
+__device__ __forceinline__ VertexTerms corner_terms(const Corner& c) {
+  return vertex_terms(c.x, c.y, c.w, c.zn, c.v0, c.v1, c.v2);
+}
+
+// setup.setup_fields_core for one triangle, inclusive fill rule: the bbox
+// test, then the columns.
+__device__ __forceinline__ void setup_fields_core(const Corner& c0,
+                                                  const Corner& c1,
+                                                  const Corner& c2, int width,
+                                                  int height, Record& r) {
+  const VertexTerms a = corner_terms(c0), b = corner_terms(c1),
+                    c = corner_terms(c2);
+  const Box box = setup_bbox(a, b, c, width, height);
+  r.px0 = box.px0;
+  r.px1 = box.px1;
+  r.py0 = box.py0;
+  r.py1 = box.py1;
+  r.valid = box.valid;
+  setup_columns(a, b, c, box.valid, r.col);
+}
+
+// A resolve's record: setup_fields_core's columns without its bbox test
+// (eval_pixel's a0..a2 and aw read columns 0..23 alone; col[24], valid,
+// feeds only its cov, which a resolve does not read, and is left 0). The
+// ops are setup_columns', written out from the corners: built through
+// VertexTerms the three resolves compile to 48/48/56 registers instead of
+// 40/46/52 and run 4-12% longer (H100, scripts/torch_cover_ab.py).
+__device__ __forceinline__ void resolve_record(const Corner& c0,
+                                               const Corner& c1,
+                                               const Corner& c2, Record& r) {
+  const float x0 = c0.x, y0 = c0.y, w0 = c0.w, zn0 = c0.zn;
+  const float x1 = c1.x, y1 = c1.y, w1 = c1.w, zn1 = c1.zn;
+  const float x2 = c2.x, y2 = c2.y, w2 = c2.w, zn2 = c2.zn;
+  const float area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0);
+  const bool neg0 = w0 < 0.0f, neg1 = w1 < 0.0f, neg2 = w2 < 0.0f;
+  const float rw0 = srw(w0), rw1 = srw(w1), rw2 = srw(w2);
+  const float s0 = (neg1 ^ neg2) ? -1.0f : 1.0f;
+  const float s1 = (neg2 ^ neg0) ? -1.0f : 1.0f;
+  const float s2 = (neg0 ^ neg1) ? -1.0f : 1.0f;
+  const float tau = area2 > 0.0f ? -1.0f : 1.0f;
+  const float t0 = s0 * tau, t1 = s1 * tau, t2 = s2 * tau;
   float* col = r.col;
   col[0] = x1;  col[1] = y1;  col[2] = (y2 - y1) * s0;  col[3] = (x2 - x1) * s0;
   col[4] = x2;  col[5] = y2;  col[6] = (y0 - y2) * s1;  col[7] = (x0 - x2) * s1;
@@ -252,15 +391,76 @@ __device__ __forceinline__ void setup_fields_core(const Corner& c0,
     col[14 + 3 * k] = vc[k] * rw2 * t2;
   }
   col[21] = rw0 * t0;  col[22] = rw1 * t1;  col[23] = rw2 * t2;
-  col[24] = r.valid ? 1.0f : 0.0f;
+  col[24] = 0.0f;
   col[25] = zn0 * t0;  col[26] = zn1 * t1;  col[27] = zn2 * t2;
   col[28] = t0;  col[29] = t1;  col[30] = t2;
 }
 
-// Max-combine `value` into *dst if r covers the pixel centre (px, py).
-__device__ __forceinline__ void deposit(const Record& r, float px, float py,
-                                        int* dst, int value) {
-  if (eval_pixel(r.col, px, py).cov) atomicMax(dst, value);
+// A cover pass's survivor's bbox in two words: px0 (py0) in the low 26
+// bits, px1 - px0 (py1 - py0), at most kBigPixels - 1 < 64, in the top 6.
+// The wrappers keep frames below 2^26 pixels a side.
+__device__ __forceinline__ uint2 pack_box(const Box& b) {
+  return make_uint2((unsigned)b.px0 | ((unsigned)(b.px1 - b.px0) << 26),
+                    (unsigned)b.py0 | ((unsigned)(b.py1 - b.py0) << 26));
+}
+
+// Walks a survivor's packed bbox (col: its record) and max-combines value
+// into every pixel of plane whose centre it covers.
+__device__ __forceinline__ void walk_box(const float* col, uint2 box,
+                                         int* plane, int width, int value) {
+  const int x0 = box.x & 0x3ffffff, x1 = x0 + (int)(box.x >> 26);
+  const int y0 = box.y & 0x3ffffff, y1 = y0 + (int)(box.y >> 26);
+  for (int y = y0; y <= y1; ++y) {
+    for (int x = x0; x <= x1; ++x) {
+      if (eval_pixel(col, (float)x + 0.5f, (float)y + 0.5f).cov)
+        atomicMax(plane + y * width + x, value);
+    }
+  }
+}
+
+// The cover passes' survivor list: phase A of a block tests its
+// triangles' bboxes (setup_bbox); those valid with at most kBigPixels
+// bbox pixels are compacted here in a fixed order (a warp's ballots, then
+// the warps' counts in order; no atomic), and phase B builds their
+// records and walks their bboxes, the block's threads taking one each in
+// turn.
+template <int kCap, int kWarps>
+struct Survivors {
+  int slot[kCap];    // which triangle (its meaning is the kernel's)
+  uint2 box[kCap];   // pack_box
+  int warp_count[kWarps];
+};
+
+// All threads of the block, each with kN triangles: mask[k] = their warp's
+// __ballot_sync of "keep triangle k". rank[k]: a kept triangle's place in
+// the list (the warp's triangles k = 0 first, each in lane order, then
+// k = 1, ..., after the earlier warps' kept triangles); *total: the
+// block's kept triangles. Syncs twice.
+template <int kN, int kCap, int kWarps>
+__device__ __forceinline__ void survivor_ranks(Survivors<kCap, kWarps>& s,
+                                               const unsigned (&mask)[kN],
+                                               int (&rank)[kN], int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) count += __popc(mask[k]);
+  if (lane == 0) s.warp_count[warp] = count;
+  __syncthreads();
+  int base = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int n = s.warp_count[w];
+    base += w < warp ? n : 0;
+    sum += n;
+  }
+  __syncthreads();
+  *total = sum;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    rank[k] = base + __popc(mask[k] & below);
+    base += __popc(mask[k]);
+  }
 }
 
 // ---- The big-triangle walk (vtx.cu, packed.cu) ----
@@ -279,7 +479,7 @@ __device__ __forceinline__ void deposit(const Record& r, float px, float py,
 //      (a shared counter: the deposit is a max, so their order does not
 //      matter);
 //   3. and walks each surviving tile's pixels, one per thread, with
-//      eval_pixel and atomicMax as deposit does, bit for bit.
+//      eval_pixel and atomicMax as walk_box does, bit for bit.
 // vtx.big_tile_walk mirrors steps 1 and 2 in torch with these f64 ops in
 // this order, so its tiles per triangle are the kernels' walk counts.
 //

@@ -15,18 +15,26 @@
 // cover the pixel centre (painter's order, no depth buffer). The input is
 // the post-vertex-shader fields of the (n, n) vertex grid, SoA
 // (frames, 7, n*n) f32: x_fb, y_fb, w_clip, var0..2, z_ndc. Every
-// triangle's record is built in registers from its grid corners by
-// setup_fields_core (raster_common.cuh, shared with packed.cu), the f32
-// ops of _raster/setup.py:51-160 in their order; triangle id = (r*(n-1) + c)*2 + k, tri0 = [A, C, B],
-// tri1 = [B, C, D] (_mesh.build_grid_xyuv).
+// triangle's record is built in registers from its grid corners with the
+// f32 ops of _raster/setup.py:51-160 in their order (raster_common.cuh,
+// shared with packed.cu: setup_bbox, then setup_columns); triangle id =
+// (r*(n-1) + c)*2 + k, tri0 = [A, C, B], tri1 = [B, C, D]
+// (_mesh.build_grid_xyuv).
 //
-//   vf_vtx_cover: one thread per (frame, grid cell). Neighbouring threads
-//     read neighbouring vertices, so the loads coalesce. For both
-//     triangles: setup, then a walk of the pixel-centre bbox with
-//     atomicMax(winner, id + 1) at each covered pixel. A triangle whose
-//     bbox holds more than kBigPixels pixels (near the camera, and every
-//     w-crossing triangle, whose bbox is the full screen) goes to a
-//     device-side list instead.
+//   vf_vtx_cover: one block per (frame, patch of 16 x 32 grid cells), two
+//     cells per thread (8 rows apart). The block stages the patch's
+//     17 x 33 vertices into shared memory once (neighbouring threads read
+//     neighbouring vertices of a grid row, every load of a thread issued
+//     before the first arrives) as vertex terms: clip z, 1/w. Phase A:
+//     each thread runs setup_bbox for its cells' four triangles. A valid
+//     triangle whose bbox holds more than kBigPixels pixels (near the
+//     camera, and every w-crossing triangle, whose bbox is the full
+//     screen) goes to a device-side list; the others are compacted into a
+//     shared list in a fixed order (warp ballots, no atomic). Phase B: the
+//     block's threads take the survivors from the list, build the
+//     coverage columns of their records from the staged terms and walk
+//     their pixel-centre bboxes with atomicMax(winner, id + 1) at each
+//     covered pixel.
 //   vf_vtx_cover_big: persistent blocks stride over that list; the count
 //     is read on the device (no host sync). Warp 0 builds 32 listed
 //     triangles' records into shared memory at once, the block rejects a
@@ -35,7 +43,8 @@
 //     corners, and walks the surviving tiles' pixels with the same
 //     atomicMax (vf::big_walk, raster_common.cuh, shared with packed.cu).
 //   vf_vtx_resolve_*: one thread per pixel. The winner's record is built
-//     again from its corners and evaluated at the pixel centre, then
+//     again from its corners (vf::resolve_record: its columns, no bbox
+//     test) and evaluated at the pixel centre, then
 //     divided as tiles.py:97 does; uncovered pixels get zero varyings (or
 //     the shader's clear colour).
 //
@@ -48,23 +57,33 @@
 // so the order cannot change a pixel. No float is ever accumulated
 // atomically.
 //
-// What bounds it on an H100 (grid=1024, 800x600, 4 frames): the cover
-// pass reads the fields once, 4*7*1024^2*4 B = 117 MB, ~35 us at
-// 3.35 TB/s; its in-register setup is ~230 f32 ops per triangle (counted
-// from setup_fields_core: 3 near-plane crossings of ~22 ops, four
-// 6-way min/max chains of 12, the 31 columns, the flags) over 8.37M
-// triangles, ~1.9 GFLOP, ~29 us at 67 TFLOP/s, plus ~25 ops per bbox
-// pixel of the walk. So it is memory-bound at ~0.035 ms per batch. The big
-// pass's least work is its listed triangles' setup and the pixels they
-// cover (not their bboxes: a w-crossing triangle's is the whole screen and
-// it often covers nothing); the tile rejects bring the pixels it evaluates
-// from the bboxes' ~10^8-10^9 down towards the covered ones. The
-// resolve reads the winner (7.7 MB) and the winners' corner vertices and
-// writes the image (7.7 MB) or g-buffer (25 MB). The design reads the
-// fields once and never writes (T, 40) records or a (tile, id) pair sort
-// to device memory. It does not yet reach that bound: warps diverge on bbox walks,
-// and a later PR may stage vertex rows through shared memory or keep
-// per-tile winners in shared memory.
+// What bounds it on an H100 (grid=1024, 800x600, 4 orbit frames). Most
+// triangles reach no pixel: about 30% are valid, and a valid one's bbox
+// holds about one pixel. So the cover pass's least work is reading the 4
+// position planes once (x, y, w, z_ndc; coverage never reads the
+// varyings), 4*4*1024^2*4 B = 67 MB, ~20 us at 3.35 TB/s, and a bbox test
+// of ~100 f32 ops per triangle (~13 us at 67 TFLOP/s) plus the coverage
+// columns (~40 ops) of the valid small triangles and ~38 ops per bbox
+// pixel. It used to be bound by setup: the whole 31-column record and
+// nine IEEE divisions for every triangle, 152 registers (one block per
+// SM), each vertex loaded by four threads and its terms recomputed by up
+// to six triangles. The design: a vertex is loaded and its terms
+// (including its one division) computed once per patch; the test reads
+// 4 staged floats per corner, takes its min/max chains without NaN-aware
+// selects (setup_bbox) and divides only where an edge straddles the near
+// plane; records are built only for the survivors, spread evenly over the
+// block's threads by the compaction, and the varying columns are never
+// built; 63 registers, 4 blocks per SM. What is left is the test's
+// instructions and the staging's latency, each block's loads arriving
+// before its test can start (PERF.md has the times).
+//
+// The big pass's least work is its listed triangles' setup and the pixels
+// they cover (not their bboxes: a w-crossing triangle's is the whole
+// screen and it often covers nothing); the tile rejects bring the pixels
+// it evaluates from the bboxes' ~10^8-10^9 down towards the covered ones.
+// The resolve reads the winner (7.7 MB) and the winners' corner vertices
+// and writes the image (7.7 MB) or g-buffer (25 MB). Nothing writes
+// (T, 40) records or a (tile, id) pair sort to device memory.
 //
 // Numerics: -fmad=false, no fast math; 1.0f/x is IEEE division; min/max
 // propagate NaN as torch.minimum/maximum do; clamp(-1e9, 1e9) precedes
@@ -79,20 +98,39 @@
 
 namespace {
 
+using vf::Box;
 using vf::Corner;
-using vf::deposit;
 using vf::kFields;
 using vf::load_corner;
 using vf::Record;
+using vf::setup_bbox;
 using vf::setup_fields_core;
+using vf::VertexTerms;
 
 constexpr int kBigPixels = 64;       // == vtx.BIG_PIXELS (vf_vtx_big_pixels)
 constexpr int kThreads = 256;
+// vf_vtx_cover's patch of cells, kCells per thread, and the vertices it
+// stages.
+constexpr int kPatchRows = 16, kPatchCols = 32, kCells = 2, kTris = 2 * kCells;
+static_assert(kPatchRows * kPatchCols == kCells * kThreads, "kCells cells per thread");
+constexpr int kVCols = kPatchCols + 1;
+constexpr int kVerts = (kPatchRows + 1) * kVCols;
+// The register budget vf_vtx_cover is compiled for (__launch_bounds__).
+constexpr int kCoverBlocksPerSM = 4;
 
-// The corners of triangle `tri` of a frame (fields of that frame at f).
+// The record of triangle `tri` of a frame (fields of that frame at f);
+// kResolve: a resolve's (vf::resolve_record).
+template <bool kResolve = false>
 __device__ __forceinline__ void triangle_record(const float* f, int n, int tri,
                                                 int width, int height,
                                                 Record& r) {
+  const auto setup = [&](const Corner& c0, const Corner& c1, const Corner& c2) {
+    if constexpr (kResolve) {
+      vf::resolve_record(c0, c1, c2, r);
+    } else {
+      setup_fields_core(c0, c1, c2, width, height, r);
+    }
+  };
   const int n2 = n * n;
   const int cell = tri >> 1;
   const int row = cell / (n - 1);
@@ -101,54 +139,150 @@ __device__ __forceinline__ void triangle_record(const float* f, int n, int tri,
   const Corner B = load_corner(f, n2, a + 1);
   const Corner C = load_corner(f, n2, a + n);
   if ((tri & 1) == 0) {
-    setup_fields_core(A, C, B, width, height, r);
+    setup(A, C, B);
   } else {
     const Corner D = load_corner(f, n2, a + n + 1);
-    setup_fields_core(B, C, D, width, height, r);
+    setup(B, C, D);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-vtx_cover_kernel(const float* __restrict__ fields, int frames, int n,
-                 int width, int height, int* __restrict__ winner,
-                 int* __restrict__ big, int* __restrict__ count) {
-  const int cells = n - 1;
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (long long)frames * cells * cells) return;
-  const int b = (int)(g / ((long long)cells * cells));
-  const int cell = (int)(g - (long long)b * cells * cells);
-  const int row = cell / cells;
-  const int a = row * n + (cell - row * cells);
-  const int n2 = n * n;
-  const float* f = fields + (size_t)b * kFields * n2;
-  const int T = 2 * cells * cells;
-  int* plane = winner + (size_t)b * width * height;
+// The vertices of one block's patch of grid cells, as vertex terms in
+// shared memory (no varyings: the cover pass tests coverage only), and its
+// survivor list (slot: kTris * thread + k, k = 2 * j + triangle for the
+// thread's j-th cell).
+struct CoverPatch {
+  float x[kVerts], y[kVerts], w[kVerts], zc[kVerts], zn[kVerts], rw[kVerts];
+  vf::Survivors<kTris * kThreads, kThreads / 32> list;
+};
 
-  const Corner A = load_corner(f, n2, a);
-  const Corner B = load_corner(f, n2, a + 1);
-  const Corner C = load_corner(f, n2, a + n);
-  const Corner D = load_corner(f, n2, a + n + 1);
-#pragma unroll 1
-  for (int k = 0; k < 2; ++k) {
-    Record r;
-    if (k == 0) {
-      setup_fields_core(A, C, B, width, height, r);
-    } else {
-      setup_fields_core(B, C, D, width, height, r);
+__device__ __forceinline__ VertexTerms staged(const CoverPatch& s, int e) {
+  VertexTerms t;
+  t.x = s.x[e];
+  t.y = s.y[e];
+  t.w = s.w[e];
+  t.zc = s.zc[e];
+  t.zn = s.zn[e];
+  t.rw = s.rw[e];
+  t.vr[0] = t.vr[1] = t.vr[2] = 0.0f;
+  return t;
+}
+
+// The staged index of corner `corner` (0..2) of triangle k (0: [A, C, B],
+// 1: [B, C, D]) of the cell whose corner A is staged at a.
+__device__ __forceinline__ int corner_at(int a, int k, int corner) {
+  const int A = a, B = a + 1, C = a + kVCols, D = a + kVCols + 1;
+  return corner == 1 ? C : (k == 0 ? (corner == 0 ? A : B) : (corner == 0 ? B : D));
+}
+
+// One block per (frame, patch of kPatchRows x kPatchCols cells), kCells
+// cells per thread (rows j * kPatchRows / kCells apart); blockIdx.x =
+// frame * patches + patch, patches in row-major order. survivors: null,
+// or one count per block.
+__global__ void __launch_bounds__(kThreads, kCoverBlocksPerSM)
+vtx_cover_kernel(const float* __restrict__ fields, int n, int patches,
+                 int width, int height, int* __restrict__ winner,
+                 int* __restrict__ big, int* __restrict__ count,
+                 int* __restrict__ survivors) {
+  __shared__ CoverPatch s;
+  const int t = threadIdx.x;
+  const int cells = n - 1;
+  const int b = blockIdx.x / patches;
+  const int patch = blockIdx.x - b * patches;
+  const int pcols = (cells + kPatchCols - 1) / kPatchCols;
+  const int prow = patch / pcols;
+  const int r0 = prow * kPatchRows, c0 = (patch - prow * pcols) * kPatchCols;
+  const size_t n2 = (size_t)n * n;
+  const float* f = fields + (size_t)b * kFields * n2;
+
+  // Stage the patch's (kPatchRows+1) x (kPatchCols+1) vertices once, every
+  // load of a thread issued before the first arrives; neighbouring threads
+  // read neighbouring vertices of a grid row.
+  constexpr int kSlots = (kVerts + kThreads - 1) / kThreads;
+  float vx[kSlots], vy[kSlots], vw[kSlots], vz[kSlots];
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int e = t + j * kThreads;
+    const int vr = e / kVCols, vc = e - vr * kVCols;
+    if (e < kVerts && r0 + vr < n && c0 + vc < n) {
+      const size_t v = (size_t)(r0 + vr) * n + c0 + vc;
+      vx[j] = f[v];
+      vy[j] = f[n2 + v];
+      vw[j] = f[2 * n2 + v];
+      vz[j] = f[6 * n2 + v];
     }
-    if (!r.valid) continue;
-    const int id = 2 * cell + k;
-    const int bw = r.px1 - r.px0 + 1;
-    if (bw * (r.py1 - r.py0 + 1) > kBigPixels) {
-      big[atomicAdd(count, 1)] = b * T + id;
-      continue;
+  }
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int e = t + j * kThreads;
+    const int vr = e / kVCols, vc = e - vr * kVCols;
+    if (e < kVerts && r0 + vr < n && c0 + vc < n) {
+      const VertexTerms v = vf::vertex_terms(vx[j], vy[j], vw[j], vz[j], 0.0f, 0.0f, 0.0f);
+      s.x[e] = v.x;
+      s.y[e] = v.y;
+      s.w[e] = v.w;
+      s.zc[e] = v.zc;
+      s.zn[e] = v.zn;
+      s.rw[e] = v.rw;
     }
-    for (int y = r.py0; y <= r.py1; ++y) {
-      for (int x = r.px0; x <= r.px1; ++x) {
-        deposit(r, (float)x + 0.5f, (float)y + 0.5f, plane + y * width + x,
-                id + 1);
+  }
+  __syncthreads();
+
+  // Phase A: the bbox test of the thread's cells' two triangles each,
+  // tri0 = [A, C, B] and tri1 = [B, C, D]. Big ones go to the device-side
+  // list.
+  const int T = 2 * cells * cells;
+  unsigned mask[kTris];
+  uint2 box[kTris];
+#pragma unroll
+  for (int j = 0; j < kCells; ++j) {
+    const int lr = t / kPatchCols + j * (kPatchRows / kCells);
+    const int lc = t % kPatchCols;
+    const int row = r0 + lr, col = c0 + lc;
+    const int a = lr * kVCols + lc;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      bool keep = false;
+      if (row < cells && col < cells) {
+        const Box bx = setup_bbox(staged(s, corner_at(a, k, 0)), staged(s, corner_at(a, k, 1)),
+                                  staged(s, corner_at(a, k, 2)), width, height);
+        if (bx.valid) {
+          keep = (bx.px1 - bx.px0 + 1) * (bx.py1 - bx.py0 + 1) <= kBigPixels;
+          if (!keep) big[atomicAdd(count, 1)] = b * T + 2 * (row * cells + col) + k;
+        }
+        box[2 * j + k] = vf::pack_box(bx);
       }
+      mask[2 * j + k] = __ballot_sync(0xffffffffu, keep);
     }
+  }
+
+  // Compact the small valid triangles.
+  int rank[kTris], total;
+  vf::survivor_ranks(s.list, mask, rank, &total);
+#pragma unroll
+  for (int k = 0; k < kTris; ++k) {
+    if ((mask[k] >> (t & 31)) & 1u) {
+      s.list.slot[rank[k]] = kTris * t + k;
+      s.list.box[rank[k]] = box[k];
+    }
+  }
+  if (survivors != nullptr && t == 0) survivors[blockIdx.x] = total;
+  __syncthreads();
+
+  // Phase B: each thread takes survivors from the list, builds the
+  // coverage columns of their records from the staged terms and walks
+  // their bboxes.
+  int* plane = winner + (size_t)b * width * height;
+  for (int i = t; i < total; i += kThreads) {
+    const int slot = s.list.slot[i];
+    const int owner = slot / kTris, k = slot % kTris;
+    const int lr = owner / kPatchCols + (k >> 1) * (kPatchRows / kCells);
+    const int lc = owner % kPatchCols;
+    const int a = lr * kVCols + lc;
+    float rec[31];
+    vf::setup_columns(staged(s, corner_at(a, k & 1, 0)), staged(s, corner_at(a, k & 1, 1)),
+                      staged(s, corner_at(a, k & 1, 2)), true, rec);
+    const int id = 2 * ((r0 + lr) * cells + c0 + lc) + (k & 1);
+    vf::walk_box(rec, s.list.box[i], plane, width, id + 1);
   }
 }
 
@@ -189,8 +323,8 @@ vtx_resolve_kernel(const float* __restrict__ fields, int frames, int n,
   float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, accw = 1.0f;
   if (w > 0) {
     Record r;
-    triangle_record(fields + (size_t)b * kFields * n * n, n, w - 1, width,
-                    height, r);
+    triangle_record<true>(fields + (size_t)b * kFields * n * n, n, w - 1,
+                          width, height, r);
     const vf::PixelEval e =
         vf::eval_pixel(r.col, (float)ix + 0.5f, (float)iy + 0.5f);
     acc0 = e.a0;
@@ -225,15 +359,27 @@ extern "C" {
 // vtx.BIG_PIXELS, which the plain version splits by.
 int vf_vtx_big_pixels() { return kBigPixels; }
 
+// The blocks vf_vtx_cover launches per frame (its survivors output holds
+// one count per block, frame by frame).
+int vf_vtx_cover_patches(int n) {
+  const int cells = n - 1;
+  return ((cells + kPatchRows - 1) / kPatchRows) *
+         ((cells + kPatchCols - 1) / kPatchCols);
+}
+
 // fields: (frames, 7, n*n) f32; winner: (frames, height, width) int32,
 // zeroed by the caller; big: (frames * 2*(n-1)^2) int32; count: one int32,
-// zeroed. Returns cudaGetLastError() after the launch.
+// zeroed; survivors: null, or (frames * vf_vtx_cover_patches(n)) int32 that
+// receives each block's small valid triangles (those it walks). Returns
+// cudaGetLastError() after the launch.
 int vf_vtx_cover(const float* fields, int frames, int n, int width,
-                 int height, int* winner, int* big, int* count, void* stream) {
-  const long long items = (long long)frames * (n - 1) * (n - 1);
-  if (items > 0) {
-    vtx_cover_kernel<<<blocks_for(items), kThreads, 0, (cudaStream_t)stream>>>(
-        fields, frames, n, width, height, winner, big, count);
+                 int height, int* winner, int* big, int* count, int* survivors,
+                 void* stream) {
+  const int patches = vf_vtx_cover_patches(n);
+  const long long blocks = (long long)frames * patches;
+  if (blocks > 0) {
+    vtx_cover_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        fields, n, patches, width, height, winner, big, count, survivors);
   }
   return (int)cudaGetLastError();
 }
