@@ -14,7 +14,14 @@ Phases, each printing one line, in order:
      version on the same CUDA tensors at the main path's shapes (triangle
      800x600, Scene 160x120 g32, spike 800x600 g128). Masks exact, varyings
      within 1e-5*max(1,|x|), images within the FS policy (every differing
-     byte off by 1, at most 1e-4 of the bytes differ).
+     byte off by 1, at most 1e-4 of the bytes differ); each tile's (pair,
+     box pixel) items the kernel walked (its evaluated output) equal to the
+     torch mirror's (tiles.tile_work); the restated bound (record_bound:
+     the pairs' rows and boxes, the binned records' cover columns, the
+     winners' varying columns, COVER_OPS per item, EVAL_OPS per covered
+     pixel) beside the former one (full_tile_bound_ms); each record
+     kernel's device time per launch (torch.profiler) beside its per-call
+     time.
   2b. vtx kernel vs plain: each of the four vertex-stream kernels against
      its plain version (vtx.py) at 800x600: grid=256 with 2 orbit cameras,
      a close-in camera, a w-crossing camera and a camera whose near plane
@@ -43,8 +50,10 @@ Phases, each printing one line, in order:
      (the hardware fill rule, VF_FILL_RULE=hw) against their plain versions
      over records set up under "hw": the grid-16 160x120 scene, whose mask
      must equal hw_oracle's (the int64 fixed-point rasterizer) bit for bit,
-     the spike 800x600 g128, a g256 w-crossing camera and a watertight quad,
-     where no pixel is covered twice and every interior pixel once.
+     the spike 800x600 g128, a g256 w-crossing camera, the main path's
+     triangle, g1024 spike and DEM-2048 frames and a watertight quad, where
+     no pixel is covered twice and every interior pixel once; evaluated
+     items equal to the mirror's, as in 2.
   2e. segment kernel vs plain: vf_seg_gbuffer and vf_seg_shade_shipped (the
      tall-frame route, csrc/segments.cu) against their plain version at a
      tall 256x4352 frame: the spike g256 on the estimate's walk, on each
@@ -60,7 +69,8 @@ Phases, each printing one line, in order:
      and the batched entry without grid_n, which takes any mesh through the
      record route, 2 cameras at g128); both record kernels' launch counters
      must advance; each image is held to the same call on device="cpu"
-     under the FS policy.
+     under the FS policy; after the counts are read, the triangle and the
+     batch records again with evaluated items equal to the mirror's.
   3b. main path, slice 2: make_terrain(800,600,1024).render_rgba(), the
      batched entry with 4 orbit cameras at grid=1024, and one extended-
      shader frame at grid=1024, all on device="cuda"; every vertex-stream
@@ -79,7 +89,9 @@ Phases, each printing one line, in order:
      make_terrain(800,600,1024).render_rgba() and the Renderer's DEM-2048
      render_rgba() on device="cuda"; both hw kernels' counters must advance
      and no other kernel may launch. The triangle and a Scene 160x120 g32
-     are held to device="cpu" under the FS policy.
+     are held to device="cpu" under the FS policy; after the counts are
+     read, the three frames' hw records with evaluated items equal to the
+     mirror's.
   3e. main path, slice 5: at 7680x4320 make_terrain(7680,4320,1024)
      .render_rgba() and Renderer.render_rgba() at DEM-2048 and DEM-3601
      on device="cuda"; both segment kernels' counters must advance and no
@@ -126,9 +138,14 @@ Phases, each printing one line, in order:
      device memory, and the route sweep (DEMs 32^2 to 2048^2) that sets
      the indexed route's threshold.
   4d. timing, slice 4: each 3d frame under hw against inclusive (median and
-     p80 of 20 calls, peak device memory), and each hw kernel per launch
-     (20 back-to-back launches) against its inclusive counterpart, its
-     plain version and its bound (34 live record columns).
+     p80 of 20 calls, peak device memory), and the four record kernels per
+     launch (20 back-to-back launches), each hw kernel in turns with its
+     inclusive twin, on the triangle, spike g128, spike g1024, DEM-2048 and
+     the loaded g1024 close-in + w-crossing pair (full-tile boxes), with
+     each kernel's device time per launch (torch.profiler), the plain
+     version's time, the restated bound, full_tile_bound_ms and the pairs,
+     items and covered pixels. The parent's body is timed
+     against these in turns by scripts/torch_cover_ab.py.
   4e. timing, slice 5: frame latency (median and p80 of 10 calls, readback
      included) on the segment route and on the route each tall frame took
      before (vtx or indexed), in turns, at 7680x4320 (g1024, DEM-2048,
@@ -199,7 +216,9 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 #              reads): the edges, the signs, 1/w, rw*t and zn*t;
 #   COVER_OPS  one pixel of a cover walk (a0..a2 not evaluated); the big
 #              passes' bound charges it per covered (triangle, pixel) pair,
-#              the least a walk must evaluate, not per bbox pixel;
+#              the least a walk must evaluate, not per bbox pixel; the
+#              record kernels' per (pair, box pixel) item, since their
+#              binning cannot tell which box pixels a pair covers;
 #   RESOLVE_OPS the divide of tiles.py:97 at one pixel;
 #   SHADE_OPS  the shipped shader at one pixel (raster_common.cuh).
 EVAL_OPS, SETUP_OPS, COVER_OPS, RESOLVE_OPS, SHADE_OPS = 52, 220, 38, 5, 75
@@ -237,6 +256,30 @@ def cuda_ms(fn, reps=REPS, warmup=2, inner=1):
 
 
 KERNEL_INNER = 20
+
+
+def kernel_device_ms(fn, key="raster_kernel", calls=KERNEL_INNER):
+    """Device milliseconds per launch of the kernel whose name holds ``key``
+    over ``calls`` calls of fn (torch.profiler, the mean over the launches
+    it recorded): the kernel alone, without its wrapper's host work, which
+    CUDA events around back-to-back calls include once a kernel is shorter
+    than that work (the record kernels since their redesign)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    for _ in range(5):              # a session may record none of them
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            sync()
+        ev = [a for a in prof.key_averages() if key in a.key]
+        seen = sum(a.count for a in ev)
+        if seen:
+            break
+    if not seen or seen > calls:
+        raise AssertionError(f"the profiler recorded {seen} {key} launches in {calls} calls")
+    return sum(a.self_device_time_total for a in ev) / seen / 1e3
 
 
 def orbit_cameras(n, width, height, phase=0.0):
@@ -374,17 +417,21 @@ def phase1_build():
 def phase2_kernels(dev):
     """Each kernel against its plain version on the card; returns records."""
     rec = {"gbuffer": {"err": 0.0}, "shade": {"err": 0.0}}
+    items = {}
 
     # Triangle 800x600: the g-buffer kernel's main-path shape.
     records, binning = pipeline.triangle_records(W, H, dev)
-    kern = kernels.raster_gbuffer(records, binning, 1, W, H)
+    kern, items["gbuffer triangle 800x600"] = walked(kernels.raster_gbuffer, records,
+                                                     binning, 1, W, H)
     plain = tiles.render_gbuffer(records, binning, 1, W, H)
     rec["gbuffer"]["err"] = max(rec["gbuffer"]["err"],
                                 assert_gbuffer_close(kern, plain, "triangle 800x600"))
     rec["gbuffer"]["ms"] = cuda_ms(lambda: kernels.raster_gbuffer(records, binning, 1, W, H),
                                    inner=KERNEL_INNER)
+    rec["gbuffer"]["device_ms"] = kernel_device_ms(
+        lambda: kernels.raster_gbuffer(records, binning, 1, W, H))
     rec["gbuffer"]["plain_ms"] = cuda_ms(lambda: tiles.render_gbuffer(records, binning, 1, W, H))
-    rec["gbuffer"].update(record_bound(records, binning, 1, W, H, shade=False))
+    rec["gbuffer"].update(record_bound(records, binning, 1, W, H, False, int(kern[3].sum())))
     sync()
 
     scene = vt.Scene(160, 120, 32, "magma", device="cpu")
@@ -393,31 +440,39 @@ def phase2_kernels(dev):
     for label, obj in (("scene 160x120 g32", scene), ("spike 800x600 g128", spike)):
         records, binning, shade = scene_inputs(obj, dev)
         w, h = obj.width, obj.height
-        kern = kernels.raster_gbuffer(records, binning, 1, w, h)
+        kern, items[f"gbuffer {label}"] = walked(kernels.raster_gbuffer, records, binning,
+                                                 1, w, h)
         plain = tiles.render_gbuffer(records, binning, 1, w, h)
         rec["gbuffer"]["err"] = max(rec["gbuffer"]["err"],
                                     assert_gbuffer_close(kern, plain, label))
-        img_k = kernels.raster_shade_shipped(records, binning, 1, w, h, *shade)
+        img_k, items[f"shade {label}"] = walked(kernels.raster_shade_shipped, records,
+                                                binning, 1, w, h, *shade)
         img_p = fragment.terrain_fs(*plain, *shade)
         d, _ = assert_fs_policy(img_k.cpu().numpy(), img_p.cpu().numpy(), label)
         rec["shade"]["err"] = max(rec["shade"]["err"], float(d))
         sync()
         if obj is spike:
+            covered = int(kern[3].sum())
             rec["shade"]["ms"] = cuda_ms(
                 lambda: kernels.raster_shade_shipped(records, binning, 1, w, h, *shade),
                 inner=KERNEL_INNER)
+            rec["shade"]["device_ms"] = kernel_device_ms(
+                lambda: kernels.raster_shade_shipped(records, binning, 1, w, h, *shade))
             rec["shade"]["plain_ms"] = cuda_ms(
                 lambda: fragment.terrain_fs(
                     *tiles.render_gbuffer(records, binning, 1, w, h), *shade))
-            rec["shade"].update(record_bound(records, binning, 1, w, h, shade=True))
+            rec["shade"].update(record_bound(records, binning, 1, w, h, True, covered))
             rec["gbuffer_spike"] = {
                 "ms": cuda_ms(lambda: kernels.raster_gbuffer(records, binning, 1, w, h),
                               inner=KERNEL_INNER),
+                "device_ms": kernel_device_ms(
+                    lambda: kernels.raster_gbuffer(records, binning, 1, w, h)),
                 "plain_ms": cuda_ms(lambda: tiles.render_gbuffer(records, binning, 1, w, h)),
-                **record_bound(records, binning, 1, w, h, shade=False)}
+                **record_bound(records, binning, 1, w, h, False, covered)}
     sync()
     say("kernel_vs_plain", tolerance=f"masks exact; varyings <= {VARYING_RTOL}*max(1,|x|); "
-        f"images: bytes off by <= 1 on <= {FS_MAX_FRACTION} of bytes",
+        f"images: bytes off by <= 1 on <= {FS_MAX_FRACTION} of bytes; evaluated equal to "
+        "tiles.tile_work", evaluated_items=items,
         gbuffer_max_abs_err=rec["gbuffer"]["err"],
         shade_max_byte_delta=rec["shade"]["err"],
         ms={"gbuffer_triangle_800x600": [rec["gbuffer"]["ms"], rec["gbuffer"]["plain_ms"]],
@@ -425,12 +480,18 @@ def phase2_kernels(dev):
                                            rec["gbuffer_spike"]["plain_ms"]],
             "shade_spike_800x600_g128": [rec["shade"]["ms"], rec["shade"]["plain_ms"]]},
         ms_order="[kernel, plain]",
-        bound_ms={"gbuffer_triangle_800x600": [rec["gbuffer"]["bound_ms"],
-                                               rec["gbuffer"]["bound_by"]],
-                  "gbuffer_spike_800x600_g128": [rec["gbuffer_spike"]["bound_ms"],
-                                                 rec["gbuffer_spike"]["bound_by"]],
-                  "shade_spike_800x600_g128": [rec["shade"]["bound_ms"],
-                                               rec["shade"]["bound_by"]]})
+        device_ms={name: r["device_ms"] for name, r in (
+            ("gbuffer_triangle_800x600", rec["gbuffer"]),
+            ("gbuffer_spike_800x600_g128", rec["gbuffer_spike"]),
+            ("shade_spike_800x600_g128", rec["shade"]))},
+        bound_ms={name: [r["bound_ms"], r["bound_by"], r["full_tile_bound_ms"]]
+                  for name, r in (("gbuffer_triangle_800x600", rec["gbuffer"]),
+                                  ("gbuffer_spike_800x600_g128", rec["gbuffer_spike"]),
+                                  ("shade_spike_800x600_g128", rec["shade"]))},
+        bound_order="[bound_ms, bound_by, full_tile_bound_ms]",
+        work={name: {k: r[k] for k in ("pairs", "items", "covered")}
+              for name, r in (("gbuffer_triangle_800x600", rec["gbuffer"]),
+                              ("spike_800x600_g128", rec["shade"]))})
     return rec
 
 
@@ -665,6 +726,18 @@ def phase3_main_path():
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"main path never launched {name}")
+    # The record frames of this phase again, with the kernels' evaluated
+    # items held to the mirror's (after the launch counts were read).
+    a = batch_args("cuda")
+    t = lambda v: tensor(v, "cuda")
+    batch_records = pipeline.terrain_records(
+        t(xyuv), torch.as_tensor(idx.astype(np.int64).reshape(-1, 3), device="cuda"),
+        t(np.zeros((1, 1))), t(views), t(projs), t(a["spacing"]), t(a["exaggeration"]), W, H)
+    items = {"triangle_800x600": walked(kernels.raster_gbuffer,
+                                        *pipeline.triangle_records(W, H, "cuda"), 1, W, H)[1],
+             "batch_800x600_g128_x2": walked(kernels.raster_shade_shipped, *batch_records,
+                                             2, W, H, *spike_shading("cuda"))[1]}
+    del batch_records
 
     cpu_spike = vt.make_terrain(W, H, GRID, device="cpu")
     cpu_scene = vt.Scene(160, 120, 32, "magma", device="cpu")
@@ -680,7 +753,7 @@ def phase3_main_path():
         parity[name] = assert_fs_policy(img, ref[name], f"{name} cuda vs cpu")
     if not np.array_equal(png_pixels(png), out["spike_800x600_g128"]):
         raise AssertionError("PNG does not round-trip the rendered pixels")
-    say("main_path", launches=launches,
+    say("main_path", launches=launches, evaluated_items=items,
         cuda_vs_cpu={k: {"max_byte_delta": v[0], "frac_bytes_differ": v[1]}
                      for k, v in parity.items()},
         sha256={k: hashlib.sha256(v.tobytes()).hexdigest() for k, v in out.items()},
@@ -1023,19 +1096,58 @@ def bound_of(nbytes, ops):
             "bytes": nbytes, "ops": ops}
 
 
-def record_bound(records, binning, n_frames, width, height, shade, cols=setup.NUM_COLS):
-    """bound of a record-route kernel: the ``cols`` live columns of each
-    binned record (31, or setup.HW_COLS = 34 under the hw rule; culled
-    records are never read), rows and offsets read once, the output written
-    once; EVAL_OPS per (pair, tile pixel) as the kernel walks every binned
-    pair at every pixel of its 16x16 tile."""
+# The record kernels' columns: what the cover test reads of each binned
+# record (0..11, 21..30, and the thresholds 31..33 under hw) and what the
+# resolve reads besides of each winner (the varying numerators 12..20).
+COVER_COLS, VARYING_COLS = 22, 9
+
+
+def record_bound(records, binning, n_frames, width, height, shade, covered, hw=False):
+    """bound of a record-route kernel over the work its walk must do: each
+    pair's row and box and the offsets read once, the cover columns of each
+    binned record (culled records are never read) and the varying columns of
+    each winner -- at most min(covered pixels, binned records) of them --
+    read once, the output written once; COVER_OPS per (pair, box pixel)
+    item, EVAL_OPS per covered pixel (its winner's evaluation) and the
+    resolve (and shader) per pixel. ``covered``: the frame's covered pixels.
+    ``full_tile_bound_ms`` is the former bound, EVAL_OPS per (pair, tile
+    pixel) over all 31 (34) live columns, the work of the body that
+    evaluated every binned record at all 256 pixels of its tile."""
     pixels = n_frames * width * height
-    out_bytes = pixels * (4 if shade else 13)
+    out_bytes = pixels * (4 if shade else 13) + (256 * 3 * 4 if shade else 0)
+    per_pixel = RESOLVE_OPS + (SHADE_OPS if shade else 0)
+    pairs = binning.rows.numel()
     binned = int(torch.unique(binning.rows).numel())
-    nbytes = (binned * cols * 4 + binning.rows.numel() * 4
-              + binning.offsets.numel() * 4 + out_bytes + (256 * 3 * 4 if shade else 0))
-    evals = binning.rows.numel() * setup.TILE * setup.TILE
-    return bound_of(nbytes, evals * EVAL_OPS + pixels * (RESOLVE_OPS + (SHADE_OPS if shade else 0)))
+    items = int(tiles.tile_work(binning).sum())
+    cols = COVER_COLS + (3 if hw else 0)
+    nbytes = (binned * cols * 4 + min(covered, binned) * VARYING_COLS * 4 + pairs * 8
+              + binning.offsets.numel() * 4 + out_bytes)
+    full = bound_of(binned * (setup.HW_COLS if hw else setup.NUM_COLS) * 4 + pairs * 4
+                    + binning.offsets.numel() * 4 + out_bytes,
+                    pairs * setup.TILE * setup.TILE * EVAL_OPS + pixels * per_pixel)
+    return {**bound_of(nbytes, items * COVER_OPS + covered * EVAL_OPS + pixels * per_pixel),
+            "full_tile_bound_ms": full["bound_ms"], "pairs": pairs, "items": items,
+            "covered": covered}
+
+
+def walked(fn, records, binning, n_frames, width, height, *args):
+    """fn (a record kernel) with its ``evaluated`` output; fails unless each
+    tile's (pair, pixel) items equal the torch mirror's (tiles.tile_work).
+    Returns (fn's output, the items)."""
+    ntx, nty = setup.tile_grid(width, height)
+    ev = torch.full((n_frames, nty * ntx), -1, dtype=torch.int32, device=records.device)
+    out = fn(records, binning, n_frames, width, height, *args, evaluated=ev)
+    want = tiles.tile_work(binning)
+    if not torch.equal(ev.view(-1).long(), want):
+        raise AssertionError(f"{fn.__name__}: evaluated differs from tiles.tile_work on "
+                             f"{int((ev.view(-1).long() != want).sum())} tiles")
+    return out, int(want.sum())
+
+
+def covered_pixels(records, binning, n_frames, width, height, hw=False):
+    """The covered pixels of a record frame (the g-buffer kernel's mask)."""
+    fn = kernels.raster_gbuffer_hw if hw else kernels.raster_gbuffer
+    return int(fn(records, binning, n_frames, width, height)[3].sum())
 
 
 def phase4b_vtx_timing(smi, dev):
@@ -1766,10 +1878,11 @@ def phase2d_hw_kernels(dev):
     Returns each kernel's max error."""
     shade = spike_shading(dev)
     errs = {name: 0.0 for name, _ in HW_KERNELS}
-    plain_ms = {}
+    plain_ms, items = {}, {}
 
     def check(label, records, binning, width, height):
-        kern = kernels.raster_gbuffer_hw(records, binning, 1, width, height)
+        kern, items[label] = walked(kernels.raster_gbuffer_hw, records, binning, 1, width,
+                                    height)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         plain = tiles.render_gbuffer(records, binning, 1, width, height)
@@ -1778,7 +1891,10 @@ def phase2d_hw_kernels(dev):
         plain_ms[label] = start.elapsed_time(end)
         errs["vf_raster_gbuffer_hw"] = max(errs["vf_raster_gbuffer_hw"], assert_gbuffer_close(
             kern, plain, f"{label}: vf_raster_gbuffer_hw"))
-        img = kernels.raster_shade_shipped_hw(records, binning, 1, width, height, *shade)
+        img, n = walked(kernels.raster_shade_shipped_hw, records, binning, 1, width, height,
+                        *shade)
+        if n != items[label]:
+            raise AssertionError(f"{label}: the hw kernels walked {items[label]} and {n} items")
         d, _ = assert_fs_policy(img, fragment.terrain_fs(*plain, *shade),
                                 f"{label}: vf_raster_shade_shipped_hw")
         errs["vf_raster_shade_shipped_hw"] = max(errs["vf_raster_shade_shipped_hw"], float(d))
@@ -1829,7 +1945,8 @@ def phase2d_hw_kernels(dev):
                              f"or an interior pixel is missed")
     say("hw_kernel_vs_plain", tolerance=f"masks exact; varyings <= {VARYING_RTOL}*max(1,|x|); "
         f"images: bytes off by <= 1 on <= {FS_MAX_FRACTION} of bytes; grid-16 mask equal to "
-        "hw_oracle", cases=list(plain_ms), plain_ms=plain_ms,
+        "hw_oracle; evaluated equal to tiles.tile_work", cases=list(plain_ms),
+        plain_ms=plain_ms, evaluated_items=items,
         max_err=errs, grid16=grid16, w_crossing_valid=crossing,
         quad={"max_cover": int(count.max()), "interior_pixels": int(interior.numel()),
               "covered_once": int((count == 1).sum())})
@@ -1872,6 +1989,23 @@ def phase3d_hw_main_path(dev):
     for name, _ in RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 4's main path launched {name}")
+    # The three frames' hw records again, with the kernels' evaluated items
+    # held to the mirror's (after the launch counts were read).
+    xyuv, tris, heights, views, projs = renderer_frame(main)
+    one = tensor(1.0, dev)
+    items = {f"triangle_{W}x{H}": walked(kernels.raster_gbuffer_hw,
+                                         *pipeline.triangle_records(W, H, dev, "hw"),
+                                         1, W, H)[1]}
+    records, binning, shade = scene_inputs(vt.make_terrain(W, H, VGRID, device="cpu"), dev,
+                                           "hw")
+    items[f"spike_{W}x{H}_g{VGRID}"] = walked(kernels.raster_shade_shipped_hw, records,
+                                              binning, 1, W, H, *shade)[1]
+    records, binning = pipeline.terrain_records(xyuv, tris.long(), heights, views, projs, one,
+                                                one, W, H, fs_mode="extended", fill_rule="hw")
+    items[f"renderer_{W}x{H}_dem{DEM_MAIN}"] = walked(kernels.raster_gbuffer_hw, records,
+                                                      binning, 1, W, H)[1]
+    del records, binning, xyuv, tris
+    torch.cuda.empty_cache()
     parity = {"scene_magma_160x120_g32": assert_fs_policy(scene[str(dev)], scene["cpu"],
                                                           "hw Scene cuda vs cpu"),
               f"triangle_{W}x{H}": assert_fs_policy(out[f"triangle_{W}x{H}"], cpu_triangle,
@@ -1893,7 +2027,7 @@ def phase3d_hw_main_path(dev):
                                      f"under hw, {share[1]:.4f} under inclusive")
     say("hw_main_path", config=f"VF_FILL_RULE=hw: render_triangle_rgba({W},{H}); "
         f"make_terrain({W},{H},{VGRID}).render_rgba(); Renderer({W},{H}) DEM-{DEM_MAIN} "
-        "render_rgba", launches=launches, covered_share=covered,
+        "render_rgba", launches=launches, evaluated_items=items, covered_share=covered,
         pixels_differing_from_inclusive=differ,
         cuda_vs_cpu={k: {"max_byte_delta": v[0], "frac_bytes_differ": v[1]}
                      for k, v in parity.items()},
@@ -1969,33 +2103,46 @@ def phase4d_hw_timing(smi, dev):
     del xyuv, tris, rb, img
     torch.cuda.empty_cache()
 
-    # Each hw kernel per launch, against the inclusive kernel on the same
-    # scene's inclusive records, and its bound (34 live columns).
+    # Each record kernel per launch, the hw one against its inclusive twin on
+    # the same scene's inclusive records, in turns, with its restated bound
+    # (record_bound) and the former one (full_tile_bound_ms).
     shade = spike_shading(dev)
-    rec, turns = {}, {}
+    rec, extra, turns = {}, {}, {}
+
+    def time_pair(case, rules, n_frames, shaded, plain=False):
+        """Turns of the inclusive and hw kernel of one kind on the records
+        ``rules[rule]`` of ``case``; files the inclusive kernel's record in
+        ``extra`` and returns the hw kernel's."""
+        names = (("vf_raster_shade_shipped", "vf_raster_shade_shipped_hw") if shaded
+                 else ("vf_raster_gbuffer", "vf_raster_gbuffer_hw"))
+        fns = [getattr(kernels, n.removeprefix("vf_")) for n in names]
+        args = shade if shaded else ()
+        ms, turns[f"{'shade' if shaded else 'gbuffer'} {case}"] = kernel_turns(
+            lambda: fns[0](*rules["inclusive"], n_frames, W, H, *args),
+            lambda: fns[1](*rules["hw"], n_frames, W, H, *args))
+        out = {}
+        for rule, fn in zip(("inclusive", "hw"), fns):
+            covered = covered_pixels(*rules[rule], n_frames, W, H, rule == "hw")
+            out[rule] = {"ms": ms[rule], "device_ms": kernel_device_ms(
+                             lambda: fn(*rules[rule], n_frames, W, H, *args)),
+                         **record_bound(*rules[rule], n_frames, W, H, shaded, covered,
+                                        rule == "hw")}
+        out["hw"]["inclusive_ms"] = ms["inclusive"]
+        if plain:
+            out["hw"]["plain_ms"] = cuda_ms(lambda: fragment.terrain_fs(
+                *tiles.render_gbuffer(*rules["hw"], n_frames, W, H), *shade) if shaded else
+                tiles.render_gbuffer(*rules["hw"], n_frames, W, H), reps=1, warmup=0)
+        extra[f"{names[0]} {case}"] = out["inclusive"]
+        return out["hw"]
+
     tri = {rule: pipeline.triangle_records(W, H, dev, rule) for rule in ("inclusive", "hw")}
-    ms, turns["gbuffer triangle"] = kernel_turns(
-        lambda: kernels.raster_gbuffer(*tri["inclusive"], 1, W, H),
-        lambda: kernels.raster_gbuffer_hw(*tri["hw"], 1, W, H))
-    rec["vf_raster_gbuffer_hw"] = {
-        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
-        "plain_ms": cuda_ms(lambda: tiles.render_gbuffer(*tri["hw"], 1, W, H)),
-        **record_bound(*tri["hw"], 1, W, H, shade=False, cols=setup.HW_COLS)}
-    extra = {}
+    rec["vf_raster_gbuffer_hw"] = time_pair("triangle", tri, 1, False)
+    rec["vf_raster_gbuffer_hw"]["plain_ms"] = cuda_ms(
+        lambda: tiles.render_gbuffer(*tri["hw"], 1, W, H))
     g128 = vt.make_terrain(W, H, GRID, device="cpu")
     s128 = {rule: scene_inputs(g128, dev, rule)[:2] for rule in ("inclusive", "hw")}
-    ms, turns["gbuffer spike g128"] = kernel_turns(
-        lambda: kernels.raster_gbuffer(*s128["inclusive"], 1, W, H),
-        lambda: kernels.raster_gbuffer_hw(*s128["hw"], 1, W, H))
-    extra[f"vf_raster_gbuffer_hw spike g{GRID}"] = {
-        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
-        **record_bound(*s128["hw"], 1, W, H, shade=False, cols=setup.HW_COLS)}
-    ms, turns["shade spike g128"] = kernel_turns(
-        lambda: kernels.raster_shade_shipped(*s128["inclusive"], 1, W, H, *shade),
-        lambda: kernels.raster_shade_shipped_hw(*s128["hw"], 1, W, H, *shade))
-    extra[f"vf_raster_shade_shipped_hw spike g{GRID}"] = {
-        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
-        **record_bound(*s128["hw"], 1, W, H, shade=True, cols=setup.HW_COLS)}
+    for shaded, name in ((False, "vf_raster_gbuffer_hw"), (True, "vf_raster_shade_shipped_hw")):
+        extra[f"{name} spike g{GRID}"] = time_pair(f"spike g{GRID}", s128, 1, shaded)
     del s128
 
     # The main path's shapes: the g1024 spike frame (shipped) and the
@@ -2005,15 +2152,8 @@ def phase4d_hw_timing(smi, dev):
     # DEM-2048).
     g1024 = vt.make_terrain(W, H, VGRID, device="cpu")
     s1024 = {rule: scene_inputs(g1024, dev, rule)[:2] for rule in ("inclusive", "hw")}
-    ms, turns["shade spike g1024"] = kernel_turns(
-        lambda: kernels.raster_shade_shipped(*s1024["inclusive"], 1, W, H, *shade),
-        lambda: kernels.raster_shade_shipped_hw(*s1024["hw"], 1, W, H, *shade))
-    rec["vf_raster_shade_shipped_hw"] = {
-        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
-        "plain_ms": cuda_ms(lambda: fragment.terrain_fs(
-            *tiles.render_gbuffer(*s1024["hw"], 1, W, H), *shade), reps=1, warmup=0),
-        "pairs": int(s1024["hw"][1].rows.numel()),
-        **record_bound(*s1024["hw"], 1, W, H, shade=True, cols=setup.HW_COLS)}
+    rec["vf_raster_shade_shipped_hw"] = time_pair(f"spike g{VGRID}", s1024, 1, True,
+                                                  plain=True)
     del s1024
     torch.cuda.empty_cache()
     xyuv, tris, heights, views, projs = renderer_frame(main)
@@ -2021,14 +2161,19 @@ def phase4d_hw_timing(smi, dev):
     dem = {rule: pipeline.terrain_records(xyuv, tris.long(), heights, views, projs, one, one,
                                           W, H, fs_mode="extended", fill_rule=rule)
            for rule in ("inclusive", "hw")}
-    ms, turns["gbuffer DEM-2048"] = kernel_turns(
-        lambda: kernels.raster_gbuffer(*dem["inclusive"], 1, W, H),
-        lambda: kernels.raster_gbuffer_hw(*dem["hw"], 1, W, H))
-    extra[f"vf_raster_gbuffer_hw DEM-{DEM_MAIN}"] = {
-        "ms": ms["hw"], "inclusive_ms": ms["inclusive"],
-        "pairs": int(dem["hw"][1].rows.numel()),
-        **record_bound(*dem["hw"], 1, W, H, shade=False, cols=setup.HW_COLS)}
-    del dem, main
+    extra[f"vf_raster_gbuffer_hw DEM-{DEM_MAIN}"] = time_pair(f"DEM-{DEM_MAIN}", dem, 1, False)
+    del dem, main, xyuv, tris, heights
+    torch.cuda.empty_cache()
+
+    # Loaded: the close-in + w-crossing camera pair at grid=1024 through the
+    # record route, whose w-crossing triangles bin into every tile with a
+    # full-tile box.
+    views, projs = special_cameras(W, H)
+    loaded = {rule: record_route(VGRID, views, projs, dev, rule) for rule in ("inclusive", "hw")}
+    case = f"g{VGRID} close-in + w-crossing"
+    for shaded, name in ((False, "vf_raster_gbuffer_hw"), (True, "vf_raster_shade_shipped_hw")):
+        extra[f"{name} {case}"] = time_pair(case, loaded, 2, shaded)
+    del loaded
     torch.cuda.empty_cache()
     say("hw_timing", card=smi, config=f"{W}x{H}; VF_FILL_RULE=hw against inclusive, in turns",
         single_frame=latency, spike_hw_stages_ms=stages, kernel_ms=rec,
@@ -2641,15 +2786,20 @@ def main() -> int:
     src = "vulkan_forge_torch/csrc/raster.cu"
     vsrc = "vulkan_forge_torch/csrc/vtx.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    # The record kernels' former bound (every binned pair at all 256 pixels
+    # of its tile) stands beside the restated one, and their device time
+    # (profiler) beside the per-call time, which their wrappers' host work
+    # now exceeds.
+    record_keys = keys + ("full_tile_bound_ms", "device_ms")
     line = [
         {"name": "vf_raster_gbuffer", "route": "cuda", "source": src,
          "replaces": "vulkan_forge/_raster/pallas_backend.py:33",
          "launches": launches["vf_raster_gbuffer"], "max_abs_err": rec["gbuffer"]["err"],
-         **{k: rec["gbuffer"][k] for k in keys}, "library_ms": None},
+         **{k: rec["gbuffer"][k] for k in record_keys}, "library_ms": None},
         {"name": "vf_raster_shade_shipped", "route": "cuda", "source": src,
          "replaces": "vulkan_forge/_raster/packed.py:755",
          "launches": launches["vf_raster_shade_shipped"], "max_abs_err": rec["shade"]["err"],
-         **{k: rec["shade"][k] for k in keys}, "library_ms": None},
+         **{k: rec["shade"][k] for k in record_keys}, "library_ms": None},
     ]
     replaces = {"vf_vtx_cover": "vulkan_forge/_raster/vtx.py:616",
                 "vf_vtx_cover_big": "vulkan_forge/_raster/vtx.py:616",
@@ -2681,7 +2831,7 @@ def main() -> int:
     for name, _ in HW_KERNELS:
         line.append({"name": name, "route": "cuda", "source": src, "replaces": replaces[name],
                      "launches": launches[name], "max_abs_err": hw_err[name],
-                     **{k: hw_rec[name][k] for k in keys}, "library_ms": None})
+                     **{k: hw_rec[name][k] for k in record_keys}, "library_ms": None})
     # K8 (segments.py:159); the shipped shader fused into the shading one.
     for name, _ in SEG_KERNELS:
         line.append({"name": name, "route": "cuda", "source": "vulkan_forge_torch/csrc/segments.cu",

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Times the vertex-stream and indexed-mesh kernels of two checkouts of the
-PyTorch/CUDA port on one card, in turns.
+"""Times the raster kernels of two checkouts of the PyTorch/CUDA port on
+one card, in turns.
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
-    python3 scripts/torch_cover_ab.py OTHER_ROOT
+    python3 scripts/torch_cover_ab.py OTHER_ROOT [--only cover|record]
 
 Runs OTHER, THIS, THIS, OTHER (THIS: the checkout that holds this script),
 each in a process of its own that imports the package and
@@ -21,7 +21,19 @@ helpers:
     events around 20 back-to-back launches per set, the median per launch;
   - the vtx route's batch of 4 (host clock after synchronize, the median
     of those 5 sets after a warm-up set) and ``Renderer.render_rgba()`` at
-    DEM-2048 (median of 20 calls after a warm-up call, readback included).
+    DEM-2048 (median of 20 calls after a warm-up call, readback included);
+  - the record route's four kernels (``vf_raster_gbuffer``,
+    ``vf_raster_shade_shipped`` and their ``_hw`` twins) over each
+    checkout's own records and binning, under both fill rules: the triangle
+    at 800x600, the spike g128 and g1024 frames, the Renderer's DEM-2048
+    frame and the loaded g1024 close-in + w-crossing pair (chip_smoke's
+    special_cameras); the median of 5 runs of 20 back-to-back calls (CUDA
+    events), and the kernel's own device time per launch over 20 calls
+    (torch.profiler), which the wrapper's host work does not reach; then
+    the record route's g128 batch of 32 orbit cameras and the g1024 spike
+    frame under VF_FILL_RULE=hw (host clock after synchronize, medians).
+
+``--only cover`` measures the first two parts, ``--only record`` the last.
 
 Prints one JSON line per run, the card's name and power limit (nvidia-smi),
 and last one JSON object with each checkout's runs.
@@ -36,7 +48,86 @@ import sys
 import time
 
 
-def measure(root: str) -> dict:
+def device_ms(torch, fn, key="raster_kernel", calls=20) -> float:
+    """Device milliseconds per launch of the kernel whose name holds ``key``
+    over ``calls`` calls of fn (torch.profiler): the kernel alone, without
+    the wrapper's host work, which a short kernel cannot hide."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):              # a session may record none of them
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [a for a in prof.key_averages() if key in a.key]
+        seen = sum(a.count for a in ev)
+        if seen:
+            break
+    if not seen or seen > calls:
+        raise SystemExit(f"the profiler saw {seen} {key} launches in {calls} calls")
+    # The mean over the launches it recorded (its first session may miss some).
+    return sum(a.self_device_time_total for a in ev) / seen / 1e3
+
+
+def measure_record(cs, dev) -> dict:
+    """Per-launch ms of the record kernels, keyed "<kernel> <case>": CUDA
+    events around 20 back-to-back calls (``_ms``) and the kernel's device
+    time from the profiler (``_device_ms``)."""
+    k = cs.kernels
+    shade = cs.spike_shading(dev)
+    out = {}
+
+    def time_rules(case, make, n_frames, shaded):
+        for rule in ("inclusive", "hw"):
+            records, binning = make(rule)
+            name = "raster_shade_shipped" if shaded else "raster_gbuffer"
+            if rule == "hw":
+                name += "_hw"
+            fn = getattr(k, name)
+            args = shade if shaded else ()
+            call = lambda: fn(records, binning, n_frames, cs.W, cs.H, *args)
+            out[f"vf_{name} {case}_ms"] = cs.cuda_ms(call, inner=cs.KERNEL_INNER)
+            out[f"vf_{name} {case}_device_ms"] = device_ms(cs.torch, call)
+            del records, binning
+            cs.torch.cuda.empty_cache()
+
+    time_rules("triangle", lambda rule: cs.pipeline.triangle_records(cs.W, cs.H, dev, rule), 1,
+               False)
+    for grid in (cs.GRID, cs.VGRID):
+        spike = cs.vt.make_terrain(cs.W, cs.H, grid, device="cpu")
+        for shaded in (False, True):
+            time_rules(f"spike g{grid}", lambda rule: cs.scene_inputs(spike, dev, rule)[:2], 1,
+                       shaded)
+    r = cs.make_renderer(cs.DEM_MAIN, dev)
+    xyuv, tris, heights, views, projs = cs.renderer_frame(r)
+    one = cs.tensor(1.0, dev)
+    time_rules(f"DEM-{cs.DEM_MAIN}", lambda rule: cs.pipeline.terrain_records(
+        xyuv, tris.long(), heights, views, projs, one, one, cs.W, cs.H, fs_mode="extended",
+        fill_rule=rule), 1, False)
+    del r, xyuv, tris, heights
+    views, projs = cs.special_cameras(cs.W, cs.H)
+    for shaded in (False, True):
+        time_rules(f"g{cs.VGRID} close-in + w-crossing",
+                   lambda rule: cs.record_route(cs.VGRID, views, projs, dev, rule), 2, shaded)
+
+    # Whole record-route frames: the batch of 32 orbit cameras at g128 (the
+    # mesh on the card), and make_terrain(800, 600, 1024).render_rgba()
+    # under VF_FILL_RULE=hw; host clock after synchronize, medians.
+    cams = [cs.orbit_cameras(cs.BATCH, cs.W, cs.H, phase=0.31 * r) for r in range(cs.REPS + 1)]
+    batch = cs.route_fn("record", cs.GRID, dev)
+    batch(*cams[-1])
+    cs.sync()
+    out["record_g128_x32_batch_ms"] = statistics.median(cs.host_ms(batch, cams[:cs.REPS]))
+    spike = cs.vt.make_terrain(cs.W, cs.H, cs.VGRID, device=dev)
+    os.environ["VF_FILL_RULE"] = "hw"
+    spike.render_rgba()
+    out["hw_spike_g1024_frame_ms"] = statistics.median(cs.host_ms(spike.render_rgba, [()] * 10))
+    del os.environ["VF_FILL_RULE"]
+    return out
+
+
+def measure(root: str, parts) -> dict:
     sys.path.insert(0, root)
     import torch
     import chip_smoke as cs
@@ -46,6 +137,11 @@ def measure(root: str) -> dict:
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda")
     cs.kernels.load()
+    out = {"root": root}
+    if "record" in parts:
+        out.update(measure_record(cs, dev))
+    if "cover" not in parts:
+        return out
 
     k = cs.kernels
     times = {}
@@ -91,7 +187,6 @@ def measure(root: str) -> dict:
         t0 = time.perf_counter()
         r.render_rgba()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    out = {"root": root}
     for name, ms in times.items():
         out[f"{name}_ms"], out[f"{name}_all"] = statistics.median(ms), ms
     return {**out, "g1024_x4_batch_ms": statistics.median(batch_ms),
@@ -99,17 +194,22 @@ def measure(root: str) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) >= 3 and sys.argv[1] == "--measure":
-        print(json.dumps(measure(sys.argv[2])), flush=True)
+    if len(sys.argv) == 4 and sys.argv[1] == "--measure":
+        print(json.dumps(measure(sys.argv[2], sys.argv[3].split(","))), flush=True)
         return 0
-    if len(sys.argv) != 2:
+    args = sys.argv[1:]
+    parts = "cover,record"
+    if len(args) == 3 and args[1] == "--only" and args[2] in ("cover", "record"):
+        parts = args[2]
+    elif len(args) != 1:
         raise SystemExit(__doc__)
-    other = os.path.abspath(sys.argv[1])
+    other = os.path.abspath(args[0])
     this = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
     runs = {"other": [], "this": []}
     for name, root in (("other", other), ("this", this), ("this", this), ("other", other)):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root],
-                             check=True, capture_output=True, text=True, cwd=root).stdout
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root,
+                              parts], check=True, capture_output=True, text=True,
+                             cwd=root).stdout
         line = json.loads(out.strip().splitlines()[-1])
         print(json.dumps({"run": name, **line}), flush=True)
         runs[name].append(line)

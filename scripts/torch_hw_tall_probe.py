@@ -3,17 +3,22 @@
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
-    python3 scripts/torch_hw_tall_probe.py
+    python3 scripts/torch_hw_tall_probe.py [ROOT]
 
 Renders a Renderer frame of chip_smoke.py's seeded DEM (the 3601 x 3601
 SRTM-sized one at 30 m, x1.5, "terrain") at 7680x4320 with
-VF_FILL_RULE=hw on device="cuda". Under "hw" the port takes every frame
-through the record route (setup, tile binning, vf_raster_gbuffer_hw), as
-the reference sends tall hw frames to its list kernel. Prints, as one JSON
-line, each call's host milliseconds (the first builds the mesh), the peak
-device memory, the share of pixels the terrain covers and which kernels
-launched; on a failure, the stage it reached and the error, and exits 1.
-Then the card's name and power limit (nvidia-smi).
+VF_FILL_RULE=hw on device="cuda", through the package and chip_smoke.py
+of the checkout at ROOT (by default the one that holds this script).
+Under "hw" the port takes every frame through the record route (setup,
+tile binning, vf_raster_gbuffer_hw), as the reference sends tall hw frames
+to its list kernel. Prints, as one JSON line, each call's host
+milliseconds (the first builds the mesh), the peak device memory of the
+calls, the share of pixels the terrain covers and which kernels launched;
+then the frame's records and binning once more (their peak device memory
+and binned pairs) and vf_raster_gbuffer_hw's time on them alone (CUDA
+events, the median of 3 launches after one); on a failure, the stage it
+reached and the error, and exits 1. Then the card's name and power limit
+(nvidia-smi).
 """
 from __future__ import annotations
 
@@ -24,7 +29,9 @@ import sys
 import time
 import traceback
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                       os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+sys.path.insert(0, ROOT)
 
 
 DEM, WIDTH, HEIGHT = 3601, 7680, 4320
@@ -39,7 +46,7 @@ def main() -> int:
     from vulkan_forge_torch._raster import kernels
 
     out = {"config": f"Renderer({WIDTH},{HEIGHT}), DEM-{DEM} (seed 1), VF_FILL_RULE=hw",
-           "stage": "start"}
+           "root": ROOT, "stage": "start"}
     every = {name: getattr(kernels, name.removeprefix("vf_")) for name in (
         "vf_raster_gbuffer", "vf_raster_gbuffer_hw", "vf_raster_shade_shipped_hw",
         "vf_packed_cover", "vf_seg_gbuffer", "vf_vtx_cover")}
@@ -61,6 +68,24 @@ def main() -> int:
                    shape=list(img.shape),
                    covered_share=float((img[..., :3] != np.array([39, 39, 48], np.uint8))
                                        .any(-1).mean()))
+        out["stage"] = "kernel"
+        del img
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        xyuv, tris, heights, views, projs = cs.renderer_frame(r)
+        one = cs.tensor(1.0, "cuda")
+        records, binning = cs.pipeline.terrain_records(
+            xyuv, tris.long(), heights, views, projs, one, one, WIDTH, HEIGHT,
+            fs_mode="extended", fill_rule="hw")
+        kernels.raster_gbuffer_hw(records, binning, 1, WIDTH, HEIGHT)
+        torch.cuda.synchronize()
+        out.update(records_peak_bytes=int(torch.cuda.max_memory_allocated()),
+                   records_above_resident_bytes=int(torch.cuda.max_memory_allocated() - base),
+                   pairs=int(binning.rows.numel()),
+                   kernel_ms=cs.cuda_ms(lambda: kernels.raster_gbuffer_hw(
+                       records, binning, 1, WIDTH, HEIGHT), reps=3, warmup=1),
+                   stage="done")
         rc = 0
     except Exception as exc:  # the probe reports the failure and its stage
         out.update(error=f"{type(exc).__name__}: {exc}",

@@ -446,6 +446,101 @@ def test_packed_route_matches_record_route_on_card(cuda, case):
         assert torch.equal(a, b)
 
 
+def _walk_inputs(case, rule, dev):
+    """(records, binning, frames, W, H) of a record-kernel case under
+    ``rule``: the triangle (one full-box pair per inner tile; 97x61 has
+    partial right and bottom tiles), a watertight quad (pixel centres on
+    edges), the spike g64 from inside the relief
+    (w-crossing full-screen bboxes, tiles of more than 256 pairs), and
+    _indexed_inputs' DEM frames through setup (close-in, w-crossing, a
+    batch of two)."""
+    if case.startswith("triangle"):
+        W, H = (int(v) for v in case.split()[1].split("x"))
+        return (*pipeline.triangle_records(W, H, dev, rule), 1, W, H)
+    if case.startswith("quad"):
+        # Corners and the shared diagonal on pixel centres
+        # (tests/test_fillrule.py:51-79): the hw thresholds decide ties;
+        # "quad x20" draws it 20 times, so its tiles take the chunked walk.
+        W, H = 128, 96
+        ndc = lambda px, py: (2 * (px + 0.5) / W - 1, 1 - 2 * (py + 0.5) / H)
+        clip = torch.tensor([[x, y, 0.5, 1.0] for x, y in (ndc(10, 10), ndc(70, 10),
+                                                           ndc(70, 70), ndc(10, 70))],
+                            dtype=torch.float32, device=dev)
+        x, y, z, w = setup.clip_to_fb(clip, W, H)
+        records, bbox = setup.triangle_setup(
+            x, y, z, w, torch.ones((4, 3), device=dev),
+            torch.tensor([[0, 2, 1], [0, 3, 2]] * (20 if case == "quad x20" else 1),
+                         device=dev), W, H, rule)
+        return records.reshape(-1, setup.REC_WIDTH), setup.bin_tiles(bbox, W, H), 1, W, H
+    if case == "g64 w-crossing":
+        W, H = 97, 61
+        xyuv, idx = _mesh.build_grid_xyuv(64)
+        t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+        view = _camera.look_at_rh((0.0, 0.9, 0.0), (1.5, -0.2, 1.5), (0, 1, 0))
+        proj = _camera.perspective_wgpu(np.float32(math.radians(60)), np.float32(W / H),
+                                        np.float32(0.001), np.float32(1e4))
+        return (*pipeline.terrain_records(
+            t(xyuv), torch.as_tensor(idx.astype(np.int64).reshape(-1, 3), device=dev),
+            t(np.zeros((1, 1))), t(view[None]), t(proj[None]), t(1.0), t(1.0), W, H,
+            fill_rule=rule), 1, W, H)
+    fields, idx, W, H = _indexed_inputs(case, dev)
+    records, bbox = setup.triangle_setup(
+        fields[:, 0], fields[:, 1], fields[:, 6], fields[:, 2], fields[:, 3:6].transpose(1, 2),
+        idx.long(), W, H, rule)
+    return (records.reshape(-1, setup.REC_WIDTH), setup.bin_tiles(bbox, W, H),
+            fields.shape[0], W, H)
+
+
+WALK_CASES = ["triangle 97x61", "triangle 800x600", "quad", "quad x20", "g64 w-crossing",
+              "close", "w_cross", "batch"]
+
+
+def _bits(planes):
+    return [p.view(torch.int32) if p.dtype == torch.float32 else p for p in planes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["inclusive", "hw"])
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_record_kernels_walk_their_boxes(cuda, case, rule):
+    """The four record kernels against the plain raster, bit for bit
+    (images under the FS policy), and their evaluated items equal to
+    tiles.tile_work; each call launches its kernel once."""
+    records, binning, B, W, H = _walk_inputs(case, rule, cuda)
+    gbuffer, shade_fn = ((kernels.raster_gbuffer_hw, kernels.raster_shade_shipped_hw)
+                         if rule == "hw" else
+                         (kernels.raster_gbuffer, kernels.raster_shade_shipped))
+    shade = _terrain(16, W, H, (2.0, 1.5, 2.5), cuda)[2]
+    ntx, nty = setup.tile_grid(W, H)
+    ev = [torch.full((B, nty * ntx), -1, dtype=torch.int32, device=cuda) for _ in range(2)]
+    n = [gbuffer.launches, shade_fn.launches]
+    got = gbuffer(records, binning, B, W, H, evaluated=ev[0])
+    img = shade_fn(records, binning, B, W, H, *shade, evaluated=ev[1])
+    torch.cuda.synchronize()
+    assert [gbuffer.launches, shade_fn.launches] == [n[0] + 1, n[1] + 1]
+    want = tiles.render_gbuffer(records, binning, B, W, H)
+    for a, b in zip(_bits(got), _bits(want)):
+        assert torch.equal(a, b)
+    assert_fs_policy(img, fragment.terrain_fs(*want, *shade), f"{case} {rule} shade vs plain")
+    work = tiles.tile_work(binning).view(B, -1).to(torch.int32)
+    assert torch.equal(ev[0], work) and torch.equal(ev[1], work)
+    counts = binning.offsets[1:] - binning.offsets[:-1]
+    if case in ("g64 w-crossing", "batch"):
+        assert int(counts.max()) > 256, "the case must walk more than one chunk per tile"
+    assert int(want[3].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_record_kernels_reject_bad_walk_inputs(cuda):
+    records, binning, B, W, H = _walk_inputs("close", "hw", cuda)
+    ntx, nty = setup.tile_grid(W, H)
+    with pytest.raises(ValueError, match="boxes is on"):
+        kernels.raster_gbuffer_hw(records, binning._replace(boxes=binning.boxes.cpu()), B, W, H)
+    with pytest.raises(ValueError, match="evaluated is on"):
+        kernels.raster_gbuffer_hw(records, binning, B, W, H,
+                                  evaluated=torch.zeros(B, nty * ntx, dtype=torch.int32))
+
+
 @pytest.mark.gpu
 def test_packed_kernels_reject_bad_inputs(cuda):
     fields, idx, W, H = _indexed_inputs("renderer", cuda)

@@ -88,10 +88,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "vf_raster_gbuffer": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "vf_raster_gbuffer_hw": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "vf_raster_shade_shipped": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "vf_raster_shade_shipped_hw": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "vf_raster_gbuffer": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "vf_raster_gbuffer_hw": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                             _P],
+    "vf_raster_shade_shipped": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                _P],
+    "vf_raster_shade_shipped_hw": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                   _P],
     "vf_tile": [],
     "vf_vtx_cover": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_vtx_cover_patches": [_I],
@@ -213,28 +216,53 @@ def load():
 
 
 def _check_inputs(records: torch.Tensor, binning: Binning, n_frames: int,
-                  width: int, height: int) -> None:
+                  width: int, height: int, evaluated=None) -> None:
     if records.dtype != torch.float32 or records.dim() != 2 \
             or records.shape[1] != REC_WIDTH or not records.is_contiguous():
         raise ValueError(f"records must be contiguous float32 (R, {REC_WIDTH}), "
                          f"got {records.dtype} {tuple(records.shape)}")
+    if records.shape[0] >= 2**31:
+        raise ValueError("records must stay below 2**31 rows (the kernels keep row + 1 "
+                         "in an int32)")
     ntx, nty = tile_grid(width, height)
-    for name, t in (("rows", binning.rows), ("offsets", binning.offsets)):
+    for name, t in (("rows", binning.rows), ("offsets", binning.offsets),
+                    ("boxes", binning.boxes)):
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"binning.{name} must be contiguous 1-D int32")
         if t.device != records.device:
             raise ValueError(f"binning.{name} is on {t.device}, records on {records.device}")
     if binning.offsets.numel() != n_frames * ntx * nty + 1:
         raise ValueError("binning.offsets does not match the frame and tile counts")
+    if binning.boxes.numel() != binning.rows.numel():
+        raise ValueError("binning.boxes must hold one box per row")
+    if evaluated is not None:
+        shape = (n_frames, nty * ntx)
+        if evaluated.dtype != torch.int32 or tuple(evaluated.shape) != shape \
+                or not evaluated.is_contiguous():
+            raise ValueError(f"evaluated must be contiguous int32 {shape}, got "
+                             f"{evaluated.dtype} {tuple(evaluated.shape)}")
+        if evaluated.device != records.device:
+            raise ValueError(f"evaluated is on {evaluated.device}, records on "
+                             f"{records.device}")
     if records.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {records.device}")
+    # The kernels read records 16 bytes at a time.
+    if records.data_ptr() % 16:
+        raise ValueError("records must start on a 16-byte boundary")
 
 
 def _launch_args(records, binning, n_frames, width, height):
     ntx, nty = tile_grid(width, height)
     return [records.data_ptr(), REC_WIDTH, binning.rows.data_ptr(),
-            binning.offsets.data_ptr(), n_frames * ntx * nty, ntx, nty,
-            width, height]
+            binning.boxes.data_ptr(), binning.offsets.data_ptr(), n_frames * ntx * nty,
+            ntx, nty, width, height]
+
+
+def _plain_work(evaluated, binning) -> None:
+    """Fill ``evaluated`` (if given) with each tile's (pair, pixel) items
+    from the torch mirror, ``tiles.tile_work``."""
+    if evaluated is not None:
+        evaluated.copy_(tiles.tile_work(binning).view(evaluated.shape))
 
 
 def _stream(device):
@@ -247,11 +275,12 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _gbuffer(wrapper, symbol: str, records, binning, n_frames: int, width: int,
-             height: int):
+             height: int, evaluated):
     """The g-buffer kernel ``symbol`` (or its plain version for CPU
     tensors), counted on ``wrapper.launches``."""
-    _check_inputs(records, binning, n_frames, width, height)
+    _check_inputs(records, binning, n_frames, width, height, evaluated)
     if records.device.type == "cpu":
+        _plain_work(evaluated, binning)
         return tiles.render_gbuffer(records, binning, n_frames, width, height)
     shape = (n_frames, height, width)
     opts = dict(dtype=torch.float32, device=records.device)
@@ -262,31 +291,34 @@ def _gbuffer(wrapper, symbol: str, records, binning, n_frames: int, width: int,
         err = getattr(lib, symbol)(
             *_launch_args(records, binning, n_frames, width, height),
             v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
-            _stream(records.device))
+            None if evaluated is None else evaluated.data_ptr(), _stream(records.device))
     _raise_on(err, symbol)
     wrapper.launches += 1
     return v0, v1, v2, mask
 
 
 def raster_gbuffer(records: torch.Tensor, binning: Binning, n_frames: int,
-                   width: int, height: int):
+                   width: int, height: int, evaluated=None):
     """Binned records -> g-buffer (v0, v1, v2, mask), each (B, H, W).
+    ``evaluated``, a (B, NTY*NTX) int32 tensor or None, receives the (pair,
+    pixel) items each tile walked (a check; the route passes None).
 
-    CPU tensors: tiles.render_gbuffer. CUDA tensors: ``vf_raster_gbuffer``.
+    CPU tensors: tiles.render_gbuffer (``evaluated`` from tiles.tile_work).
+    CUDA tensors: ``vf_raster_gbuffer``.
     """
     return _gbuffer(raster_gbuffer, "vf_raster_gbuffer", records, binning, n_frames,
-                    width, height)
+                    width, height, evaluated)
 
 
 def raster_gbuffer_hw(records: torch.Tensor, binning: Binning, n_frames: int,
-                      width: int, height: int):
+                      width: int, height: int, evaluated=None):
     """``raster_gbuffer`` under the hardware fill rule, over records set up
     with ``fill_rule="hw"``.
 
     CPU tensors: tiles.render_gbuffer. CUDA tensors: ``vf_raster_gbuffer_hw``.
     """
     return _gbuffer(raster_gbuffer_hw, "vf_raster_gbuffer_hw", records, binning,
-                    n_frames, width, height)
+                    n_frames, width, height, evaluated)
 
 
 raster_gbuffer.launches = 0
@@ -294,12 +326,13 @@ raster_gbuffer_hw.launches = 0
 
 
 def _shade(wrapper, symbol: str, records, binning, n_frames: int, width: int,
-           height: int, lut, h_range, exposure, sun_dir):
+           height: int, lut, h_range, exposure, sun_dir, evaluated):
     """The shading kernel ``symbol`` (or its plain version for CPU
     tensors), counted on ``wrapper.launches``."""
-    _check_inputs(records, binning, n_frames, width, height)
+    _check_inputs(records, binning, n_frames, width, height, evaluated)
     _check_shading(lut, h_range, exposure, sun_dir, records.device)
     if records.device.type == "cpu":
+        _plain_work(evaluated, binning)
         v0, v1, v2, mask = tiles.render_gbuffer(records, binning, n_frames, width, height)
         return fragment.terrain_fs(v0, v1, v2, mask, lut, h_range, exposure,
                                    sun_dir)
@@ -310,7 +343,8 @@ def _shade(wrapper, symbol: str, records, binning, n_frames: int, width: int,
     with torch.cuda.device(records.device):
         err = getattr(lib, symbol)(
             *_launch_args(records, binning, n_frames, width, height),
-            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(), _stream(records.device))
+            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(),
+            None if evaluated is None else evaluated.data_ptr(), _stream(records.device))
     _raise_on(err, symbol)
     wrapper.launches += 1
     return image.view(torch.uint32)
@@ -319,21 +353,23 @@ def _shade(wrapper, symbol: str, records, binning, n_frames: int, width: int,
 def raster_shade_shipped(records: torch.Tensor, binning: Binning,
                          n_frames: int, width: int, height: int,
                          lut: torch.Tensor, h_range: torch.Tensor,
-                         exposure: torch.Tensor, sun_dir: torch.Tensor):
-    """Binned records -> (B, H, W) uint32 RGBA through the shipped shader.
+                         exposure: torch.Tensor, sun_dir: torch.Tensor, evaluated=None):
+    """Binned records -> (B, H, W) uint32 RGBA through the shipped shader;
+    ``evaluated`` as in ``raster_gbuffer``.
 
     CPU tensors: tiles.render_gbuffer then fragment.terrain_fs. CUDA
     tensors: ``vf_raster_shade_shipped``, with hr2, exposure and the
     normalized sun computed here by ``fragment.fs_scalars``.
     """
     return _shade(raster_shade_shipped, "vf_raster_shade_shipped", records, binning,
-                  n_frames, width, height, lut, h_range, exposure, sun_dir)
+                  n_frames, width, height, lut, h_range, exposure, sun_dir, evaluated)
 
 
 def raster_shade_shipped_hw(records: torch.Tensor, binning: Binning,
                             n_frames: int, width: int, height: int,
                             lut: torch.Tensor, h_range: torch.Tensor,
-                            exposure: torch.Tensor, sun_dir: torch.Tensor):
+                            exposure: torch.Tensor, sun_dir: torch.Tensor,
+                            evaluated=None):
     """``raster_shade_shipped`` under the hardware fill rule, over records
     set up with ``fill_rule="hw"``.
 
@@ -341,7 +377,7 @@ def raster_shade_shipped_hw(records: torch.Tensor, binning: Binning,
     tensors: ``vf_raster_shade_shipped_hw``.
     """
     return _shade(raster_shade_shipped_hw, "vf_raster_shade_shipped_hw", records, binning,
-                  n_frames, width, height, lut, h_range, exposure, sun_dir)
+                  n_frames, width, height, lut, h_range, exposure, sun_dir, evaluated)
 
 
 raster_shade_shipped.launches = 0

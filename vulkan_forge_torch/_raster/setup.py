@@ -450,9 +450,14 @@ class Binning(NamedTuple):
     records, tile by tile, ascending triangle id within a tile.
     offsets: (B*NT + 1,) int32 exclusive scan of the per-tile counts; tile
     ``b*NT + ty*NTX + tx`` owns rows[offsets[t]:offsets[t+1]].
+    boxes: (P,) int32, beside rows: each pair's pixel bbox clipped to its
+    tile, in tile-local pixels 0..TILE-1 packed as x0 | x1 << 4 | y0 << 8 |
+    y1 << 12 (never empty). The raster kernels walk these pixels only
+    (csrc/raster.cu; ``tiles.box_extents`` decodes them).
     """
     rows: torch.Tensor
     offsets: torch.Tensor
+    boxes: torch.Tensor
 
 
 def tile_grid(width: int, height: int):
@@ -466,7 +471,8 @@ def bin_tiles(bbox: torch.Tensor, width: int, height: int) -> Binning:
     bbox: (T, 4) or (B, T, 4) int32 pixel bboxes (invalid: x1 < x0). Each
     valid triangle emits one (tile, id) pair per tile its bbox spans, in
     triangle order; a stable sort on the tile key keeps each tile's ids
-    ascending. Deterministic, and no atomics anywhere.
+    ascending, and each pair's box goes with it. Deterministic, and no
+    atomics anywhere.
     """
     if bbox.dim() == 2:
         bbox = bbox[None]
@@ -488,13 +494,21 @@ def bin_tiles(bbox: torch.Tensor, width: int, height: int) -> Binning:
                                   output_size=total)
     k = torch.arange(total, device=dev) - (ends - n)[tri]
     sxt = sx[tri]
-    tile_id = ((ty0[tri] + torch.div(k, sxt, rounding_mode="floor")) * ntx
-               + tx0[tri] + k % sxt)
+    tx = tx0[tri] + k % sxt
+    ty = ty0[tri] + torch.div(k, sxt, rounding_mode="floor")
+    del k, sxt
     frame = torch.div(tri, T, rounding_mode="floor")
-    key = frame * nt + tile_id
+    key = frame * nt + ty * ntx + tx
+    # The bbox clipped to the pair's tile, tile-local (see Binning.boxes).
+    tx, ty = tx * TILE, ty * TILE
+    box = ((b[:, 0][tri] - tx).clamp_min(0) | (b[:, 1][tri] - tx).clamp_max(TILE - 1) << 4
+           | (b[:, 2][tri] - ty).clamp_min(0) << 8
+           | (b[:, 3][tri] - ty).clamp_max(TILE - 1) << 12)
+    del tx, ty
     key_sorted, order = torch.sort(key, stable=True)
     rows = (tri + frame)[order]          # frame*(T+1) + id
+    boxes = box[order].to(torch.int32)
     counts = torch.bincount(key_sorted, minlength=B * nt)
     offsets = torch.zeros(B * nt + 1, dtype=torch.long, device=dev)
     offsets[1:] = torch.cumsum(counts, 0)
-    return Binning(rows=rows.to(torch.int32), offsets=offsets.to(torch.int32))
+    return Binning(rows=rows.to(torch.int32), offsets=offsets.to(torch.int32), boxes=boxes)

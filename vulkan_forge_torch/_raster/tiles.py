@@ -11,6 +11,13 @@ src/terrain/pipeline.rs:133).
 a CPU tensor; on a CUDA tensor they launch ``csrc/raster.cu``, which does
 the same f32 ops in the same order per pixel.
 
+The kernels do not walk in this order: they test each binned pair only
+at the pixels of its box (``Binning.boxes``, its bbox clipped to the
+tile); a heavy tile covers first, keeping the largest covering row per
+pixel, and evaluates only that winner. ``render_gbuffer_walk`` mirrors
+that order in torch and ``tile_work`` counts its (pair, pixel) items; the
+tests hold both to this version.
+
 ``eval_records`` -- one record at pixel centres -- is the evaluation every
 route shares (vtx.py and packed.py use it too; ``vf::eval_pixel`` in
 ``csrc/raster_common.cuh`` is its CUDA twin). It rounds its multiply-adds
@@ -41,6 +48,24 @@ def mad(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
+def _edges(col, px, py):
+    f0 = mad(col(2), px - col(0), -(col(3) * (py - col(1))))
+    f1 = mad(col(6), px - col(4), -(col(7) * (py - col(5))))
+    f2 = mad(col(10), px - col(8), -(col(11) * (py - col(9))))
+    return f0, f1, f2
+
+
+def _dot(f, col, k):
+    return mad(f[2], col(k + 2), mad(f[0], col(k), f[1] * col(k + 1)))
+
+
+def _covers(col, f, aw, bias):
+    az = _dot(f, col, 25)
+    asum = _dot(f, col, 28)
+    return ((f[0] >= bias[0]) & (f[1] >= bias[1]) & (f[2] >= bias[2]) & (col(24) > 0.0)
+            & (az >= 0.0) & (aw > 0.0) & (asum - az >= 0.0))
+
+
 def eval_records(col, px, py, bias=(0.0, 0.0, 0.0)):
     """Records ``col(k)`` (column k, broadcastable) at pixel centres
     (px, py): (a0, a1, a2, aw, cov), the varying numerators, the 1/w
@@ -53,18 +78,18 @@ def eval_records(col, px, py, bias=(0.0, 0.0, 0.0)):
     snapped lattice the edge functions are multiples of 2^-16 and exact
     while |dy * (px - ax)| < 256 px^2, so the fused and unfused forms agree
     there."""
-    f0 = mad(col(2), px - col(0), -(col(3) * (py - col(1))))
-    f1 = mad(col(6), px - col(4), -(col(7) * (py - col(5))))
-    f2 = mad(col(10), px - col(8), -(col(11) * (py - col(9))))
+    f = _edges(col, px, py)
+    aw = _dot(f, col, 21)
+    return _dot(f, col, 12), _dot(f, col, 15), _dot(f, col, 18), aw, _covers(col, f, aw, bias)
 
-    def dot(k):
-        return mad(f2, col(k + 2), mad(f0, col(k), f1 * col(k + 1)))
-    aw = dot(21)
-    az = dot(25)
-    asum = dot(28)
-    cov = ((f0 >= bias[0]) & (f1 >= bias[1]) & (f2 >= bias[2]) & (col(24) > 0.0)
-           & (az >= 0.0) & (aw > 0.0) & (asum - az >= 0.0))
-    return dot(12), dot(15), dot(18), aw, cov
+
+def cover_records(col, px, py, bias=(0.0, 0.0, 0.0)):
+    """``eval_records``' coverage alone, with its ops (``vf::cover_pixel``
+    in csrc/raster_common.cuh): it reads columns 0..11 and 21..30 (and the
+    thresholds ``bias``), never the varying numerators 12..20; the 1/w
+    numerator (21..23) is its w > 0 test."""
+    f = _edges(col, px, py)
+    return _covers(col, f, _dot(f, col, 21), bias)
 
 
 def _pixel_centers(n_tiles: int, width: int, height: int, device):
@@ -139,3 +164,72 @@ def render_gbuffer(records: torch.Tensor, binning: Binning, n_frames: int,
     inv[order] = torch.arange(n_tiles, device=records.device)
     planes = [(acc0 * rcp)[inv], (acc1 * rcp)[inv], (acc2 * rcp)[inv], covered[inv]]
     return tuple(_assemble(p, n_frames, width, height) for p in planes)
+
+
+def box_extents(boxes: torch.Tensor):
+    """Decode ``Binning.boxes``: (x0, x1, y0, y1) int64, tile-local."""
+    b = boxes.to(torch.long)
+    return b & 15, (b >> 4) & 15, (b >> 8) & 15, (b >> 12) & 15
+
+
+def _box_pixels(boxes: torch.Tensor) -> torch.Tensor:
+    x0, x1, y0, y1 = box_extents(boxes)
+    return (x1 - x0 + 1) * (y1 - y0 + 1)
+
+
+def tile_work(binning: Binning) -> torch.Tensor:
+    """(B*NT,) int64: the (pair, pixel) items each tile's raster kernel
+    walks -- the pixels of its pairs' boxes, the count the kernels write to
+    their ``evaluated`` output."""
+    ends = torch.zeros(binning.boxes.numel() + 1, dtype=torch.long,
+                       device=binning.boxes.device)
+    ends[1:] = torch.cumsum(_box_pixels(binning.boxes), 0)
+    offsets = binning.offsets.to(torch.long)
+    return ends[offsets[1:]] - ends[offsets[:-1]]
+
+
+def render_gbuffer_walk(records: torch.Tensor, binning: Binning, n_frames: int,
+                        width: int, height: int):
+    """``render_gbuffer`` in the order of the raster kernels (a torch mirror
+    for tests; it holds every item in memory): each pair's box pixels are
+    covered with ``cover_records`` and the tile-local winner is the largest
+    covering record row (rows ascend with the id within a tile), then each
+    pixel evaluates its winner alone with ``eval_records`` and divides."""
+    dev = records.device
+    offsets = binning.offsets.to(torch.long)
+    rows = binning.rows.to(torch.long)
+    n_tiles = offsets.numel() - 1
+    npx = TILE * TILE
+    pair_tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev),
+                                        offsets[1:] - offsets[:-1])
+    x0, x1, y0, y1 = box_extents(binning.boxes)
+    n = _box_pixels(binning.boxes)
+    pair = torch.repeat_interleave(torch.arange(rows.numel(), device=dev), n)
+    local = torch.arange(pair.numel(), device=dev) - (torch.cumsum(n, 0) - n)[pair]
+    bw = (x1 - x0 + 1)[pair]
+    lx = x0[pair] + local % bw
+    ly = y0[pair] + torch.div(local, bw, rounding_mode="floor")
+    px, py = _pixel_centers(n_tiles, width, height, dev)
+    slot = pair_tile[pair] * npx + ly * TILE + lx
+    r = records[rows[pair]]
+
+    def col(k):
+        return r[:, k]
+    cov = cover_records(col, px.reshape(-1)[slot], py.reshape(-1)[slot],
+                        (col(BIAS0_COL), col(BIAS1_COL), col(BIAS2_COL)))
+    win = torch.zeros(n_tiles * npx, dtype=torch.long, device=dev)
+    win.scatter_reduce_(0, slot, torch.where(cov, rows[pair] + 1, 0), "amax")
+
+    covered = win > 0
+    w = records[(win - 1).clamp_min(0)]
+
+    def wcol(k):
+        return w[:, k]
+    a0, a1, a2, aw, _ = eval_records(wcol, px.reshape(-1), py.reshape(-1),
+                                     (wcol(BIAS0_COL), wcol(BIAS1_COL), wcol(BIAS2_COL)))
+    zero = torch.zeros_like(a0)
+    a0, a1, a2 = (torch.where(covered, a, zero) for a in (a0, a1, a2))
+    aw = torch.where(covered, aw, 1.0)
+    rcp = 1.0 / torch.where(torch.abs(aw) < 1e-20, 1.0, aw)
+    planes = [a0 * rcp, a1 * rcp, a2 * rcp, covered]
+    return tuple(_assemble(p.reshape(n_tiles, npx), n_frames, width, height) for p in planes)

@@ -101,6 +101,34 @@ __device__ __forceinline__ PixelEval eval_pixel(const float* r, float px,
   return e;
 }
 
+// eval_pixel's coverage alone (tiles.cover_records), with its operations
+// in its order, so the bit is the same. It reads the edge columns
+// e = r[0..11] and w = r[21..] -- the 1/w numerators 21..23 (the w > 0
+// test), column 24, the near and far dots 25..30 and, under kHw, the
+// thresholds 31..33 -- and never the varying numerators 12..20, so a
+// caller may pass the two runs of columns from separate storage.
+template <bool kHw = false>
+__device__ __forceinline__ bool cover_pixel(const float* e, const float* w,
+                                            float px, float py) {
+  const float f0 = mad(e[2], px - e[0], -(e[3] * (py - e[1])));
+  const float f1 = mad(e[6], px - e[4], -(e[7] * (py - e[5])));
+  const float f2 = mad(e[10], px - e[8], -(e[11] * (py - e[9])));
+  const auto dot = [&](int k) {  // k: column - 21
+    return mad(f2, w[k + 2], mad(f0, w[k], f1 * w[k + 1]));
+  };
+  const float aw = dot(0);
+  const float az = dot(4);
+  const float asum = dot(7);
+  bool edges;
+  if constexpr (kHw) {
+    edges = (f0 >= w[10]) & (f1 >= w[11]) & (f2 >= w[12]);
+  } else {
+    edges = (f0 >= 0.0f) & (f1 >= 0.0f) & (f2 >= 0.0f);
+  }
+  return edges & (w[3] > 0.0f) & (az >= 0.0f) & (aw > 0.0f) &
+         (asum - az >= 0.0f);
+}
+
 // tiles.py's resolve: 1/w with the |w| < 1e-20 guard, then the divides.
 __device__ __forceinline__ float resolve_rcp(float accw) {
   return 1.0f / (fabsf(accw) < 1e-20f ? 1.0f : accw);
