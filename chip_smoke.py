@@ -114,6 +114,9 @@ Phases, each printing one line, in order:
      make_terrain(800,600,1024).render_rgba(), each vtx kernel and its
      plain version (CUDA events) with vf_vtx_cover's survivor share, its
      bound (cover_bound) and the former one (full_setup_bound_ms), the
+     resolves' device time per launch (torch.profiler) and their bound
+     over the fields' 32-byte sectors their winners touch
+     (sector_bound_ms, vtx.resolve_sectors) beside bound_ms, the
      record route's peak device memory,
      the route sweep (grids 8..1024, 1 and 4 frames) that shows whether
      the vtx route needs a size crossover, and the loaded big-triangle
@@ -132,7 +135,8 @@ Phases, each printing one line, in order:
      DEM-3601 (median and p80 of 20 calls, readback included), the stages of a
      DEM-2048 frame (CUDA events), each indexed kernel and its plain
      version over 5 turned cameras (vf_packed_cover's survivor share and
-     bounds as in 4b; vf_packed_cover_big on a close-in +
+     bounds as in 4b, the resolve's device time and sector_bound_ms as
+     in 4b, packed.resolve_sectors; vf_packed_cover_big on a close-in +
      w-crossing pair, where its list is full, with 4b's walk counts and
      work per set), both routes on the DEM-2048 frame with their peak
      device memory, and the route sweep (DEMs 32^2 to 2048^2) that sets
@@ -993,7 +997,12 @@ def vtx_bounds(fields, winner, big, count, grid, covered_big):
     pass's as cover_bound counts it (the former bound beside it as
     full_setup_bound_ms). covered_big: the (listed triangle, pixel) pairs
     the plain big pass covered; the big pass's bound charges those, its
-    bound over every bbox pixel is reported beside it as bbox_bound_ms."""
+    bound over every bbox pixel is reported beside it as bbox_bound_ms.
+    The resolves' bound charges 28 B per distinct winner vertex (the least
+    any layout moves); their sector_bound_ms charges instead the 32-byte
+    sectors of the (B, 7, N) fields that the winners' corners touch over
+    the 6 planes a resolve reads (vtx.resolve_sectors: the least this
+    layout moves), beside the winner plane and the outputs."""
     B = fields.shape[0]
     T = vtx.n_triangles(grid)
     valid, area, small, straddling = cover_work(
@@ -1014,17 +1023,23 @@ def vtx_bounds(fields, winner, big, count, grid, covered_big):
     cover, full_setup = cover_bound(B * grid * grid * POSITION_FIELDS * 4,
                                     pixels * 4 + listed * 4 + 4, fields.numel() * 4, B * T,
                                     survivors, straddling, pairs_small)
+    # The resolves' outputs and f32 operations.
+    resolves = {"vf_vtx_resolve_gbuffer": (pixels * 13, covered * (SETUP_OPS + EVAL_OPS)
+                                           + pixels * RESOLVE_OPS),
+                "vf_vtx_resolve_shade_shipped": (pixels * 4 + 256 * 3 * 4,
+                                                 covered * (SETUP_OPS + EVAL_OPS)
+                                                 + pixels * (RESOLVE_OPS + SHADE_OPS))}
     work = {
         "vf_vtx_cover_big": (listed_bytes + min(covered_big, pixels) * 8,
                              listed * SETUP_OPS + covered_big * COVER_OPS),
-        "vf_vtx_resolve_gbuffer": (pixels * 4 + won_vertices * vertex_bytes + pixels * 13,
-                                   covered * (SETUP_OPS + EVAL_OPS) + pixels * RESOLVE_OPS),
-        "vf_vtx_resolve_shade_shipped": (pixels * 4 + won_vertices * vertex_bytes + pixels * 4
-                                         + 256 * 3 * 4,
-                                         covered * (SETUP_OPS + EVAL_OPS)
-                                         + pixels * (RESOLVE_OPS + SHADE_OPS)),
+        **{name: (pixels * 4 + won_vertices * vertex_bytes + written, ops)
+           for name, (written, ops) in resolves.items()},
     }
     out = {"vf_vtx_cover": cover, **{name: bound_of(*w) for name, w in work.items()}}
+    sectors = vtx.resolve_sectors(fields, grid, winner)
+    for name, (written, ops) in resolves.items():
+        out[name]["sector_bound_ms"] = bound_of(
+            pixels * 4 + sectors * vtx.SECTOR_BYTES + written, ops)["bound_ms"]
     bbox_bound = bound_of(listed_bytes + min(bbox_pairs, pixels) * 8,
                           listed * SETUP_OPS + bbox_pairs * COVER_OPS)["bound_ms"]
     data = {"triangles": B * T, "valid": int(valid.sum()), "survivors": survivors,
@@ -1032,7 +1047,8 @@ def vtx_bounds(fields, winner, big, count, grid, covered_big):
             "pairs_small": pairs_small, "full_setup_bound_ms": full_setup,
             "listed": listed, "bbox_pairs": bbox_pairs, "covered_big_pairs": covered_big,
             "bbox_bound_ms": bbox_bound, "covered_pixels": covered,
-            "distinct_winners": winners, "distinct_winner_vertices": won_vertices}
+            "distinct_winners": winners, "distinct_winner_vertices": won_vertices,
+            "resolve_sectors": sectors}
     return out, data
 
 
@@ -1079,12 +1095,7 @@ def distinct_vertices(entries, grid):
     """Distinct grid vertices (per frame) of triangles given as frame*T + id."""
     T = vtx.n_triangles(grid)
     frame = torch.div(entries, T, rounding_mode="floor")
-    tri = entries % T
-    cell = torch.div(tri, 2, rounding_mode="floor")
-    k = tri % 2
-    a = torch.div(cell, grid - 1, rounding_mode="floor") * grid + cell % (grid - 1)
-    verts = torch.stack([torch.where(k == 0, a, a + 1), a + grid,
-                         torch.where(k == 0, a + 1, a + grid + 1)])
+    verts = torch.stack(vtx.tri_vertices(grid, entries % T))
     return int(torch.unique(frame * grid * grid + verts).numel())
 
 
@@ -1150,6 +1161,12 @@ def covered_pixels(records, binning, n_frames, width, height, hw=False):
     return int(fn(records, binning, n_frames, width, height)[3].sum())
 
 
+# The three resolves (vf::resolve_tile): phases 4b and 4c also give their
+# device time per launch and their bound over the fields' sectors.
+RESOLVES = {"vf_vtx_resolve_gbuffer", "vf_vtx_resolve_shade_shipped",
+            "vf_packed_resolve_gbuffer"}
+
+
 def phase4b_vtx_timing(smi, dev):
     """Slice 2's times; returns the per-kernel record (ms, plain_ms, bound)."""
     head, head_all = compare_routes(VGRID, VBATCH, dev)
@@ -1185,6 +1202,11 @@ def phase4b_vtx_timing(smi, dev):
                                         stats["covered_pairs"])
         for name in per:
             runs[name]["bound_ms"].append(bounds[name]["bound_ms"])
+        for name in RESOLVES & per.keys():
+            runs[name].setdefault("device_ms", []).append(
+                kernel_device_ms(per[name][0], key="resolve_kernel"))
+            runs[name].setdefault("sector_bound_ms", []).append(
+                bounds[name]["sector_bound_ms"])
         for key in ("full_setup_bound_ms", "survivor_share"):
             runs["vf_vtx_cover"].setdefault(key, []).append(orbit_work[key])
         del fields, winner, big
@@ -1576,7 +1598,10 @@ def packed_bounds(fields, tris, winner, big, count, covered_big):
     distinct vertices, their setup and their covered_big (triangle, pixel)
     pairs (cover_big; its bound over every bbox pixel beside it as
     bbox_bound_ms); the winner plane, the winners' indices and distinct
-    vertices, the g-buffer written (resolve)."""
+    vertices, the g-buffer written (resolve; its sector_bound_ms charges
+    instead the 32-byte sectors of the index buffer and of the 6 field
+    planes a resolve reads that the winners touch,
+    packed.resolve_sectors)."""
     B, T = fields.shape[0], tris.shape[0]
     valid, area, small, straddling = cover_work(
         setup.indexed_corners([fields[:, f] for f in range(vtx.FIELDS)], tris))
@@ -1608,13 +1633,18 @@ def packed_bounds(fields, tris, winner, big, count, covered_big):
     }
     bbox_bound = bound_of(listed_bytes + min(bbox_pairs, pixels) * 8,
                           listed * SETUP_OPS + bbox_pairs * COVER_OPS)["bound_ms"]
+    sectors = packed.resolve_sectors(fields, tris, winner)
+    out = {"vf_packed_cover": cover, **{name: bound_of(*w) for name, w in work.items()}}
+    out["vf_packed_resolve_gbuffer"]["sector_bound_ms"] = bound_of(
+        pixels * 4 + sectors * vtx.SECTOR_BYTES + pixels * 13,
+        work["vf_packed_resolve_gbuffer"][1])["bound_ms"]
     data = {"triangles": B * T, "valid": int(valid.sum()), "survivors": survivors,
             "survivor_share": survivors / (B * T), "straddling_edges": straddling,
             "pairs_small": pairs_small, "full_setup_bound_ms": full_setup,
             "listed": listed, "bbox_pairs": bbox_pairs, "covered_big_pairs": covered_big,
             "bbox_bound_ms": bbox_bound, "covered_pixels": covered,
-            "distinct_winners": int(won.numel())}
-    return {"vf_packed_cover": cover, **{name: bound_of(*w) for name, w in work.items()}}, data
+            "distinct_winners": int(won.numel()), "resolve_sectors": sectors}
+    return out, data
 
 
 def packed_route_fns(r, dev):
@@ -1741,6 +1771,11 @@ def phase4c_packed_timing(smi, dev):
                                              stats["covered_pairs"])
         for name in per:
             runs[name]["bound_ms"].append(bounds[name]["bound_ms"])
+        for name in RESOLVES & per.keys():
+            runs[name].setdefault("device_ms", []).append(
+                kernel_device_ms(per[name][0], key="resolve_kernel"))
+            runs[name].setdefault("sector_bound_ms", []).append(
+                bounds[name]["sector_bound_ms"])
         for key in ("full_setup_bound_ms", "survivor_share"):
             runs["vf_packed_cover"].setdefault(key, []).append(default_work[key])
         del fields, winner, big
@@ -2806,8 +2841,9 @@ def main() -> int:
                 "vf_vtx_resolve_gbuffer": "vulkan_forge/_raster/vtx.py:590",
                 "vf_vtx_resolve_shade_shipped": "vulkan_forge/_raster/vtx.py:616"}
     # The cover passes' former bound (the whole record for every triangle)
-    # stands beside the restated one.
-    extra = ("full_setup_bound_ms",)
+    # stands beside the restated one; the resolves' bound over this layout's
+    # sectors and their device time (profiler) beside theirs.
+    extra = ("full_setup_bound_ms", "sector_bound_ms", "device_ms")
     for name, _ in VTX_KERNELS:
         line.append({"name": name, "route": "cuda", "source": vsrc, "replaces": replaces[name],
                      "launches": launches[name], "max_abs_err": vtx_err[name],

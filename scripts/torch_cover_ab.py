@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Times the raster kernels of two checkouts of the PyTorch/CUDA port on
-one card, in turns.
+"""Times the raster kernels of two or more checkouts of the PyTorch/CUDA
+port on one card, in turns.
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
-    python3 scripts/torch_cover_ab.py OTHER_ROOT [--only cover|record]
+    python3 scripts/torch_cover_ab.py OTHER_ROOT [OTHER_ROOT ...] [--only PARTS]
 
-Runs OTHER, THIS, THIS, OTHER (THIS: the checkout that holds this script),
-each in a process of its own that imports the package and
-``chip_smoke.py`` of its checkout (and so builds that checkout's kernels).
-Each run measures, at chip_smoke.py's main-path shapes and with its
-helpers:
+First builds every checkout's kernels, one process per checkout, started
+together. Then runs each OTHER in the order given, THIS twice, and each
+OTHER again in reverse order (one OTHER: OTHER, THIS, THIS, OTHER; THIS:
+the checkout that holds this script), each in a process of its own that
+imports the package and ``chip_smoke.py`` of its checkout. Each run
+measures, at chip_smoke.py's main-path shapes and with its helpers:
 
   - the vtx route's kernels (``vf_vtx_cover``, ``vf_vtx_cover_big``,
     ``vf_vtx_resolve_gbuffer``, ``vf_vtx_resolve_shade_shipped``) on the
@@ -31,15 +32,34 @@ helpers:
     events), and the kernel's own device time per launch over 20 calls
     (torch.profiler), which the wrapper's host work does not reach; then
     the record route's g128 batch of 32 orbit cameras and the g1024 spike
-    frame under VF_FILL_RULE=hw (host clock after synchronize, medians).
+    frame under VF_FILL_RULE=hw (host clock after synchronize, medians);
+  - the three resolves (``vf_vtx_resolve_gbuffer``,
+    ``vf_vtx_resolve_shade_shipped``, ``vf_packed_resolve_gbuffer``) on
+    the winners of each checkout's own cover passes, per case the median
+    over its camera sets of the CUDA-event time per call (20 back-to-back
+    calls) and of the device time per launch (torch.profiler, 20 calls):
+    the g1024 spike with phase 4b's 5 sets of 4 orbit cameras, the first
+    camera of each alone, and 5 turned close-in + w-crossing pairs
+    (special_cameras); the Renderer's DEM-2048 frame at phase 4c's 5
+    turned cameras, 5 turned close-in + w-crossing pairs
+    (special_dem_cameras) and a DEM-256 frame at the same 5 turned
+    cameras; with each kernel's registers and spills (ptxas) and its
+    global loads in the SASS (``cuobjdump -sass``: LDG instructions), a
+    sha256 of each kernel's outputs per case and of the two frames whose
+    sha256 chip_smoke's phases 3b and 3c print (the g1024 spike's and the
+    DEM-2048 Renderer's ``render_rgba()``); the last line says whether
+    every run's outputs were the same bytes (``outputs_equal``).
 
-``--only cover`` measures the first two parts, ``--only record`` the last.
+``--only cover`` measures the first two parts, ``--only record`` the
+third, ``--only resolve`` the last, ``--only resolve,cover`` both named;
+without ``--only``, the first three.
 
 Prints one JSON line per run, the card's name and power limit (nvidia-smi),
 and last one JSON object with each checkout's runs.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -127,6 +147,100 @@ def measure_record(cs, dev) -> dict:
     return out
 
 
+RESOLVE_ENTRIES = (("vtx_resolve_kernelILb0", "vf_vtx_resolve_gbuffer"),
+                   ("vtx_resolve_kernelILb1", "vf_vtx_resolve_shade_shipped"),
+                   ("packed_resolve_kernel", "vf_packed_resolve_gbuffer"))
+
+
+def sass_loads(cs, path: str) -> dict:
+    """Global-memory load instructions (LDG) in the SASS of each resolve
+    kernel of the library at ``path`` (cuobjdump -sass)."""
+    cuobjdump = os.path.join(os.path.dirname(cs.kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], check=True, capture_output=True,
+                          text=True).stdout
+    out, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = next((name for key, name in RESOLVE_ENTRIES if key in ln), None)
+            if cur:
+                out[cur] = 0
+        elif cur and "LDG" in ln:
+            out[cur] += 1
+    return out
+
+
+def measure_resolve(cs, dev) -> dict:
+    """Per-launch ms of the three resolves, keyed "<kernel> <case>": the
+    median over the case's camera sets of CUDA events around 20
+    back-to-back calls (``_ms``) and of the kernel's device time from the
+    profiler (``_device_ms``); each kernel's ptxas line and SASS loads."""
+    k = cs.kernels
+    shade = cs.spike_shading(dev)
+    runs, digests = {}, {}
+
+    def time_calls(case, calls):
+        for name, call in calls.items():
+            h = digests.setdefault(f"{name} {case}", hashlib.sha256())
+            got = call()
+            for plane in got if isinstance(got, tuple) else (got.view(cs.torch.int32),):
+                h.update(plane.cpu().numpy().tobytes())
+            runs.setdefault(f"{name} {case}_ms", []).append(
+                cs.cuda_ms(call, reps=1, inner=cs.KERNEL_INNER))
+            runs.setdefault(f"{name} {case}_device_ms", []).append(
+                device_ms(cs.torch, call, key="resolve_kernel"))
+
+    def vtx_case(case, cams):
+        for views, projs in cams:
+            fields = cs.grid_fields(cs.VGRID, views, projs, dev)
+            winner = k.vtx_cover_big(fields, cs.VGRID,
+                                     *k.vtx_cover(fields, cs.VGRID, cs.W, cs.H))
+            time_calls(case, {
+                "vf_vtx_resolve_gbuffer": lambda: k.vtx_resolve_gbuffer(fields, cs.VGRID, winner),
+                "vf_vtx_resolve_shade_shipped":
+                    lambda: k.vtx_resolve_shade_shipped(fields, cs.VGRID, winner, *shade)})
+            del fields, winner
+
+    orbit = [cs.orbit_cameras(cs.VBATCH, cs.W, cs.H, phase=0.31 * r + 0.05)
+             for r in range(cs.REPS)]
+    vtx_case(f"g{cs.VGRID} x{cs.VBATCH}", orbit)
+    vtx_case(f"g{cs.VGRID} x1", [(v[:1], p[:1]) for v, p in orbit])
+    vtx_case(f"g{cs.VGRID} close-in + w-crossing",
+             [cs.special_cameras(cs.W, cs.H, turn=0.1 * r) for r in range(cs.REPS)])
+
+    def packed_case(case, r, cams):
+        for views, projs in cams:
+            xyuv, tris, heights, views, projs = cs.renderer_frame(r, views, projs)
+            fields = cs.frame_fields(xyuv, heights, views, projs)
+            winner = k.packed_cover_big(fields, tris,
+                                        *k.packed_cover(fields, tris, cs.W, cs.H))
+            time_calls(case, {"vf_packed_resolve_gbuffer":
+                              lambda: k.packed_resolve_gbuffer(fields, tris, winner)})
+            del fields, winner
+
+    r = cs.make_renderer(cs.DEM_MAIN, dev)
+    frames = {f"make_terrain({cs.W},{cs.H},{cs.VGRID}).render_rgba()":
+              cs.vt.make_terrain(cs.W, cs.H, cs.VGRID, device=dev).render_rgba(),
+              f"Renderer DEM-{cs.DEM_MAIN} render_rgba()": r.render_rgba()}
+    packed_case(f"DEM-{cs.DEM_MAIN}", r, [cs.turned_cameras(r, c) for c in range(cs.REPS)])
+    packed_case(f"DEM-{cs.DEM_MAIN} close-in + w-crossing", r,
+                [cs.special_dem_cameras(r, turn=0.1 * c) for c in range(cs.REPS)])
+    del r
+    r = cs.make_renderer(cs.DEM_CHECK, dev)
+    packed_case(f"DEM-{cs.DEM_CHECK}", r, [cs.turned_cameras(r, c) for c in range(cs.REPS)])
+    del r
+    cs.torch.cuda.empty_cache()
+    path = str(k.library_path())
+    ptxas = cs.ptxas_summary(open(path + ".log").read())
+    out = {key: statistics.median(v) for key, v in runs.items()}
+    out.update({f"{key}_all": v for key, v in runs.items()})
+    out["ptxas"] = {name: ptxas[name] for _, name in RESOLVE_ENTRIES}
+    out["sass_global_loads"] = sass_loads(cs, path)
+    out["sha256"] = {key: h.hexdigest() for key, h in digests.items()}
+    out["sha256"].update({key: hashlib.sha256(img.tobytes()).hexdigest()
+                          for key, img in frames.items()})
+    return out
+
+
 def measure(root: str, parts) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -140,6 +254,8 @@ def measure(root: str, parts) -> dict:
     out = {"root": root}
     if "record" in parts:
         out.update(measure_record(cs, dev))
+    if "resolve" in parts:
+        out.update(measure_resolve(cs, dev))
     if "cover" not in parts:
         return out
 
@@ -193,31 +309,45 @@ def measure(root: str, parts) -> dict:
             "g1024_x4_batch_all": batch_ms, "dem2048_frame_ms": statistics.median(frame_ms)}
 
 
+def build(root: str) -> subprocess.Popen:
+    """Starts a process that builds the kernels of the checkout at ``root``."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from vulkan_forge_torch._raster import kernels; kernels.build()")
+    return subprocess.Popen([sys.executable, "-c", code, root], cwd=root)
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--measure":
         print(json.dumps(measure(sys.argv[2], sys.argv[3].split(","))), flush=True)
         return 0
     args = sys.argv[1:]
     parts = "cover,record"
-    if len(args) == 3 and args[1] == "--only" and args[2] in ("cover", "record"):
-        parts = args[2]
-    elif len(args) != 1:
+    if len(args) >= 2 and args[-2] == "--only" \
+            and set(args[-1].split(",")) <= {"cover", "record", "resolve"}:
+        parts = args[-1]
+        args = args[:-2]
+    if not args or any(a.startswith("-") for a in args):
         raise SystemExit(__doc__)
-    other = os.path.abspath(args[0])
+    others = [os.path.abspath(a) for a in args]
     this = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-    runs = {"other": [], "this": []}
-    for name, root in (("other", other), ("this", this), ("this", this), ("other", other)):
+    builds = [build(root) for root in others + [this]]
+    if any(p.wait() != 0 for p in builds):
+        raise SystemExit("a checkout's kernels did not build")
+    order = others + [this, this] + others[::-1]
+    runs = {root: [] for root in order}
+    for root in order:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root,
                               parts], check=True, capture_output=True, text=True,
                              cwd=root).stdout
         line = json.loads(out.strip().splitlines()[-1])
-        print(json.dumps({"run": name, **line}), flush=True)
-        runs[name].append(line)
+        print(json.dumps({"run": "this" if root == this else root, **line}), flush=True)
+        runs[root].append(line)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
-    print(json.dumps({"order": "other, this, this, other", "other": other, "this": this,
-                      "runs": runs}), flush=True)
+    digests = {json.dumps(line.get("sha256")) for lines in runs.values() for line in lines}
+    print(json.dumps({"order": order, "this": this, "runs": runs,
+                      "outputs_equal": len(digests) == 1}), flush=True)
     return 0
 
 

@@ -638,6 +638,66 @@ def test_packed_cover_survivors_equal_plain(cuda, case):
                  W, H, fields.shape[0], case)
 
 
+# ---------------- the resolves on ragged frames (vf::resolve_tile) ----------------
+
+# (grid, W, H, eye, batch, near): frames whose sizes are not multiples of
+# the resolve tile (97x61, 801x599, 33x7, 201x149; batches of 1, 2 and 5),
+# a close-in camera looking down at which every pixel is covered, and a
+# w-crossing one (near plane closer than a cell).
+RESOLVE_CASES = {"97x61": (64, 97, 61, (2.0, 1.5, 2.5), 1, 0.1),
+                 "801x599 x5": (256, 801, 599, (3.0, 2.0, 3.0), 5, 0.1),
+                 "33x7 x5": (32, 33, 7, (2.0, 1.5, 2.5), 5, 0.1),
+                 "full cover": (48, 97, 61, (0.05, 0.6, 0.04), 1, 0.1),
+                 "w-crossing": (128, 201, 149, (0.3, 0.35, 0.2), 2, 0.001)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["vtx", "packed"])
+@pytest.mark.parametrize("case", sorted(RESOLVE_CASES))
+def test_resolves_match_plain_on_ragged_frames(cuda, route, case):
+    """Each resolve against its plain version on the plain cover's winners
+    and on an all-uncovered winner plane: varyings and masks bit-equal, the
+    shaded image under the FS policy and its uncovered pixels the plain
+    clear colour's word exactly; one launch per call. The indexed resolve
+    reads the same grid through its index buffer."""
+    grid, W, H, eye, batch, near = RESOLVE_CASES[case]
+    fields = _vtx_fields(grid, W, H, eye, cuda, batch, near=near)
+    _, idx = _mesh.build_grid_xyuv(grid)
+    idx = torch.as_tensor(idx.astype(np.int32).reshape(-1, 3), device=cuda)
+    winner = vtx.cover_big_plain(fields, grid, *vtx.cover_plain(fields, grid, W, H))
+    if case == "full cover":
+        assert bool((winner > 0).all())
+    if case == "w-crossing":
+        corners = setup.grid_corners([fields[:, f] for f in range(vtx.FIELDS)], grid)
+        valid = setup.setup_fields_core(*corners, W, H)[5]
+        assert bool((valid & (torch.stack([c[2] for c in corners]) <= 1e-8).any(0)).any())
+    lut, _ = _colormap.build_lut("terrain")
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=cuda)
+    shade = (t(lut), t(1.0), t(1.1), t([0.35, 0.9, 0.2]))
+    for w in (winner, torch.zeros_like(winner)):
+        if route == "vtx":
+            n = kernels.vtx_resolve_gbuffer.launches
+            got = kernels.vtx_resolve_gbuffer(fields, grid, w)
+            want = vtx.resolve_gbuffer_plain(fields, grid, w)
+            m = kernels.vtx_resolve_shade_shipped.launches
+            img = kernels.vtx_resolve_shade_shipped(fields, grid, w, *shade)
+            torch.cuda.synchronize()
+            assert kernels.vtx_resolve_shade_shipped.launches == m + 1
+            want_img = vtx.resolve_shade_shipped_plain(fields, grid, w, *shade)
+            assert_fs_policy(img, want_img, f"vtx shaded resolve, {case}")
+            assert torch.equal(img.view(torch.int32)[w == 0],
+                               want_img.view(torch.int32)[w == 0])
+            assert kernels.vtx_resolve_gbuffer.launches == n + 1
+        else:
+            n = kernels.packed_resolve_gbuffer.launches
+            got = kernels.packed_resolve_gbuffer(fields, idx, w)
+            want = packed.resolve_gbuffer_plain(fields, idx, w)
+            torch.cuda.synchronize()
+            assert kernels.packed_resolve_gbuffer.launches == n + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 # ---------------- tall-frame route (csrc/segments.cu) ----------------
 
 # (grid, W, H, eye, batch, near, columns): tall frames (H >= 4089) of the

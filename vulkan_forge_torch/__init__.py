@@ -5,9 +5,10 @@ reference, ``vulkan_forge/__init__.py:120-129``) for the part ported so
 far, with an explicit ``device=`` argument ("cuda", "cpu", or None, which
 means "cuda" and raises without a card). On a CUDA device the raster stage
 runs the hand-written kernels in ``csrc/raster.cu`` (triangle records),
-``csrc/vtx.cu`` (dense grid meshes) and ``csrc/packed.cu`` (indexed meshes:
-the Renderer's DEMs); on the CPU it runs their plain PyTorch versions. This
-package imports torch and never jax.
+``csrc/vtx.cu`` (dense grid meshes), ``csrc/packed.cu`` (indexed meshes:
+the Renderer's DEMs) and ``csrc/segments.cu`` (tall single frames); on the
+CPU it runs their plain PyTorch versions. This package imports torch and
+never jax.
 
 Ported: Renderer, TerrainSpike, Scene, make_terrain,
 render_triangle_rgba/png, camera_look_at/perspective/view_proj,

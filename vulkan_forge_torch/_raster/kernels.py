@@ -103,6 +103,8 @@ _SIGNATURES = {
     "vf_vtx_resolve_shade_shipped": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_vtx_big_pixels": [],
     "vf_big_tile": [],
+    "vf_resolve_tile_w": [],
+    "vf_resolve_warp_w": [],
     "vf_packed_cover": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_packed_cover_blocks": [_I],
     "vf_packed_cover_big": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -207,6 +209,11 @@ def load():
         if lib.vf_big_tile() != vtx.BIG_TILE:
             raise RuntimeError(f"csrc/raster_common.cuh walks {lib.vf_big_tile()}-pixel big "
                                f"tiles but vtx.BIG_TILE is {vtx.BIG_TILE}")
+        resolve = (lib.vf_resolve_tile_w(), lib.vf_resolve_warp_w())
+        if resolve != (vtx.RESOLVE_TILE_W, vtx.RESOLVE_WARP_W):
+            raise RuntimeError(f"csrc/raster_common.cuh resolves {resolve[0]}-pixel-wide "
+                               f"tiles in {resolve[1]}-pixel-wide warp patches but vtx.py "
+                               f"mirrors {vtx.RESOLVE_TILE_W} and {vtx.RESOLVE_WARP_W}")
         if (lib.vf_seg_tile_h(), lib.vf_seg_tile_w()) != (segments.TILE_H, segments.TILE_W):
             raise RuntimeError(f"csrc/segments.cu walks {lib.vf_seg_tile_h()}x"
                                f"{lib.vf_seg_tile_w()} tiles but segments.py bins "

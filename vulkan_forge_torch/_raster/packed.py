@@ -87,6 +87,21 @@ def resolve_gbuffer_plain(fields: torch.Tensor, indices: torch.Tensor,
         lambda frame, tri: tri_corners(fields, indices, frame, tri), winner)
 
 
+def resolve_sectors(fields: torch.Tensor, indices: torch.Tensor,
+                    winner: torch.Tensor) -> int:
+    """Distinct 32-byte sectors ``vf_packed_resolve_gbuffer`` must read: the
+    index buffer's rows of every covered pixel's winner, and
+    ``vtx.RESOLVE_PLANES`` planes of their corners (``vtx.field_sectors``);
+    both tensors' starts 32-byte aligned."""
+    frame, tri = vtx.winners(winner)
+    rows = torch.unique(tri)
+    entries = (rows[:, None] * 3 + torch.arange(3, device=rows.device)) * 4
+    index = int(torch.unique(torch.div(entries, vtx.SECTOR_BYTES,
+                                       rounding_mode="floor")).numel())
+    verts = indices.to(torch.long)[tri]
+    return index + vtx.field_sectors(frame, verts.unbind(1), fields.shape[2])
+
+
 def render_gbuffer_packed_batch(fields: torch.Tensor, indices: torch.Tensor,
                                 width: int, height: int):
     """B frames of one indexed mesh through the indexed-mesh kernels (the

@@ -53,6 +53,18 @@ BIG_TILE = 16
 _EDGE_MARGIN, _DOT_MARGIN, _FLOOR, _LIMIT = 2.0 ** -20, 2.0 ** -19, 2.0 ** -100, 2.0 ** 120
 # Tiles tested at once by big_tile_walk (bounds its memory).
 _TILE_CHUNK = 1 << 18
+# The resolve kernels' pixel layout (kResolveTileW and kResolveWarpW in
+# csrc/raster_common.cuh; kernels.load() checks): a block of RESOLVE_THREADS
+# threads takes one frame's RESOLVE_TILE_W x RESOLVE_TILE_H tile, a thread
+# one pixel, a warp a RESOLVE_WARP_W x (32 / RESOLVE_WARP_W) patch
+# (resolve_pixel_map).
+RESOLVE_THREADS = 256
+RESOLVE_TILE_W, RESOLVE_WARP_W = 32, 8
+RESOLVE_TILE_H = RESOLVE_THREADS // RESOLVE_TILE_W
+# The field planes a resolve reads: x_fb, y_fb, w_clip, var0..2. z_ndc
+# feeds only coverage, which a resolve drops.
+RESOLVE_PLANES = 6
+SECTOR_BYTES = 32
 
 
 def n_triangles(n: int) -> int:
@@ -77,16 +89,21 @@ def vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
                        dim=1).contiguous()
 
 
-def tri_corners(fields: torch.Tensor, n: int, frame: torch.Tensor,
-                tri: torch.Tensor):
-    """Corners of triangles ``tri`` of frames ``frame`` (1-D int64), decoded
-    from their ids as the kernels decode them: three lists of 7 tensors."""
+def tri_vertices(n: int, tri: torch.Tensor):
+    """The three grid vertex indices of triangles ``tri`` (1-D int64),
+    decoded from their ids as the kernels decode them, in record order."""
     cell = torch.div(tri, 2, rounding_mode="floor")
     k = tri % 2
     r = torch.div(cell, n - 1, rounding_mode="floor")
     a = r * n + cell % (n - 1)
-    verts = (torch.where(k == 0, a, a + 1), a + n, torch.where(k == 0, a + 1, a + n + 1))
-    return [[fields[frame, f, v] for f in range(FIELDS)] for v in verts]
+    return torch.where(k == 0, a, a + 1), a + n, torch.where(k == 0, a + 1, a + n + 1)
+
+
+def tri_corners(fields: torch.Tensor, n: int, frame: torch.Tensor,
+                tri: torch.Tensor):
+    """Corners of triangles ``tri`` of frames ``frame`` (1-D int64), decoded
+    from their ids as the kernels decode them: three lists of 7 tensors."""
+    return [[fields[frame, f, v] for f in range(FIELDS)] for v in tri_vertices(n, tri)]
 
 
 def _deposit(winner, cols, px0, px1, py0, py1, frame, ids, stats=None):
@@ -292,6 +309,56 @@ def resolve_from_corners(corners_of, winner: torch.Tensor):
     rcp = 1.0 / torch.where(torch.abs(accw) < 1e-20, 1.0, accw)
     planes = [a * rcp for a in acc] + [mask]
     return tuple(p.reshape(B, height, width) for p in planes)
+
+
+def resolve_pixel_map(frames: int, width: int, height: int) -> torch.Tensor:
+    """The pixel each thread of a resolve launch takes: (blocks, threads)
+    int64, ``frame*H*W + y*W + x``, or -1 where the kernel masks the thread
+    (past the ragged right or bottom edge). The mirror of
+    ``vf::resolve_tile``'s mapping: block = frame * tiles + tile (tiles in
+    row-major order), warp t // 32 at patch (warp % across, warp // across)
+    of the tile, lane t % 32 at (lane % RESOLVE_WARP_W, lane //
+    RESOLVE_WARP_W) in its patch."""
+    tiles_x = -(-width // RESOLVE_TILE_W)
+    tiles = tiles_x * -(-height // RESOLVE_TILE_H)
+    blk = torch.arange(frames * tiles)[:, None]
+    t = torch.arange(RESOLVE_THREADS)[None, :]
+    frame, tile = torch.div(blk, tiles, rounding_mode="floor"), blk % tiles
+    ty, tx = torch.div(tile, tiles_x, rounding_mode="floor"), tile % tiles_x
+    warp, lane = torch.div(t, 32, rounding_mode="floor"), t % 32
+    across = RESOLVE_TILE_W // RESOLVE_WARP_W
+    x = tx * RESOLVE_TILE_W + (warp % across) * RESOLVE_WARP_W + lane % RESOLVE_WARP_W
+    y = (ty * RESOLVE_TILE_H + torch.div(warp, across, rounding_mode="floor")
+         * (32 // RESOLVE_WARP_W) + torch.div(lane, RESOLVE_WARP_W, rounding_mode="floor"))
+    return torch.where((x < width) & (y < height), (frame * height + y) * width + x, -1)
+
+
+def winners(winner: torch.Tensor):
+    """(frame, triangle id) of every covered pixel of ``winner`` (B, H, W),
+    1-D int64 each."""
+    frame = torch.arange(winner.shape[0], device=winner.device)[:, None, None]
+    covered = winner > 0
+    return frame.expand_as(winner)[covered], winner[covered].to(torch.long) - 1
+
+
+def field_sectors(frame: torch.Tensor, verts, nv: int) -> int:
+    """Distinct 32-byte sectors of a (B, FIELDS, nv) f32 fields tensor (its
+    start 32-byte aligned, as torch's allocator places it) that reading
+    planes 0..RESOLVE_PLANES-1 of vertices ``verts`` (a sequence of 1-D
+    int64 tensors) of frames ``frame`` touches."""
+    v = torch.unique(torch.cat([frame * nv + u for u in verts]))
+    f, u = torch.div(v, nv, rounding_mode="floor"), v % nv
+    planes = torch.arange(RESOLVE_PLANES, device=v.device)
+    offset = ((f[:, None] * FIELDS + planes) * nv + u[:, None]) * 4
+    return int(torch.unique(torch.div(offset, SECTOR_BYTES, rounding_mode="floor")).numel())
+
+
+def resolve_sectors(fields: torch.Tensor, n: int, winner: torch.Tensor) -> int:
+    """Distinct 32-byte sectors of ``fields`` the vtx resolves must read:
+    RESOLVE_PLANES planes of the corners of every covered pixel's winner
+    (the least this SoA layout moves, each sector once)."""
+    frame, tri = winners(winner)
+    return field_sectors(frame, tri_vertices(n, tri), fields.shape[2])
 
 
 def cover_plain(fields: torch.Tensor, n: int, width: int, height: int,

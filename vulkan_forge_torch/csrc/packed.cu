@@ -40,11 +40,19 @@
 //     functional is negative with a margin over its f32 error at all four
 //     corners, and walks the surviving tiles' pixels with the same
 //     atomicMax (vf::big_walk, raster_common.cuh, shared with vtx.cu).
-//   vf_packed_resolve_gbuffer: one thread per pixel. The winner's record
-//     is built again from its indexed corners (vf::resolve_record: its
-//     columns, no bbox test) and evaluated at the pixel
-//     centre, then divided as tiles.py:97 does (K6's _varyings_from_ids in
-//     its f32 op order); uncovered pixels get zero varyings.
+//   vf_packed_resolve_gbuffer: one block per (frame, 32x8 pixel tile),
+//     one thread per pixel, each warp an 8x4 patch (vf::resolve_tile,
+//     raster_common.cuh, shared with vtx.cu). The winner's three indices
+//     are loaded together, then its corners' 6 planes (z_ndc feeds only
+//     coverage), the record built again (vf::resolve_record: its columns,
+//     no bbox test) and evaluated at the pixel centre, then divided as
+//     tiles.py:97 does (K6's _varyings_from_ids in its f32 op order);
+//     uncovered pixels get zero varyings. Two dependent rounds of loads
+//     follow the winner's: indices, then corners. What bounds it is the
+//     sectors those gathers touch (packed.resolve_sectors: a corner load
+//     uses 4 bytes of its 32-byte sector, and a DEM's neighbouring pixels
+//     rarely share a winner's vertex); the 2-D tile shares what sectors
+//     neighbouring winners do share in L1 (PERF.md).
 //
 // What the TPU layout had that this does not: no 128 B/triangle lane
 // packing, no DMA slab ring, no per-column worklists -- those fed VMEM.
@@ -117,8 +125,7 @@ constexpr int kCoverBlocksPerSM = 4;
 
 // Triangle `tri` of a frame: its corners through the index buffer, in
 // index order (f: that frame's fields, nv vertices per plane), and its
-// record; kResolve: a resolve's (vf::resolve_record).
-template <bool kResolve = false>
+// record.
 __device__ __forceinline__ void indexed_record(const float* f, int nv,
                                                const int* __restrict__ idx,
                                                int tri, int width, int height,
@@ -127,11 +134,7 @@ __device__ __forceinline__ void indexed_record(const float* f, int nv,
   const Corner c0 = load_corner(f, nv, t[0]);
   const Corner c1 = load_corner(f, nv, t[1]);
   const Corner c2 = load_corner(f, nv, t[2]);
-  if constexpr (kResolve) {
-    vf::resolve_record(c0, c1, c2, r);
-  } else {
-    setup_fields_core(c0, c1, c2, width, height, r);
-  }
+  setup_fields_core(c0, c1, c2, width, height, r);
 }
 
 // Survivor list of one block (slot: the triangle's place in the block's
@@ -230,42 +233,19 @@ packed_cover_big_kernel(const float* __restrict__ fields, int nv,
                });
 }
 
-__global__ void __launch_bounds__(kThreads)
-packed_resolve_kernel(const float* __restrict__ fields, int frames, int nv,
+// vf::resolve_tile over the index buffer: a winner's three vertex indices
+// are three neighbouring loads, issued together.
+__global__ void __launch_bounds__(vf::kResolveThreads)
+packed_resolve_kernel(const float* __restrict__ fields, int nv,
                       const int* __restrict__ indices, int width, int height,
-                      const int* __restrict__ winner,
-                      float* __restrict__ out0, float* __restrict__ out1,
-                      float* __restrict__ out2, uint8_t* __restrict__ mask) {
-  const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t plane = (size_t)width * height;
-  if (o >= (size_t)frames * plane) return;
-  const int b = (int)(o / plane);
-  const int p = (int)(o - (size_t)b * plane);
-  const int iy = p / width;
-  const int ix = p - iy * width;
-  const int w = winner[o];
-
-  float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, accw = 1.0f;
-  if (w > 0) {
-    Record r;
-    indexed_record<true>(fields + (size_t)b * kFields * nv, nv, indices,
-                         w - 1, width, height, r);
-    const vf::PixelEval e =
-        vf::eval_pixel(r.col, (float)ix + 0.5f, (float)iy + 0.5f);
-    acc0 = e.a0;
-    acc1 = e.a1;
-    acc2 = e.a2;
-    accw = e.aw;
-  }
-  const float rcp = vf::resolve_rcp(accw);
-  out0[o] = acc0 * rcp;
-  out1[o] = acc1 * rcp;
-  out2[o] = acc2 * rcp;
-  mask[o] = w > 0 ? 1 : 0;
-}
-
-int blocks_for(long long items) {
-  return (int)((items + kThreads - 1) / kThreads);
+                      const int* __restrict__ winner, vf::ResolveOut out) {
+  vf::resolve_tile<false>(fields, nv, width, height, winner, out,
+                          [indices](int tri, int(&v)[3]) {
+                            const int* t = indices + 3 * (size_t)tri;
+                            v[0] = t[0];
+                            v[1] = t[1];
+                            v[2] = t[2];
+                          });
 }
 
 }  // namespace
@@ -323,12 +303,12 @@ int vf_packed_resolve_gbuffer(const float* fields, int frames, int nv,
                               const int* indices, int width, int height,
                               const int* winner, float* v0, float* v1,
                               float* v2, uint8_t* mask, void* stream) {
-  const long long items = (long long)frames * width * height;
-  if (items > 0) {
-    packed_resolve_kernel<<<blocks_for(items), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-        fields, frames, nv, indices, width, height, winner, v0, v1, v2,
-        mask);
+  const long long blocks = vf::resolve_blocks(frames, width, height);
+  if (blocks > 0) {
+    const vf::ResolveOut out{v0, v1, v2, mask, nullptr, nullptr, nullptr};
+    packed_resolve_kernel<<<(unsigned)blocks, vf::kResolveThreads, 0,
+                            (cudaStream_t)stream>>>(fields, nv, indices, width, height,
+                                                    winner, out);
   }
   return (int)cudaGetLastError();
 }

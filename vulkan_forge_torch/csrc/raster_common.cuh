@@ -20,7 +20,8 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 }
 
 // Shipped terrain fragment shader for one pixel (fragment.terrain_fs /
-// K2 fragment.terrain_fs_tile). lut: (256, 3) linear RGB in shared memory.
+// K2 fragment.terrain_fs_tile). lut: (256, 3) linear RGB, in shared memory
+// (raster.cu, segments.cu) or read through L1 (the vtx resolve).
 __device__ __forceinline__ int32_t shade_shipped(
     float hh, float xx, float zz, bool cov, const float* lut,
     float hr2, float exposure, float l0, float l1, float l2) {
@@ -389,8 +390,8 @@ __device__ __forceinline__ void setup_fields_core(const Corner& c0,
 // (eval_pixel's a0..a2 and aw read columns 0..23 alone; col[24], valid,
 // feeds only its cov, which a resolve does not read, and is left 0). The
 // ops are setup_columns', written out from the corners: built through
-// VertexTerms the three resolves compile to 48/48/56 registers instead of
-// 40/46/52 and run 4-12% longer (H100, scripts/torch_cover_ab.py).
+// VertexTerms, the resolves took more registers and ran 4-12% longer
+// (H100, scripts/torch_cover_ab.py).
 __device__ __forceinline__ void resolve_record(const Corner& c0,
                                                const Corner& c1,
                                                const Corner& c2, Record& r) {
@@ -422,6 +423,131 @@ __device__ __forceinline__ void resolve_record(const Corner& c0,
   col[24] = 0.0f;
   col[25] = zn0 * t0;  col[26] = zn1 * t1;  col[27] = zn2 * t2;
   col[28] = t0;  col[29] = t1;  col[30] = t2;
+}
+
+// ---- The resolves (vtx.cu, packed.cu) ----
+//
+// Each resolve kernel reads a frame's winner plane (id + 1 per pixel, 0 =
+// uncovered), rebuilds each winner's record from its three corners
+// (resolve_record) and evaluates it at the pixel centre (eval_pixel,
+// resolve_rcp). A block of kResolveThreads threads takes one frame's tile
+// of kResolveTileW x kResolveTileH pixels, one pixel per thread, and a warp
+// a kResolveWarpW x kResolveWarpH patch of it: neighbouring winners' corners
+// share 32-byte sectors, which a 2-D tile finds in L1 and a row of 256
+// pixels did not. The mapping is vtx.resolve_pixel_map's (kernels.load()
+// checks the constants).
+constexpr int kResolveThreads = 256;
+constexpr int kResolveTileW = 32;     // == vtx.RESOLVE_TILE_W
+constexpr int kResolveWarpW = 8;      // == vtx.RESOLVE_WARP_W
+constexpr int kResolveTileH = kResolveThreads / kResolveTileW;
+constexpr int kResolveWarpH = 32 / kResolveWarpW;
+static_assert(kResolveTileW % kResolveWarpW == 0 && kResolveTileH % kResolveWarpH == 0,
+              "a tile is a whole number of warp patches");
+
+// Blocks of a resolve launch over `frames` frames.
+inline long long resolve_blocks(long long frames, int width, int height) {
+  return frames * ((width + kResolveTileW - 1) / kResolveTileW) *
+         ((height + kResolveTileH - 1) / kResolveTileH);
+}
+
+// A resolve's corner: the six planes eval_pixel's a0..a2 and aw read.
+// z_ndc (plane 6) feeds only the coverage bit, which a resolve drops, so it
+// is not loaded (zn = 0 makes resolve_record's columns 25..27 constants
+// that nothing reads).
+__device__ __forceinline__ Corner resolve_corner(const float* f, size_t stride,
+                                                 int v) {
+  Corner c;
+  c.x = f[v];
+  c.y = f[stride + v];
+  c.w = f[2 * stride + v];
+  c.v0 = f[3 * stride + v];
+  c.v1 = f[4 * stride + v];
+  c.v2 = f[5 * stride + v];
+  c.zn = 0.0f;
+  return c;
+}
+
+// The outputs of a resolve: the g-buffer (v0..v2, mask), or the shipped
+// shader's words (image) with its LUT ((256, 3) f32) and parameters
+// (par: hr2, exposure, l0, l1, l2).
+struct ResolveOut {
+  float *v0, *v1, *v2;
+  uint8_t* mask;
+  const float* lut_rgb;
+  const float* par;
+  int32_t* image;
+};
+
+// The body of the resolve kernels. Block blockIdx.x takes tile
+// blockIdx.x % tiles of frame blockIdx.x / tiles (tiles in row-major
+// order); fields: (frames, kFields, nv) f32; verts(tri, v) puts triangle
+// tri's vertex indices, in record order, into v. A covered pixel's thread
+// loads its winner, the winner's vertex indices (packed.cu: three
+// neighbouring index loads), then all 18 corner loads before it uses the
+// first; an uncovered pixel loads nothing more. The shaded kernel reads
+// the LUT through L1 (no staging, no barrier for it) and takes the clear
+// colour's word from thread 0, which computes it once per block with the
+// same shade_shipped call (cov = false: the word depends on no input).
+template <bool kShade, class Verts>
+__device__ __forceinline__ void resolve_tile(const float* __restrict__ fields,
+                                             size_t nv, int width, int height,
+                                             const int* __restrict__ winner,
+                                             const ResolveOut& out, Verts verts) {
+  __shared__ int32_t sclear;
+  const int t = threadIdx.x;
+  const int tiles_x = (width + kResolveTileW - 1) / kResolveTileW;
+  const int tiles = tiles_x * ((height + kResolveTileH - 1) / kResolveTileH);
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const int ty = tile / tiles_x;
+  const int warp = t >> 5, lane = t & 31;
+  constexpr int kAcross = kResolveTileW / kResolveWarpW;
+  const int x = (tile - ty * tiles_x) * kResolveTileW + (warp % kAcross) * kResolveWarpW +
+                lane % kResolveWarpW;
+  const int y = ty * kResolveTileH + (warp / kAcross) * kResolveWarpH + lane / kResolveWarpW;
+  const bool in = (x < width) & (y < height);
+  const size_t o = (size_t)b * width * height + (size_t)y * width + x;
+  const int w = in ? winner[o] : 0;
+  Corner c[3];
+  if (w > 0) {
+    int v[3];
+    verts(w - 1, v);
+    const float* f = fields + (size_t)b * kFields * nv;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) c[j] = resolve_corner(f, nv, v[j]);
+  }
+  if constexpr (kShade) {
+    if (t == 0) {
+      sclear = shade_shipped(0.0f, 0.0f, 0.0f, false, out.lut_rgb, out.par[0], out.par[1],
+                             out.par[2], out.par[3], out.par[4]);
+    }
+    __syncthreads();
+  }
+  if (!in) return;
+  float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, accw = 1.0f;
+  if (w > 0) {
+    Record r;
+    resolve_record(c[0], c[1], c[2], r);
+    const PixelEval e = eval_pixel(r.col, (float)x + 0.5f, (float)y + 0.5f);
+    acc0 = e.a0;
+    acc1 = e.a1;
+    acc2 = e.a2;
+    accw = e.aw;
+  }
+  const float rcp = resolve_rcp(accw);
+  const float v0 = acc0 * rcp;
+  const float v1 = acc1 * rcp;
+  const float v2 = acc2 * rcp;
+  if constexpr (kShade) {
+    out.image[o] = w > 0 ? shade_shipped(v0, v1, v2, true, out.lut_rgb, out.par[0],
+                                         out.par[1], out.par[2], out.par[3], out.par[4])
+                         : sclear;
+  } else {
+    out.v0[o] = v0;
+    out.v1[o] = v1;
+    out.v2[o] = v2;
+    out.mask[o] = w > 0 ? 1 : 0;
+  }
 }
 
 // A cover pass's survivor's bbox in two words: px0 (py0) in the low 26

@@ -42,11 +42,14 @@
 //     functional is negative with a margin over its f32 error at all four
 //     corners, and walks the surviving tiles' pixels with the same
 //     atomicMax (vf::big_walk, raster_common.cuh, shared with packed.cu).
-//   vf_vtx_resolve_*: one thread per pixel. The winner's record is built
-//     again from its corners (vf::resolve_record: its columns, no bbox
-//     test) and evaluated at the pixel centre, then
-//     divided as tiles.py:97 does; uncovered pixels get zero varyings (or
-//     the shader's clear colour).
+//   vf_vtx_resolve_*: one block per (frame, 32x8 pixel tile), one thread
+//     per pixel, each warp an 8x4 patch (vf::resolve_tile, raster_common.cuh,
+//     shared with packed.cu). The winner's three corners are decoded from
+//     its id and loaded, 6 planes each (z_ndc feeds only coverage), the
+//     record built again (vf::resolve_record: its columns, no bbox test)
+//     and evaluated at the pixel centre, then divided as tiles.py:97 does;
+//     uncovered pixels get zero varyings, or the shader's clear colour,
+//     whose word thread 0 computes once per block.
 //
 // Atomics and determinism. The JAX package's rule is "no atomics"
 // (CLAUDE.md). The port allows one kind: an integer atomicMax on painter
@@ -82,8 +85,20 @@
 // screen and it often covers nothing); the tile rejects bring the pixels
 // it evaluates from the bboxes' ~10^8-10^9 down towards the covered ones.
 // The resolve reads the winner (7.7 MB) and the winners' corner vertices
-// and writes the image (7.7 MB) or g-buffer (25 MB). Nothing writes
-// (T, 40) records or a (tile, id) pair sort to device memory.
+// and writes the image (7.7 MB) or g-buffer (25 MB). Winners are one pixel
+// each and share few vertices, so in this SoA layout every corner load
+// pulls a 32-byte sector of which it uses 4 bytes: the sectors the
+// winners touch over 6 planes (~90 MB at g1024 x4, vtx.resolve_sectors)
+// bound it, not the 28 bytes per distinct vertex. It used to take 256
+// pixels of one row per block, whose warps shared few sectors: a 2-D tile
+// lets neighbouring winners, whose corners lie in neighbouring grid rows,
+// share them in L1. More pixels per thread, their gathers in flight
+// together, did not pay: the kernel is bound by sector throughput, not by
+// the latency of its chain, and the registers cost occupancy. The shaded
+// kernel reads its LUT through L1 instead of staging it per block, and
+// computes the clear colour's word once per block instead of three powf
+// per uncovered pixel (PERF.md has the A/Bs). Nothing writes (T, 40)
+// records or a (tile, id) pair sort to device memory.
 //
 // Numerics: -fmad=false, no fast math; 1.0f/x is IEEE division; min/max
 // propagate NaN as torch.minimum/maximum do; clamp(-1e9, 1e9) precedes
@@ -118,19 +133,9 @@ constexpr int kVerts = (kPatchRows + 1) * kVCols;
 // The register budget vf_vtx_cover is compiled for (__launch_bounds__).
 constexpr int kCoverBlocksPerSM = 4;
 
-// The record of triangle `tri` of a frame (fields of that frame at f);
-// kResolve: a resolve's (vf::resolve_record).
-template <bool kResolve = false>
-__device__ __forceinline__ void triangle_record(const float* f, int n, int tri,
-                                                int width, int height,
-                                                Record& r) {
-  const auto setup = [&](const Corner& c0, const Corner& c1, const Corner& c2) {
-    if constexpr (kResolve) {
-      vf::resolve_record(c0, c1, c2, r);
-    } else {
-      setup_fields_core(c0, c1, c2, width, height, r);
-    }
-  };
+// The record of triangle `tri` of a frame (fields of that frame at f).
+__device__ __forceinline__ void triangle_record(const float* f, int n, int tri, int width,
+                                                int height, Record& r) {
   const int n2 = n * n;
   const int cell = tri >> 1;
   const int row = cell / (n - 1);
@@ -139,10 +144,10 @@ __device__ __forceinline__ void triangle_record(const float* f, int n, int tri,
   const Corner B = load_corner(f, n2, a + 1);
   const Corner C = load_corner(f, n2, a + n);
   if ((tri & 1) == 0) {
-    setup(A, C, B);
+    setup_fields_core(A, C, B, width, height, r);
   } else {
     const Corner D = load_corner(f, n2, a + n + 1);
-    setup(B, C, D);
+    setup_fields_core(B, C, D, width, height, r);
   }
 }
 
@@ -298,57 +303,22 @@ vtx_cover_big_kernel(const float* __restrict__ fields, int n, int width,
                });
 }
 
+// vf::resolve_tile over the grid's triangles: the vertex indices of triangle
+// tri decoded from its id (tri0 = [A, C, B], tri1 = [B, C, D]).
 template <bool kShade>
-__global__ void __launch_bounds__(kThreads)
-vtx_resolve_kernel(const float* __restrict__ fields, int frames, int n,
-                   int width, int height, const int* __restrict__ winner,
-                   float* __restrict__ out0, float* __restrict__ out1,
-                   float* __restrict__ out2, uint8_t* __restrict__ mask,
-                   const float* __restrict__ lut_rgb,
-                   const float* __restrict__ par, int32_t* __restrict__ image) {
-  __shared__ float slut[kShade ? 256 * 3 : 1];
-  if (kShade) {
-    for (int e = threadIdx.x; e < 256 * 3; e += blockDim.x) slut[e] = lut_rgb[e];
-    __syncthreads();
-  }
-  const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t plane = (size_t)width * height;
-  if (o >= (size_t)frames * plane) return;
-  const int b = (int)(o / plane);
-  const int p = (int)(o - (size_t)b * plane);
-  const int iy = p / width;
-  const int ix = p - iy * width;
-  const int w = winner[o];
-
-  float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, accw = 1.0f;
-  if (w > 0) {
-    Record r;
-    triangle_record<true>(fields + (size_t)b * kFields * n * n, n, w - 1,
-                          width, height, r);
-    const vf::PixelEval e =
-        vf::eval_pixel(r.col, (float)ix + 0.5f, (float)iy + 0.5f);
-    acc0 = e.a0;
-    acc1 = e.a1;
-    acc2 = e.a2;
-    accw = e.aw;
-  }
-  const float rcp = vf::resolve_rcp(accw);
-  const float v0 = acc0 * rcp;
-  const float v1 = acc1 * rcp;
-  const float v2 = acc2 * rcp;
-  if (kShade) {
-    image[o] = vf::shade_shipped(v0, v1, v2, w > 0, slut, par[0], par[1],
-                                 par[2], par[3], par[4]);
-  } else {
-    out0[o] = v0;
-    out1[o] = v1;
-    out2[o] = v2;
-    mask[o] = w > 0 ? 1 : 0;
-  }
-}
-
-int blocks_for(long long items) {
-  return (int)((items + kThreads - 1) / kThreads);
+__global__ void __launch_bounds__(vf::kResolveThreads)
+vtx_resolve_kernel(const float* __restrict__ fields, int n, int width, int height,
+                   const int* __restrict__ winner, vf::ResolveOut out) {
+  vf::resolve_tile<kShade>(fields, (size_t)n * n, width, height, winner, out,
+                           [n](int tri, int(&v)[3]) {
+                             const int cell = tri >> 1;
+                             const int row = cell / (n - 1);
+                             const int a = row * n + (cell - row * (n - 1));
+                             const bool k = tri & 1;
+                             v[0] = k ? a + 1 : a;
+                             v[1] = a + n;
+                             v[2] = k ? a + n + 1 : a + 1;
+                           });
 }
 
 }  // namespace
@@ -402,16 +372,22 @@ int vf_vtx_cover_big(const float* fields, int n, int width, int height,
 // vtx.BIG_TILE, the torch mirror's.
 int vf_big_tile() { return vf::kBigTile; }
 
+// The resolves' pixel tile width and warp patch width; kernels.load()
+// requires them to equal vtx.RESOLVE_TILE_W and RESOLVE_WARP_W, which
+// vtx.resolve_pixel_map mirrors.
+int vf_resolve_tile_w() { return vf::kResolveTileW; }
+int vf_resolve_warp_w() { return vf::kResolveWarpW; }
+
 // Outputs (frames, height, width): v0..v2 f32 and mask u8.
 int vf_vtx_resolve_gbuffer(const float* fields, int frames, int n, int width,
                            int height, const int* winner, float* v0,
                            float* v1, float* v2, uint8_t* mask, void* stream) {
-  const long long items = (long long)frames * width * height;
-  if (items > 0) {
-    vtx_resolve_kernel<false><<<blocks_for(items), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        fields, frames, n, width, height, winner, v0, v1, v2, mask, nullptr,
-        nullptr, nullptr);
+  const long long blocks = vf::resolve_blocks(frames, width, height);
+  if (blocks > 0) {
+    const vf::ResolveOut out{v0, v1, v2, mask, nullptr, nullptr, nullptr};
+    vtx_resolve_kernel<false><<<(unsigned)blocks, vf::kResolveThreads, 0,
+                                (cudaStream_t)stream>>>(fields, n, width, height, winner,
+                                                        out);
   }
   return (int)cudaGetLastError();
 }
@@ -422,12 +398,12 @@ int vf_vtx_resolve_shade_shipped(const float* fields, int frames, int n,
                                  int width, int height, const int* winner,
                                  const float* lut_rgb, const float* par,
                                  int32_t* image, void* stream) {
-  const long long items = (long long)frames * width * height;
-  if (items > 0) {
-    vtx_resolve_kernel<true><<<blocks_for(items), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-        fields, frames, n, width, height, winner, nullptr, nullptr, nullptr,
-        nullptr, lut_rgb, par, image);
+  const long long blocks = vf::resolve_blocks(frames, width, height);
+  if (blocks > 0) {
+    const vf::ResolveOut out{nullptr, nullptr, nullptr, nullptr, lut_rgb, par, image};
+    vtx_resolve_kernel<true><<<(unsigned)blocks, vf::kResolveThreads, 0,
+                               (cudaStream_t)stream>>>(fields, n, width, height, winner,
+                                                       out);
   }
   return (int)cudaGetLastError();
 }
