@@ -102,6 +102,28 @@ Phases, each printing one line, in order:
      against their plain version (the plain walk over those rows' tables):
      g-buffers bit-equal, the shipped image under the FS policy; the plain
      walk's time there, and the kernels' on the same rows' tables.
+  3f. the public surface, slice 11: device_probe("CUDA") and device_probe()
+     ok with NVIDIA's vendor id, device_probe("TPU") unsupported,
+     enumerate_adapters() one adapter per card with the framebuffer limit;
+     render_spike_frames(800,600,1024) on 4 orbit eyes with the counts set
+     to 0 just before it (the three vtx kernels of the shaded path must
+     launch, no other), byte-equal to render_terrain_batch_u32 and to
+     TerrainSpike.render_rgba() per eye, then timed in turns with the
+     direct batch (phase 4b's vtx route, mesh and frames on the card;
+     median of 5 camera sets, host clock after synchronize, Mpix/s) and the
+     host's mesh build; render_spike_frames at g2048 and g4096 (4 frames
+     each), each frame's vtx kernels against their plain versions alone
+     (phase 2b's bounds) and its bytes against the kernels' image of that
+     frame, with peak device memory; the six CLI twins as subprocesses on
+     --device cuda (device_diagnostics: CUDA ok; determinism_harness on the
+     triangle and --scene terrain, 3 runs: all_equal, the triangle's hash
+     the in-process one; backends_runner --require-same: TORCH_CUDA and
+     TORCH_CPU equal; terrain_spike: its PNG's pixels equal
+     make_terrain(512,384,128)'s; parity_report --rules hw: no coverage
+     difference against hw_oracle; then perf_sanity alone on the 800x600
+     triangle under VF_ENFORCE_PERF=1, its p95 beside the reference's
+     budget); grid_generate(1024, 1024) against the reference's 80 ms and
+     the PNG encoder on a 7680x4320 frame (host clock).
   4. timing, slice 1: 32 orbit cameras at 800x600 g128 through the record
      kernel path (the batched entry without grid_n) and through the plain
      PyTorch path on the card (median of 5 batches, host clock after
@@ -187,7 +209,8 @@ import numpy as np
 import torch
 
 import vulkan_forge_torch as vt
-from vulkan_forge_torch import _camera, _colormap, _device, _formats, _mesh, _renderer
+from vulkan_forge_torch import (_camera, _colormap, _device, _formats, _io, _mesh,
+                                _renderer)
 from vulkan_forge_torch._parity import (FS_MAX_FRACTION, VARYING_RTOL,
                                         assert_fs_policy, assert_gbuffer_close)
 from vulkan_forge_torch._raster import (fragment, hw_oracle, kernels, packed, pipeline,
@@ -286,17 +309,22 @@ def kernel_device_ms(fn, key="raster_kernel", calls=KERNEL_INNER):
     return sum(a.self_device_time_total for a in ev) / seen / 1e3
 
 
+def orbit_eyes(n, phase=0.0):
+    """The eyes of n cameras orbiting the spike terrain (bench.py:55-67)."""
+    angles = (2.0 * math.pi * i / max(n, 1) + phase for i in range(n))
+    return [(3.0 * math.cos(a), 2.0 + 0.1 * math.sin(phase), 3.0 * math.sin(a))
+            for a in angles]
+
+
 def orbit_cameras(n, width, height, phase=0.0):
-    """n cameras orbiting the spike terrain (bench.py:55-67)."""
-    views, projs = [], []
+    """n cameras orbiting the spike terrain (bench.py:55-67), looking at the
+    origin: fovy 45, near 0.1, far 100 (render_spike_frames' defaults)."""
     aspect = np.float32(width) / np.float32(height)
-    for i in range(n):
-        ang = 2.0 * math.pi * i / max(n, 1) + phase
-        eye = (3.0 * math.cos(ang), 2.0 + 0.1 * math.sin(phase), 3.0 * math.sin(ang))
-        views.append(_camera.look_at_rh(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)))
-        projs.append(_camera.perspective_wgpu(np.float32(math.radians(45.0)), aspect,
-                                              np.float32(0.1), np.float32(100.0)))
-    return np.stack(views), np.stack(projs)
+    views = [_camera.look_at_rh(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+             for eye in orbit_eyes(n, phase)]
+    proj = _camera.perspective_wgpu(np.float32(math.radians(45.0)), aspect,
+                                    np.float32(0.1), np.float32(100.0))
+    return np.stack(views), np.stack([proj] * n)
 
 
 def scene_height():
@@ -2715,6 +2743,285 @@ def phase4e_seg_timing(smi, dev, band):
 
 
 
+# ---------------- slice 11: the public surface on the card ----------------
+
+# render_spike_frames takes the vtx route's shaded path; the other kernels
+# must not launch there.
+SPIKE_KERNELS = tuple(k for k in VTX_KERNELS if k[0] != "vf_vtx_resolve_gbuffer")
+# Grids above 1024 (the API admits up to 4096): frames per render_spike_frames
+# call. Each frame is also checked alone against the plain version.
+BIG_GRIDS = ((2048, 4), (4096, 4))
+POSTER_EYE = (3.0, 2.0, 3.0)
+TOOLS_TIMEOUT = 600
+# The reference's budget for grid_generate(1024, 1024) (BASELINE.md:12).
+GRID_GENERATE_BUDGET_MS = 80.0
+
+
+def probe_checks():
+    """device_probe and enumerate_adapters on the card."""
+    probes = {str(b): vt.device_probe(b) for b in ("CUDA", None, "TPU")}
+    for b in ("CUDA", "None"):
+        p = probes[b]
+        if p["status"] != "ok" or p.get("vendor_id") != _device.NVIDIA_VENDOR_ID:
+            raise AssertionError(f"device_probe({b}) = {p}")
+    if probes["TPU"]["status"] != "unsupported":
+        raise AssertionError(f"device_probe('TPU') = {probes['TPU']}")
+    adapters = vt.enumerate_adapters()
+    cards = [a for a in adapters if a["backend"] == "CUDA"]
+    if len(cards) != torch.cuda.device_count() or any(
+            "max_framebuffer_dim=8192" not in a["limits"] or a["vendor_id"] != 0x10DE
+            for a in cards):
+        raise AssertionError(f"enumerate_adapters() = {adapters}")
+    return {"millis": {b: p["millis"] for b, p in probes.items()},
+            "status": {b: p["status"] for b, p in probes.items()},
+            "cuda_adapters": len(cards), "features": cards[0]["features"],
+            "limits": cards[0]["limits"]}
+
+
+def spike_frames_headline(dev):
+    """render_spike_frames at bench.py's headline shape on the card: launch
+    counts, bytes against the direct batch and TerrainSpike; returns the
+    launches."""
+    eyes = orbit_eyes(VBATCH, phase=0.7)
+    views, projs = orbit_cameras(VBATCH, W, H, phase=0.7)
+    every = VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
+    for _, fn in every:
+        fn.launches = 0
+    frames = vt.render_spike_frames(W, H, VGRID, eyes)
+    sync()
+    launches = {name: fn.launches for name, fn in every}
+    for name, _ in every:
+        if (launches[name] > 0) != (name in dict(SPIKE_KERNELS)):
+            raise AssertionError(f"render_spike_frames launched {name} "
+                                 f"{launches[name]} times")
+    if frames.dtype != np.uint8 or frames.shape != (VBATCH, H, W, 4):
+        raise AssertionError(f"bad frames {frames.dtype} {frames.shape}")
+    xyuv, idx = _mesh.build_grid_xyuv(VGRID)
+    direct = _formats.u32_image_to_rgba_u8(pipeline.render_terrain_batch_u32(
+        xyuv, idx, np.zeros((1, 1), np.float32), views, projs, grid_n=VGRID,
+        **batch_args(dev))).cpu().numpy()
+    if not np.array_equal(frames, direct):
+        raise AssertionError("render_spike_frames differs from render_terrain_batch_u32")
+    spike = vt.TerrainSpike(W, H, VGRID, device=dev)
+    for eye, frame in zip(eyes, frames):
+        spike.set_camera_look_at(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 45.0, 0.1, 100.0)
+        if not np.array_equal(frame, spike.render_rgba()):
+            raise AssertionError(f"render_spike_frames differs from TerrainSpike at {eye}")
+    return launches, hashlib.sha256(frames.tobytes()).hexdigest()
+
+
+def spike_frames_timing(dev):
+    """render_spike_frames against the direct batch (phase 4b's vtx route,
+    mesh on the card, frames left there), in turns: spike, direct, direct,
+    spike over 5 camera sets after a warm-up set; host clock after a
+    synchronize."""
+    phases = [0.31 * r + 0.05 for r in range(REPS + 1)]
+    eyes = [(orbit_eyes(VBATCH, phase=ph),) for ph in phases]
+    cams = [orbit_cameras(VBATCH, W, H, phase=ph) for ph in phases]
+    fns = {"render_spike_frames": (lambda e: vt.render_spike_frames(W, H, VGRID, e), eyes),
+           "direct_batch": (route_fn("vtx", VGRID, dev), cams)}
+    times = {name: [] for name in fns}
+    for name in ("render_spike_frames", "direct_batch", "direct_batch", "render_spike_frames"):
+        fn, inputs = fns[name]
+        fn(*inputs[-1])
+        sync()
+        times[name] += host_ms(fn, inputs[:REPS])
+    med = {name: statistics.median(t) for name, t in times.items()}
+    # Of the gap, the host's build of the spike mesh, which every call makes.
+    mesh_ms = statistics.median(host_ms(lambda: _mesh.build_grid_xyuv(VGRID), [()] * REPS))
+    return {"ms_median": med, "ms_all": times,
+            "mpix_per_s": {n: VBATCH * W * H / (m * 1e3) for n, m in med.items()},
+            "readback_and_assembly_ms": med["render_spike_frames"] - med["direct_batch"],
+            "host_mesh_build_ms": mesh_ms}
+
+
+def spike_frames_big_grids(dev, shade):
+    """render_spike_frames above grid 1024: each frame's vtx kernels against
+    their plain versions (phase 2b's bounds, check_vtx_passes) on that
+    frame alone, and the frame's bytes against the kernels' image there."""
+    out, errs = {}, {}
+    for grid, n in BIG_GRIDS:
+        eyes = orbit_eyes(n, phase=0.9)
+        views, projs = orbit_cameras(n, W, H, phase=0.9)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        frames = vt.render_spike_frames(W, H, grid, eyes)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        plain_peak, listed = 0, []
+        for b in range(n):
+            fields = grid_fields(grid, views[b:b + 1], projs[b:b + 1], dev)
+            torch.cuda.reset_peak_memory_stats()
+            err, k, _, _ = check_vtx_passes(fields, grid, shade, f"g{grid} frame {b}")
+            plain_peak = max(plain_peak, torch.cuda.max_memory_allocated())
+            listed.append(k)
+            for name, e in err.items():
+                errs[name] = max(errs.get(name, 0.0), float(e))
+            img = _formats.u32_image_to_rgba_u8(
+                vtx.render_image_vtx_batch(fields, *shade, grid, W, H)).cpu().numpy()[0]
+            if not np.array_equal(img, frames[b]):
+                raise AssertionError(f"g{grid} frame {b}: render_spike_frames differs from "
+                                     "the vtx kernels on the frame alone")
+            del fields
+        clear = np.array([39, 39, 48], np.uint8)
+        out[f"g{grid} x{n}"] = {
+            "triangles_per_frame": vtx.n_triangles(grid), "first_call_ms": ms,
+            "peak_bytes": int(peak), "check_peak_bytes": int(plain_peak),
+            "big_listed": listed,
+            "covered_share": float((frames[..., :3] != clear).any(-1).mean()),
+            "sha256": hashlib.sha256(frames.tobytes()).hexdigest()}
+        del frames
+        torch.cuda.empty_cache()
+    return out, errs
+
+
+def run_tools(specs):
+    """Start each CLI twin (python -m vulkan_forge_torch.tools.<tool> ...
+    --device cuda) together, each writing its output to a file; wait for
+    all; kill any that outlives TOOLS_TIMEOUT. Returns {name: (rc, stdout)}."""
+    out_dir = os.path.join(OUT_DIR, "tools")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    procs, files = {}, []
+    try:
+        for name, (tool, args, extra) in specs.items():
+            log = open(os.path.join(out_dir, f"{name}.log"), "w+")
+            files.append(log)
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", f"vulkan_forge_torch.tools.{tool}", *args,
+                 "--device", "cuda"], cwd=ROOT, env=dict(env, **extra), stdout=log,
+                stderr=subprocess.STDOUT, text=True), log)
+        deadline = time.monotonic() + TOOLS_TIMEOUT
+        results = {}
+        for name, (p, log) in procs.items():
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            log.seek(0)
+            results[name] = (p.returncode, log.read())
+        return results
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in files:
+            log.close()
+
+
+def tools_checks(dev):
+    """The six CLI twins on the card, with their checks."""
+    d = os.path.join(OUT_DIR, "tools")
+    spike_png = os.path.join(d, "terrain_spike.png")
+    specs = {
+        "device_diagnostics": ("device_diagnostics", ["--json", f"{d}/diag.json"], {}),
+        "determinism_triangle": ("determinism_harness",
+                                 ["--runs", "3", "--out-dir", f"{d}/det_triangle"], {}),
+        "determinism_terrain": ("determinism_harness",
+                                ["--runs", "3", "--scene", "terrain",
+                                 "--out-dir", f"{d}/det_terrain"], {}),
+        "backends_runner": ("backends_runner", ["--require-same", "--runs", "1",
+                                                "--out-dir", f"{d}/backends"], {}),
+        "terrain_spike": ("terrain_spike", ["--out", spike_png], {}),
+        "parity_report": ("parity_report", ["--rules", "hw", "--json", f"{d}/parity.json"], {}),
+    }
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_tools(specs)
+    together_s = time.perf_counter() - t0
+    # perf_sanity alone, so that no other process shares the card.
+    res.update(run_tools({"perf_sanity": (
+        "perf_sanity", ["--width", str(W), "--height", str(H), "--json", f"{d}/perf.json"],
+        {"VF_ENFORCE_PERF": "1"})}))
+    for name, (rc, log) in res.items():
+        if rc != 0:
+            raise AssertionError(f"tool {name} exited {rc}:\n{log[-4000:]}")
+    load = lambda f: json.load(open(os.path.join(d, f)))
+
+    diag = load("diag.json")
+    if diag["probes"][0]["backend_request"] != "CUDA" or diag["probes"][0]["status"] != "ok":
+        raise AssertionError(f"device_diagnostics: {diag['probes']}")
+    det = {k: load(f"det_{k}/determinism_report.json") for k in ("triangle", "terrain")}
+    tri = hashlib.sha256(vt.render_triangle_rgba(128, 128, device=dev).tobytes()).hexdigest()
+    if not all(r["all_equal"] for r in det.values()) or det["triangle"]["unique"] != [tri]:
+        raise AssertionError(f"determinism_harness: {det}")
+    bk = load("backends/backends_report.json")
+    if not bk["cross_backend_equal"] or bk["per_backend"]["TORCH_CUDA"]["status"] != "ok" \
+            or bk["per_backend"]["TORCH_CPU"]["status"] != "ok":
+        raise AssertionError(f"backends_runner: {bk}")
+    if not np.array_equal(png_pixels(spike_png),
+                          vt.make_terrain(512, 384, 128, device=dev).render_rgba()):
+        raise AssertionError("terrain_spike's PNG is not make_terrain(512,384,128)'s frame")
+    parity = load("parity.json")
+    if not parity["hw_coverage_exact"] or any(c["cov_diff_px"] for c in parity["configs"]):
+        raise AssertionError(f"parity_report: {parity}")
+    perf = load("perf.json")
+    budget = 40.0 * W * H / (512.0 * 512.0)
+    return {"tools_together_s": together_s,
+            "device_diagnostics": {"probes": {p["backend_request"]: p["status"]
+                                              for p in diag["probes"]},
+                                   "cuda_millis": diag["probes"][0]["millis"]},
+            "determinism": {k: {"all_equal": r["all_equal"], "unique": r["unique"],
+                                "avg_ms": r["avg_ms"]} for k, r in det.items()},
+            "backends_runner": {k: {"status": v["status"], "sha256": v["sha256"],
+                                    "avg_ms": v["avg_ms"]}
+                                for k, v in bk["per_backend"].items()},
+            "terrain_spike": "PNG pixels equal make_terrain(512,384,128).render_rgba()",
+            "parity_report": {c["name"]: {"cov_diff_px": c["cov_diff_px"],
+                                          "covered_px": c["covered_px"],
+                                          "max_lsb_delta_all": c["max_lsb_delta_all"]}
+                              for c in parity["configs"]},
+            "perf_sanity_triangle": {"config": f"{W}x{H}, 30 runs after 3 warm-ups",
+                                     "p95_ms": perf["steady"]["p95_ms"],
+                                     "median_ms": perf["steady"]["median_ms"],
+                                     "init_ms": perf["init_ms"], "budget_ms": budget,
+                                     "enforced_limit_ms": 3.0 * budget}}
+
+
+def host_paths():
+    """The host paths that the JAX package builds in C++ (queue 1 item 5):
+    grid_generate(1024, 1024) against the reference's enforced 80 ms, and
+    the PNG encoder on a 7680x4320 frame; median of 5 and 3 calls."""
+    gg = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        vt.grid_generate(1024, 1024)
+        gg.append((time.perf_counter() - t0) * 1e3)
+    frame = vt.render_spike_frames(POSTER[0], POSTER[1], VGRID, [POSTER_EYE])[0]
+    path = os.path.join(OUT_DIR, "poster_7680x4320.png")
+    png = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _io.save_png_rgba(path, frame)
+        png.append((time.perf_counter() - t0) * 1e3)
+    if not np.array_equal(png_pixels(path), frame):
+        raise AssertionError("the 7680x4320 PNG does not round-trip its pixels")
+    return {"grid_generate_1024_ms": {"median": statistics.median(gg), "all": gg,
+                                      "budget": GRID_GENERATE_BUDGET_MS},
+            "save_png_rgba_7680x4320_ms": {"median": statistics.median(png), "all": png,
+                                           "bytes": os.path.getsize(path)}}
+
+
+def phase3f_public_surface(smi, dev):
+    """Slice 11's public surface on the card."""
+    probes = probe_checks()
+    launches, sha = spike_frames_headline(dev)
+    timing = spike_frames_timing(dev)
+    big, big_err = spike_frames_big_grids(dev, spike_shading(dev))
+    tools = tools_checks(dev)
+    host = host_paths()
+    say("public_surface", card=smi, probes=probes,
+        spike_frames={"config": f"render_spike_frames({W},{H},{VGRID}, {VBATCH} orbit eyes)",
+                      "launches": launches, "sha256": sha,
+                      "equal_to": ["render_terrain_batch_u32", "TerrainSpike.render_rgba()"],
+                      **timing},
+        big_grids=big, big_grids_max_err=big_err,
+        big_grids_tolerance=f"winners and lists exact; masks exact; varyings <= "
+        f"{VARYING_RTOL}*max(1,|x|); images: bytes off by <= 1 on <= {FS_MAX_FRACTION} of "
+        "bytes; each frame equal to the kernels on that frame alone",
+        tools=tools, host_paths=host)
+
+
 def profile_window(render, cams, label, top=12):
     """torch.profiler over render(*c) for each camera set: the device's busy
     share (union of device-event intervals over the span from the first to
@@ -2804,6 +3111,8 @@ def main() -> int:
     for b in seg_band.values():
         for name, err in b["err"].items():
             seg_err[name] = max(seg_err[name], err)
+    sync()
+    phase3f_public_surface(smi, dev)
     sync()
     phase4_batch(smi, dev)
     sync()

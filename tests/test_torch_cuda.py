@@ -807,3 +807,26 @@ def test_tall_frame_launches_only_segment_kernels(cuda, frame):
     torch.cuda.synchronize()
     assert counts() == [n + (w == launched) for w, n in zip(wrappers, before)]
     assert_fs_policy(got, render("cpu"), f"tall {frame} cuda vs cpu")
+
+
+@pytest.mark.gpu
+def test_render_spike_frames_on_card(cuda):
+    """render_spike_frames on the default devices (every card) takes the
+    vtx route's shaded kernels; each frame equals TerrainSpike's on the
+    card and, under the FS policy, on the CPU. Four eyes on one card also
+    pad to any device count."""
+    eyes = [(3.0, 2.0, 3.0), (-3.0, 2.0, 3.0), (0.0, 2.5, 4.0), (2.0, 1.5, -2.5)]
+    wrappers = (kernels.vtx_cover, kernels.vtx_cover_big, kernels.vtx_resolve_shade_shipped)
+    before = [w.launches for w in wrappers]
+    imgs = vt.render_spike_frames(160, 120, 16, eyes)
+    torch.cuda.synchronize()
+    assert all(w.launches > n for w, n in zip(wrappers, before))
+    assert imgs.shape == (4, 120, 160, 4) and imgs.dtype == np.uint8
+    spike = {d: vt.TerrainSpike(160, 120, 16, device=d) for d in ("cuda", "cpu")}
+    for eye, img in zip(eyes, imgs):
+        for d, t in spike.items():
+            t.set_camera_look_at(eye, (0, 0, 0), (0, 1, 0), 45.0, 0.1, 100.0)
+        np.testing.assert_array_equal(img, spike["cuda"].render_rgba())
+        assert_fs_policy(img, spike["cpu"].render_rgba(), str(eye))
+    two = vt.render_spike_frames(160, 120, 16, eyes[:3], devices=["cuda", "cuda:0"])
+    np.testing.assert_array_equal(two, imgs[:3])

@@ -274,16 +274,46 @@ def test_resolve_device_none_raises_without_card(monkeypatch):
     assert tdev.resolve_device("cpu") == torch.device("cpu")
 
 
+TOOLS = ("device_diagnostics", "terrain_spike", "determinism_harness", "perf_sanity",
+         "backends_runner", "parity_report")
+
+
 def test_port_imports_without_jax():
+    tools = ", ".join(f"vulkan_forge_torch.tools.{t}" for t in TOOLS)
     code = ("import sys, vulkan_forge_torch, vulkan_forge_torch._convert, "
             "vulkan_forge_torch._parity, vulkan_forge_torch._raster.kernels, "
-            "vulkan_forge_torch._raster.hw_oracle; "
+            "vulkan_forge_torch._raster.hw_oracle, vulkan_forge_torch._parallel, "
+            "vulkan_forge_torch._vulkan_forge, vulkan_forge_torch.types, "
+            f"{tools}; "
             "assert 'jax' not in sys.modules, 'jax was imported'; "
             "assert 'vulkan_forge' not in sys.modules")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_api_surface_covers_the_reference():
+    """Every name of the reference's ``__all__`` is exported, the compiled
+    module's path is kept, and the package is typed (PEP 561)."""
+    import inspect
+
+    import vulkan_forge._vulkan_forge as jext
+    import vulkan_forge_torch._vulkan_forge as ext
+    from vulkan_forge import types as jtypes
+    from vulkan_forge_torch import types as ttypes
+    assert set(vf.__all__) <= set(vt.__all__)
+    for name in vt.__all__:
+        assert hasattr(vt, name), name
+    assert ext.Renderer is vt.Renderer
+    assert set(ext.__all__) == set(jext.__all__)
+    for name in ext.__all__:
+        assert getattr(ext, name) is getattr(vt, name), name
+    assert (inspect.signature(ttypes.SupportsPNG.render_png)
+            == inspect.signature(jtypes.SupportsPNG.render_png))
+    assert os.path.exists(os.path.join(REPO, "vulkan_forge_torch", "py.typed"))
+    with open(os.path.join(REPO, "pyproject.toml")) as f:
+        assert '"py.typed"' in f.read().split("vulkan_forge_torch = [")[1].split("]")[0]
 
 
 def test_device_resolution():

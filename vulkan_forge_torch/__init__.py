@@ -10,11 +10,16 @@ the Renderer's DEMs) and ``csrc/segments.cu`` (tall single frames); on the
 CPU it runs their plain PyTorch versions. This package imports torch and
 never jax.
 
-Ported: Renderer, TerrainSpike, Scene, make_terrain,
-render_triangle_rgba/png, camera_look_at/perspective/view_proj,
-colormap_supported, dem_stats/dem_normalize, grid_generate/generate_grid,
-the extended fragment shader. Not yet: device_probe/enumerate_adapters,
-render_spike_frames (ROADMAP queue 1).
+Ported: every name of the reference's ``__all__`` -- Renderer,
+TerrainSpike, Scene, make_terrain, render_triangle_rgba/png,
+camera_look_at/perspective/view_proj, colormap_supported,
+dem_stats/dem_normalize, grid_generate/generate_grid,
+enumerate_adapters/device_probe (CUDA, CPU, AUTO = the card) and
+render_spike_frames (frames spread over torch devices) -- the
+``_vulkan_forge`` module path, ``types.SupportsPNG``, and the six CLI tools
+as ``python -m vulkan_forge_torch.tools.<name>``. Not ported: the JAX
+package's relay and platform helpers, its ``__graft_entry__`` hooks and the
+``vshade`` alias (ROADMAP).
 """
 from __future__ import annotations
 
@@ -25,8 +30,10 @@ from ._scene import Scene, TerrainSpike
 from ._camera import camera_look_at, camera_perspective, camera_view_proj
 from ._colormap import colormap_supported
 from ._dem import dem_normalize, dem_stats
+from ._device import device_probe, enumerate_adapters
 from ._io import save_png_rgba as _save_png_rgba
 from ._mesh import grid_generate
+from ._parallel import render_spike_frames
 from ._raster import pipeline as _pipeline
 
 __version__ = "0.2.0"
@@ -61,4 +68,30 @@ __all__ = [
     "TerrainSpike", "Scene",
     "dem_stats", "dem_normalize",
     "grid_generate", "generate_grid",
+    "enumerate_adapters", "device_probe",
+    "render_spike_frames",
 ]
+
+# Static-typing surface (PEP 561: see py.typed), as the reference's
+# (vulkan_forge/__init__.py:134-152), with ``device=``; these annotate the
+# runtime functions above for type checkers only.
+from typing import TYPE_CHECKING as _TYPE_CHECKING
+
+if _TYPE_CHECKING:
+    from typing import Tuple as _Tuple
+
+    import numpy as _np
+
+    def grid_generate(  # noqa: F811 (typing overlay of the runtime fn)
+        nx: int,
+        nz: int,
+        spacing: "_Tuple[float, float]" = (1.0, 1.0),
+        origin: str = "center",
+    ) -> "_Tuple[_np.ndarray, _np.ndarray, _np.ndarray]": ...
+
+    generate_grid = grid_generate
+
+    def render_triangle_rgba(width: int, height: int, device=None) -> "_np.ndarray": ...
+    def render_triangle_png(path: str, width: int, height: int, device=None) -> None: ...
+    def make_terrain(width: int, height: int, grid: int = 128,
+                     device=None) -> "TerrainSpike": ...
