@@ -9,7 +9,8 @@ Phases, each printing one line, in order:
   1. build: compiles csrc/raster.cu, vtx.cu, packed.cu and segments.cu with
      nvcc (one process per source, started together) and prints the seconds and, per kernel,
      the registers, shared memory, stack and spills ptxas reports and the
-     blocks per SM they allow.
+     blocks per SM they allow; then the host core, csrc/host.cpp, with g++
+     (-ffp-contract=off), and its seconds and library path.
   2. kernel vs plain: each record-route kernel against its plain PyTorch
      version on the same CUDA tensors at the main path's shapes (triangle
      800x600, Scene 160x120 g32, spike 800x600 g128). Masks exact, varyings
@@ -122,8 +123,13 @@ Phases, each printing one line, in order:
      make_terrain(512,384,128)'s; parity_report --rules hw: no coverage
      difference against hw_oracle; then perf_sanity alone on the 800x600
      triangle under VF_ENFORCE_PERF=1, its p95 beside the reference's
-     budget); grid_generate(1024, 1024) against the reference's 80 ms and
-     the PNG encoder on a 7680x4320 frame (host clock).
+     budget); grid_generate(1024, 1024), which must take the port's C++
+     core (its call counter +1 per call) and equal make_grid bit for bit at
+     spacings (1, 1) and (0.1, 1/3), timed in turns with the numpy path
+     (make_grid and the u32 copy), median of 5 each, against the
+     reference's 80 ms,
+     which the core's median must not exceed; and the PNG encoder on a
+     7680x4320 frame (host clock).
   4. timing, slice 1: 32 orbit cameras at 800x600 g128 through the record
      kernel path (the batched entry without grid_n) and through the plain
      PyTorch path on the card (median of 5 batches, host clock after
@@ -210,7 +216,7 @@ import torch
 
 import vulkan_forge_torch as vt
 from vulkan_forge_torch import (_camera, _colormap, _device, _formats, _io, _mesh,
-                                _renderer)
+                                _native, _renderer)
 from vulkan_forge_torch._parity import (FS_MAX_FRACTION, VARYING_RTOL,
                                         assert_fs_policy, assert_gbuffer_close)
 from vulkan_forge_torch._raster import (fragment, hw_oracle, kernels, packed, pipeline,
@@ -443,7 +449,13 @@ def phase1_build():
     missing = [name for _, name in ENTRIES if name not in summary]
     if missing:
         raise AssertionError(f"ptxas reported no entry for {missing}")
-    say("build", seconds=seconds, library=os.path.relpath(path, ROOT), ptxas=summary)
+    t0 = time.perf_counter()
+    host = _native.build()
+    _native.load()
+    host_seconds = time.perf_counter() - t0
+    say("build", seconds=seconds, library=os.path.relpath(path, ROOT), ptxas=summary,
+        host_core={"seconds": host_seconds, "library": os.path.relpath(host, ROOT),
+                   "compiler": _native.CXX, "flags": " ".join(_native.CXX_FLAGS)})
 
 
 def phase2_kernels(dev):
@@ -2978,15 +2990,52 @@ def tools_checks(dev):
                                      "enforced_limit_ms": 3.0 * budget}}
 
 
-def host_paths():
-    """The host paths that the JAX package builds in C++ (queue 1 item 5):
-    grid_generate(1024, 1024) against the reference's enforced 80 ms, and
-    the PNG encoder on a 7680x4320 frame; median of 5 and 3 calls."""
-    gg = []
-    for _ in range(5):
+def numpy_grid(nx, nz):
+    """grid_generate's numpy path before the core: make_grid and the u32 copy."""
+    xy, uv, idx = _mesh.make_grid(nx, nz, 1.0, 1.0)
+    return xy, uv, idx.astype(np.uint32)
+
+
+def grid_generate_turns(reps=5):
+    """grid_generate(1024, 1024), which runs the C++ core, and the numpy path
+    (numpy_grid), in turns, reps calls each; host clock, ms."""
+    times = {"core": [], "numpy": []}
+    for _ in range(reps):
+        calls = _native.grid_generate_native.calls
         t0 = time.perf_counter()
         vt.grid_generate(1024, 1024)
-        gg.append((time.perf_counter() - t0) * 1e3)
+        times["core"].append((time.perf_counter() - t0) * 1e3)
+        if _native.grid_generate_native.calls != calls + 1:
+            raise AssertionError("grid_generate(1024, 1024) did not take the C++ core")
+        t0 = time.perf_counter()
+        numpy_grid(1024, 1024)
+        times["numpy"].append((time.perf_counter() - t0) * 1e3)
+    return times["core"], times["numpy"]
+
+
+def host_paths():
+    """The host paths that the JAX package builds in C++: grid_generate
+    (1024, 1024) through the port's core (csrc/host.cpp), held bit for bit
+    to make_grid and timed in turns with the numpy path against the
+    reference's enforced 80 ms (median of 5 each), and the stdlib PNG
+    encoder on a 7680x4320 frame (median of 3)."""
+    for spacing in ((1.0, 1.0), (0.1, 1 / 3)):
+        calls = _native.grid_generate_native.calls
+        out = vt.grid_generate(1024, 1024, spacing)
+        if _native.grid_generate_native.calls != calls + 1:
+            raise AssertionError(f"grid_generate(1024, 1024, {spacing}) did not take "
+                                 "the C++ core")
+        want = _mesh.make_grid(1024, 1024, *spacing)
+        for got, ref in zip(out[:2], want[:2]):
+            if got.dtype != np.float32 or got.tobytes() != ref.tobytes():
+                raise AssertionError(f"the C++ core's grid at {spacing} is not make_grid's")
+        if out[2].dtype != np.uint32 or not np.array_equal(out[2], want[2]):
+            raise AssertionError(f"the C++ core's indices at {spacing} are not make_grid's")
+    core, numpy_path = grid_generate_turns()
+    if statistics.median(core) > GRID_GENERATE_BUDGET_MS:
+        raise AssertionError(f"grid_generate(1024, 1024) took {statistics.median(core)} ms "
+                             f"(median of 5), over the reference's "
+                             f"{GRID_GENERATE_BUDGET_MS} ms")
     frame = vt.render_spike_frames(POSTER[0], POSTER[1], VGRID, [POSTER_EYE])[0]
     path = os.path.join(OUT_DIR, "poster_7680x4320.png")
     png = []
@@ -2996,8 +3045,13 @@ def host_paths():
         png.append((time.perf_counter() - t0) * 1e3)
     if not np.array_equal(png_pixels(path), frame):
         raise AssertionError("the 7680x4320 PNG does not round-trip its pixels")
-    return {"grid_generate_1024_ms": {"median": statistics.median(gg), "all": gg,
-                                      "budget": GRID_GENERATE_BUDGET_MS},
+    return {"grid_generate_1024_ms": {
+                "median": statistics.median(core), "all": core,
+                "budget": GRID_GENERATE_BUDGET_MS, "path": "C++ core (csrc/host.cpp)",
+                "equal_to_make_grid": [[1.0, 1.0], [0.1, 1 / 3]]},
+            "grid_generate_1024_numpy_ms": {
+                "median": statistics.median(numpy_path), "all": numpy_path,
+                "path": "make_grid + u32 copy", "in_turns_with": "core"},
             "save_png_rgba_7680x4320_ms": {"median": statistics.median(png), "all": png,
                                            "bytes": os.path.getsize(path)}}
 

@@ -14,13 +14,16 @@ and the Python wrapper src/terrain/mesh.rs:157-203):
 Implementation is vectorized NumPy instead of the reference's scalar loops;
 output is bit-identical because every element goes through the same f32 ops
 in the same order (x*dx - cx etc.). A copy of ``vulkan_forge/_mesh.py``
-without its native fast path: importing ``vulkan_forge`` loads jax.
+(importing ``vulkan_forge`` loads jax); ``grid_generate`` runs the port's
+own C++ core (``_native``, ``csrc/host.cpp``), bit-equal to ``make_grid``.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+
+from . import _native
 
 
 def make_grid(w: int, h: int, dx: float, dy: float):
@@ -93,9 +96,8 @@ def grid_generate(nx: int, nz: int, spacing: Tuple[float, float] = (1.0, 1.0),
     if origin_str != "center":
         raise ValueError("origin must be 'center'")
 
-    xy, uv, idx = make_grid(nx, nz, dx, dy)
-    return (np.ascontiguousarray(xy), np.ascontiguousarray(uv),
-            np.ascontiguousarray(idx.astype(np.uint32)))
+    # The C++ core: make_grid's output bit for bit, indices as u32.
+    return _native.grid_generate_native(nx, nz, dx, dy)
 
 
 def build_grid_xyuv(n: int):

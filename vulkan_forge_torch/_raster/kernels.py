@@ -73,6 +73,7 @@ from pathlib import Path
 
 import torch
 
+from .._build import BUILD_DIR
 from . import fragment, packed, segments, tiles, vtx
 from .setup import REC_WIDTH, TILE, Binning, tile_grid
 
@@ -81,7 +82,6 @@ _CSRC = _PKG_DIR / "csrc"
 _SOURCES = (_CSRC / "raster.cu", _CSRC / "vtx.cu", _CSRC / "packed.cu",
             _CSRC / "segments.cu")
 _HEADERS = (_CSRC / "raster_common.cuh",)
-BUILD_DIR = _PKG_DIR.parent / "build" / "vulkan_forge_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
