@@ -194,20 +194,45 @@ Phases, each printing one line, in order:
      the vtx route); the device's busy share and the ops with the most
      device time. It runs after the main paths' launch counts are read.
 
-Then one JSON line with the per-kernel record (all thirteen kernels), and last
-the line {"ok": true, "device": {...}}. Any failure raises and exits
+  6. the last entry points, slice 14 (after the timing phases): python -m
+     vulkan_forge_torch.bench as processes on the card -- the headline
+     (g1024 x4, 800x600) twice, in turns with phase 4b's direct batch and
+     with the bench's own window (bench.measure) in this process (bench,
+     direct, in-process, in-process, direct, bench; 5 camera sets each),
+     then VF_BENCH_GRID=128 (x32), VF_BENCH_DEM=2048 and VF_DENSE=record
+     at g128 --, each run's stdout
+     held to one JSON line with bench.py's metric for its environment, the
+     route that ran (vtx, or record), device cuda, the card's nvidia-smi
+     line, 5 reps, and its launches (counted in the process: each route
+     kernel once per camera set, 6, no other kernel); then the five example
+     twins (python -m vulkan_forge_torch.examples.<name> --device cuda)
+     together in a temporary directory and again in-process in another:
+     exit 0, the same printed lines (but the Renderer's timing metrics),
+     PNG pixels equal, and the launches each twin makes (the triangles 2 of
+     vf_raster_gbuffer, terrain 1 and terrain_normals_flip 2 of each indexed
+     kernel, add_terrain none) in both runs.
+
+Then a line that lists any device time whose profiler sessions all missed
+(kernel_device_ms; that time is then queued_device_ms's: CUDA events around
+launches queued behind a spin kernel), one JSON line with the per-kernel
+record (all thirteen kernels), and last the line {"ok": true, "device":
+{...}}. Any failure raises and exits
 nonzero. It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import importlib
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -215,6 +240,7 @@ import numpy as np
 import torch
 
 import vulkan_forge_torch as vt
+from vulkan_forge_torch import bench
 from vulkan_forge_torch import (_camera, _colormap, _device, _formats, _io, _mesh,
                                 _native, _renderer)
 from vulkan_forge_torch._parity import (FS_MAX_FRACTION, VARYING_RTOL,
@@ -289,6 +315,30 @@ def cuda_ms(fn, reps=REPS, warmup=2, inner=1):
 
 
 KERNEL_INNER = 20
+PROFILE_ATTEMPTS = 12
+# Spin cycles queued ahead of a timed burst of launches (torch.cuda._sleep):
+# ~10 ms at the H100's clock, longer than the host takes to enqueue a burst.
+QUEUE_SPIN_CYCLES = 20_000_000
+# The kernel_device_ms calls whose profiler sessions all missed.
+PROFILER_FALLBACKS = []
+
+
+def queued_device_ms(fn, calls=KERNEL_INNER):
+    """Device milliseconds per call of fn() from CUDA events around ``calls``
+    calls queued behind a spin kernel: the device runs them back to back
+    while the host enqueues them, so the host's work per call is hidden
+    (the gaps between launches are not)."""
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def kernel_device_ms(fn, key="raster_kernel", calls=KERNEL_INNER):
@@ -301,8 +351,14 @@ def kernel_device_ms(fn, key="raster_kernel", calls=KERNEL_INNER):
 
     fn()
     sync()
-    for _ in range(5):              # a session may record none of them
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # Sessions on the card drop activity records: some keep part of the
+    # launches, and late in a long run several in a row have kept none
+    # (phases 4b and 4d). Retries that alternate the set-up recovered every
+    # such miss seen; should PROFILE_ATTEMPTS sessions all miss, the time is
+    # queued_device_ms's, and PROFILER_FALLBACKS says so.
+    setups = ([ProfilerActivity.CPU, ProfilerActivity.CUDA], [ProfilerActivity.CUDA])
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=setups[attempt % 2]) as prof:
             for _ in range(calls):
                 fn()
             sync()
@@ -310,8 +366,13 @@ def kernel_device_ms(fn, key="raster_kernel", calls=KERNEL_INNER):
         seen = sum(a.count for a in ev)
         if seen:
             break
-    if not seen or seen > calls:
+    if seen > calls:
         raise AssertionError(f"the profiler recorded {seen} {key} launches in {calls} calls")
+    if not seen:
+        ms = queued_device_ms(fn, calls)
+        PROFILER_FALLBACKS.append({"key": key, "profiler_sessions": PROFILE_ATTEMPTS,
+                                   "queued_events_ms": ms})
+        return ms
     return sum(a.self_device_time_total for a in ev) / seen / 1e3
 
 
@@ -323,14 +384,10 @@ def orbit_eyes(n, phase=0.0):
 
 
 def orbit_cameras(n, width, height, phase=0.0):
-    """n cameras orbiting the spike terrain (bench.py:55-67), looking at the
-    origin: fovy 45, near 0.1, far 100 (render_spike_frames' defaults)."""
-    aspect = np.float32(width) / np.float32(height)
-    views = [_camera.look_at_rh(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
-             for eye in orbit_eyes(n, phase)]
-    proj = _camera.perspective_wgpu(np.float32(math.radians(45.0)), aspect,
-                                    np.float32(0.1), np.float32(100.0))
-    return np.stack(views), np.stack([proj] * n)
+    """n cameras orbiting the spike terrain, looking at the origin: fovy 45,
+    near 0.1, far 100 (render_spike_frames' defaults); the bench's
+    (bench.py:55-67, bit for bit)."""
+    return bench.orbit_cameras(n, phase, width, height)
 
 
 def scene_height():
@@ -2260,6 +2317,7 @@ def phase4d_hw_timing(smi, dev):
 
 SEG_KERNELS = (("vf_seg_gbuffer", kernels.seg_gbuffer),
                ("vf_seg_shade_shipped", kernels.seg_shade_shipped))
+ALL_KERNELS = VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
 POSTER = (7680, 4320)                      # 8K UHD: a print-size poster
 MAP_TILE = (4096, 4096)                    # a 4096^2 map tile
 SEG_CHECK = (256, 4352)                    # tall, yet small enough for the plain walk
@@ -2796,7 +2854,7 @@ def spike_frames_headline(dev):
     launches."""
     eyes = orbit_eyes(VBATCH, phase=0.7)
     views, projs = orbit_cameras(VBATCH, W, H, phase=0.7)
-    every = VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
+    every = ALL_KERNELS
     for _, fn in every:
         fn.launches = 0
     frames = vt.render_spike_frames(W, H, VGRID, eyes)
@@ -3076,6 +3134,214 @@ def phase3f_public_surface(smi, dev):
         tools=tools, host_paths=host)
 
 
+# ---------------- slice 14: the bench entry and the example twins ----------------
+
+# python -m vulkan_forge_torch.bench runs: (label, environment, route). The
+# headline is bench.py's scene; the others are the configurations PERF.md
+# records beside it.
+BENCH_RUNS = (("headline", {}, "vtx"),
+              ("g128", {"VF_BENCH_GRID": "128"}, "vtx"),
+              ("dem2048", {"VF_BENCH_DEM": "2048"}, "vtx"),
+              ("record_g128", {"VF_BENCH_GRID": "128", "VF_DENSE": "record"}, "record"))
+# The kernels of each route's shaded batch, one launch per camera set.
+ROUTE_KERNELS = {"vtx": ("vf_vtx_cover", "vf_vtx_cover_big", "vf_vtx_resolve_shade_shipped"),
+                 "record": ("vf_raster_shade_shipped",)}
+# The example twins and the launches each makes (none: add_terrain renders
+# nothing; the Renderer's frames take the indexed route, one launch each).
+PACKED_NAMES = tuple(name for name, _ in PACKED_KERNELS)
+EXAMPLES = {"triangle": {"vf_raster_gbuffer": 2},
+            "two_triangles": {"vf_raster_gbuffer": 2},
+            "terrain": dict.fromkeys(PACKED_NAMES, 1),
+            "add_terrain": {},
+            "terrain_normals_flip": dict.fromkeys(PACKED_NAMES, 2)}
+ENTRY_TIMEOUT = 300
+# Runs a module as `python -m` does, then writes every kernel wrapper's launch
+# count to the JSON file VF_SMOKE_LAUNCHES names (the module's exit code stands).
+LAUNCHER = (
+    "import json, os, runpy, sys\n"
+    "from vulkan_forge_torch._raster import kernels\n"
+    "mod = sys.argv[1]\n"
+    "sys.argv = sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    with open(os.environ['VF_SMOKE_LAUNCHES'], 'w') as f:\n"
+    "        json.dump({'vf_' + n: w.launches for n, w in vars(kernels).items()\n"
+    "                   if hasattr(w, 'launches')}, f)\n")
+
+
+def run_entries(specs, cwd):
+    """Start each entry point (``python -m <module> <args>`` through
+    LAUNCHER, on the card) together; wait for all; kill any that outlives
+    ENTRY_TIMEOUT. specs: {label: (module, args, extra env)}. Returns
+    {label: (rc, stdout, stderr, launches)}."""
+    out_dir = os.path.join(OUT_DIR, "entries")
+    os.makedirs(out_dir, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("VF_ENFORCE_PERF", "VF_UPDATE_PERF_BASELINE")}
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    procs, files = {}, []
+    try:
+        for label, (module, args, extra) in specs.items():
+            logs = [open(os.path.join(out_dir, f"{label}.{s}"), "w+") for s in ("out", "err")]
+            files += logs
+            counts = os.path.join(out_dir, f"{label}.launches.json")
+            if os.path.exists(counts):
+                os.remove(counts)
+            procs[label] = (subprocess.Popen(
+                [sys.executable, "-c", LAUNCHER, module, *args], cwd=cwd,
+                env=dict(env, VF_SMOKE_LAUNCHES=counts, **extra), stdout=logs[0],
+                stderr=logs[1], text=True), logs, counts)
+        deadline = time.monotonic() + ENTRY_TIMEOUT
+        results = {}
+        for label, (p, logs, counts) in procs.items():
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            for log in logs:
+                log.seek(0)
+            launches = json.load(open(counts)) if os.path.exists(counts) else None
+            results[label] = (p.returncode, logs[0].read(), logs[1].read(), launches)
+        return results
+    finally:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in files:
+            log.close()
+
+
+def check_launches(launches, want, label):
+    """Each kernel launched exactly as often as ``want`` says, the rest never."""
+    every = [name for name, _ in ALL_KERNELS]
+    got = {name: (launches or {}).get(name, 0) for name in every}
+    if launches is None or got != {name: want.get(name, 0) for name in every}:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    return {name: n for name, n in got.items() if n}
+
+
+def bench_run(label, extra, route, smi):
+    """One ``python -m vulkan_forge_torch.bench`` on the card, its line held
+    to the contract: one JSON line, bench.py's metric for the environment,
+    the route that ran, the card, 5 reps, each route kernel launched once per
+    camera set and no other kernel. Returns (line, per-rep ms, launches)."""
+    rc, out, err, launches = run_entries(
+        {label: ("vulkan_forge_torch.bench", [], extra)}, ROOT)[label]
+    if rc != 0:
+        raise AssertionError(f"bench {label} exited {rc}:\n{out}\n{err[-4000:]}")
+    lines = out.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench {label}: stdout is not one line:\n{out}")
+    line = json.loads(lines[0])
+    grid = int(extra.get("VF_BENCH_GRID", VGRID))
+    batch = VBATCH if grid >= 512 else BATCH
+    dem = int(extra.get("VF_BENCH_DEM", 0))
+    metric = f"terrain_throughput_grid{grid}_{W}x{H}_b{batch}" + (f"_dem{dem}" if dem else "")
+    ms = line.get("ms_per_batch", {})
+    ok = (line.get("metric") == metric and line.get("path") == route
+          and line.get("device") == "cuda" and line.get("card") == smi
+          and line.get("unit") == "Mpix/s" and ms.get("reps") == REPS
+          and line.get("value", 0) > 0
+          and math.isclose(line["value"], W * H * batch / (ms["median"] * 1e3), rel_tol=1e-9)
+          and math.isclose(line["vs_baseline"], line["value"] / 21.0, rel_tol=1e-9))
+    if not ok:
+        raise AssertionError(f"bench {label}: line {line} breaks the contract "
+                             f"(metric {metric}, path {route}, card {smi!r})")
+    diag = json.loads([e for e in err.splitlines() if e.startswith('{"bench"')][-1])
+    used = check_launches(launches, dict.fromkeys(ROUTE_KERNELS[route], REPS + 1),
+                          f"bench {label}")
+    return line, diag["times_ms"], used
+
+
+def headline_turns(smi, dev):
+    """The bench's headline in turns with phase 4b's direct batch (the vtx
+    route, mesh on the card; cameras, LUT and scalars copied in the window)
+    and with the bench's own window in this process (bench.measure:
+    everything on the card first): bench, direct, in-process, in-process,
+    direct, bench. Each bench run is a process of its own."""
+    cams = [orbit_cameras(VBATCH, W, H, phase=0.31 * r + 0.05) for r in range(REPS + 1)]
+    direct = route_fn("vtx", VGRID, dev)
+    times = {"bench": [], "direct_batch": [], "bench_in_process": []}
+    lines, launches = [], None
+    for arm in ("bench", "direct_batch", "bench_in_process", "bench_in_process",
+                "direct_batch", "bench"):
+        if arm == "bench":
+            line, ms, launches = bench_run("headline", {}, "vtx", smi)
+            lines.append(line)
+            times["bench"].append(ms)
+        elif arm == "bench_in_process":
+            times[arm].append([t * 1e3 for t in bench.measure(bench.config({}), dev)["times"]])
+        else:
+            direct(*cams[-1])
+            sync()
+            times["direct_batch"].append(host_ms(direct, cams[:REPS]))
+    med = {arm: [statistics.median(t) for t in runs] for arm, runs in times.items()}
+    return {"lines": lines, "ms_all": times, "ms_median_per_run": med,
+            "spread_ms": {arm: max(map(max, runs)) - min(map(min, runs))
+                          for arm, runs in times.items()},
+            "mpix_per_s_median": {arm: VBATCH * W * H / (statistics.median(
+                [t for r in runs for t in r]) * 1e3) for arm, runs in times.items()},
+            "launches": launches}
+
+
+def example_checks(dev):
+    """The five example twins as processes on the card, together, in a
+    temporary directory; each again in-process (main(["--device", "cuda"])
+    in a second one). Exit 0, the same printed lines (but the Renderer's
+    timing metrics), the same PNG pixels, and the launches EXAMPLES names,
+    in both runs."""
+    out = {}
+    with tempfile.TemporaryDirectory() as sub_dir, tempfile.TemporaryDirectory() as own_dir:
+        t0 = time.perf_counter()
+        res = run_entries({name: (f"vulkan_forge_torch.examples.{name}", ["--device", "cuda"],
+                                  {}) for name in EXAMPLES}, sub_dir)
+        together_s = time.perf_counter() - t0
+        cwd = os.getcwd()
+        for name, want in EXAMPLES.items():
+            rc, stdout, err, launches = res[name]
+            if rc != 0:
+                raise AssertionError(f"example {name} exited {rc}:\n{stdout}\n{err[-4000:]}")
+            used = check_launches(launches, want, f"example {name}")
+            mod = importlib.import_module(f"vulkan_forge_torch.examples.{name}")
+            for _, fn in ALL_KERNELS:
+                fn.launches = 0
+            text = io.StringIO()
+            os.chdir(own_dir)
+            try:
+                with contextlib.redirect_stdout(text):
+                    mod.main(["--device", "cuda"])
+                sync()
+            finally:
+                os.chdir(cwd)
+            check_launches({n: fn.launches for n, fn in ALL_KERNELS}, want,
+                           f"example {name} in-process")
+            keep = lambda s: [ln for ln in s.splitlines() if not ln.startswith("metrics:")]
+            if keep(stdout) != keep(text.getvalue()):
+                raise AssertionError(f"example {name} printed\n{stdout}\nin-process\n"
+                                     f"{text.getvalue()}")
+            pngs = sorted(f for f in os.listdir(sub_dir) if f in stdout)
+            for png in pngs:
+                if not np.array_equal(png_pixels(os.path.join(sub_dir, png)),
+                                      png_pixels(os.path.join(own_dir, png))):
+                    raise AssertionError(f"example {name}: {png} differs from the "
+                                         "in-process frame")
+            out[name] = {"lines": stdout.splitlines(), "pngs_equal": pngs, "launches": used}
+        if sorted(os.listdir(sub_dir)) != sorted(os.listdir(own_dir)):
+            raise AssertionError(f"examples wrote {os.listdir(sub_dir)}, in-process "
+                                 f"{os.listdir(own_dir)}")
+    return {"together_s": together_s, **out}
+
+
+def phase6_entry_points(smi, dev):
+    """Slice 14's entry points on the card."""
+    turns = headline_turns(smi, dev)
+    runs = {}
+    for label, extra, route in BENCH_RUNS[1:]:
+        line, ms, used = bench_run(label, extra, route, smi)
+        runs[label] = {"line": line, "ms_all": ms, "launches": used}
+    examples = example_checks(dev)
+    say("entry_points", card=smi, bench_headline=turns, bench=runs, examples=examples)
+
+
 def profile_window(render, cams, label, top=12):
     """torch.profiler over render(*c) for each camera set: the device's busy
     share (union of device-event intervals over the span from the first to
@@ -3181,6 +3447,8 @@ def main() -> int:
     if opts.profile:
         phase5_profile(dev)
         sync()
+    phase6_entry_points(smi, dev)
+    sync()
     src = "vulkan_forge_torch/csrc/raster.cu"
     vsrc = "vulkan_forge_torch/csrc/vtx.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -3238,6 +3506,7 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": seg_err[name],
                      **{k: seg_rec[name][k] for k in keys + ("plain_at", "ms_band")},
                      "library_ms": None})
+    say("profiler", fallbacks=PROFILER_FALLBACKS)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
