@@ -212,10 +212,34 @@ Phases, each printing one line, in order:
      vf_raster_gbuffer, terrain 1 and terrain_normals_flip 2 of each indexed
      kernel, add_terrain none) in both runs.
 
+  7. the lab kernels, slice 16 (csrc/lab.cu, built into a library of its
+     own: its seconds and ptxas report): the four lab twins (python -m
+     vulkan_forge_torch.lab.fs_ops, fs_chain, slab_copy, slab_transpose)
+     as processes on the card, together, launches counted in each (each
+     its own kernel only: 10, 1, 103, 9), their lines printed; then each
+     kernel against its plain version on the card: every fs_ops op
+     within the CUDA C++ Programming Guide's maximum ulp error against f64
+     (lab/fs_ops.py GUIDE names the row), kernel against torch-CUDA
+     reported; fs_chain's 15 rows bit-equal to the plain chain at the
+     script's two pixels and 4096 seeded ones, and its u8f row equal to
+     the probed channel's byte of shade_shipped's word; fs_chain
+     --from-scene on each of its scenes (card and CPU bytes; the chain at
+     any byte that differs, which must reproduce both images' bytes); the
+     slab copy equal to plain at (32, 1024), (8, 384), (300, 4096) and the
+     g1024 x4 fields as (28, 1048576), ragged columns refused; the
+     transpose at (32, 128), (8, 384), (100, 70) and the loop at (128,
+     128) x 4096 with and without it, exact; each with its per-call and
+     device time, the plain version's, the library call's where one
+     exists, and its bound. A line "lab_findings": (a) per op, kernel
+     against torch-CUDA and both against f64; (b) per scene, the bytes
+     that differ between card and CPU; (c) where some differ, the first
+     intermediate that diverges; (d) the slab copy's times and the loop's
+     ns per iteration with and without the transpose.
+
 Then a line that lists any device time whose profiler sessions all missed
 (kernel_device_ms; that time is then queued_device_ms's: CUDA events around
 launches queued behind a spin kernel), one JSON line with the per-kernel
-record (all thirteen kernels), and last the line {"ok": true, "device":
+record (all seventeen kernels), and last the line {"ok": true, "device":
 {...}}. Any failure raises and exits
 nonzero. It imports nothing of JAX and nothing of the JAX package.
 """
@@ -247,6 +271,11 @@ from vulkan_forge_torch._parity import (FS_MAX_FRACTION, VARYING_RTOL,
                                         assert_fs_policy, assert_gbuffer_close)
 from vulkan_forge_torch._raster import (fragment, hw_oracle, kernels, packed, pipeline,
                                         segments, setup, tiles, transform, vtx)
+from vulkan_forge_torch.lab import _kernels as lab_kernels
+from vulkan_forge_torch.lab import fs_chain as lab_fs_chain
+from vulkan_forge_torch.lab import fs_ops as lab_fs_ops
+from vulkan_forge_torch.lab import slab_copy as lab_slab_copy
+from vulkan_forge_torch.lab import slab_transpose as lab_slab_transpose
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -476,13 +505,13 @@ def blocks_per_sm(registers, smem_bytes, threads=256):
     return min(by_regs, by_smem, 64 // warps, 32)
 
 
-def ptxas_summary(log):
+def ptxas_summary(log, entries=ENTRIES):
     """Per kernel: registers, shared memory, stack and spills from ptxas -v,
     and the blocks per SM they allow."""
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            cur = next((name for key, name in ENTRIES if key in ln), ln.split("'")[1])
+            cur = next((name for key, name in entries if key in ln), ln.split("'")[1])
             out[cur] = {}
         elif cur and "stack frame" in ln:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
@@ -2317,7 +2346,12 @@ def phase4d_hw_timing(smi, dev):
 
 SEG_KERNELS = (("vf_seg_gbuffer", kernels.seg_gbuffer),
                ("vf_seg_shade_shipped", kernels.seg_shade_shipped))
-ALL_KERNELS = VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
+LAB_KERNELS = (("vf_lab_fs_ops", lab_kernels.fs_ops),
+               ("vf_lab_fs_chain", lab_kernels.fs_chain),
+               ("vf_lab_slab_copy", lab_kernels.slab_copy),
+               ("vf_lab_slab_transpose", lab_kernels.slab_transpose))
+ALL_KERNELS = (VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
+               + LAB_KERNELS)
 POSTER = (7680, 4320)                      # 8K UHD: a print-size poster
 MAP_TILE = (4096, 4096)                    # a 4096^2 map tile
 SEG_CHECK = (256, 4352)                    # tall, yet small enough for the plain walk
@@ -3160,14 +3194,17 @@ ENTRY_TIMEOUT = 300
 LAUNCHER = (
     "import json, os, runpy, sys\n"
     "from vulkan_forge_torch._raster import kernels\n"
+    "from vulkan_forge_torch.lab import _kernels as lab\n"
     "mod = sys.argv[1]\n"
     "sys.argv = sys.argv[1:]\n"
     "try:\n"
     "    runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
     "finally:\n"
     "    with open(os.environ['VF_SMOKE_LAUNCHES'], 'w') as f:\n"
-    "        json.dump({'vf_' + n: w.launches for n, w in vars(kernels).items()\n"
-    "                   if hasattr(w, 'launches')}, f)\n")
+    "        counts = {'vf_' + n: w.launches for n, w in vars(kernels).items()\n"
+    "                  if hasattr(w, 'launches')}\n"
+    "        counts.update({'vf_lab_' + w.__name__: w.launches for w in lab.LAUNCHED})\n"
+    "        json.dump(counts, f)\n")
 
 
 def run_entries(specs, cwd):
@@ -3342,6 +3379,260 @@ def phase6_entry_points(smi, dev):
     say("entry_points", card=smi, bench_headline=turns, bench=runs, examples=examples)
 
 
+# ---------------- phase 7: the lab kernels (slice 16) ----------------
+
+# Kernel name of each compiled lab entry (a substring of its mangled name).
+LAB_ENTRIES = (("lab_fs_ops_kernel", "vf_lab_fs_ops"),
+               ("lab_fs_chain_kernel", "vf_lab_fs_chain"),
+               ("lab_slab_copy_kernel", "vf_lab_slab_copy"),
+               ("lab_transpose_kernel", "vf_lab_slab_transpose"),
+               ("lab_slab_loop_kernelILb0", "vf_lab_slab_transpose, loop"),
+               ("lab_slab_loop_kernelILb1", "vf_lab_slab_transpose, loop with transpose"))
+# The lab twins (python -m vulkan_forge_torch.lab.<name> on the card) and
+# the launches each makes: fs_ops one per op and one for exp_log_pow's logf;
+# fs_chain one; slab_copy the check and the timing (2 warm-ups + 5 x 20);
+# slab_transpose the check and two loops (a warm-up + 3 timed each).
+LAB_TWINS = {"fs_ops": {"vf_lab_fs_ops": len(lab_kernels.OPS) + 1},
+             "fs_chain": {"vf_lab_fs_chain": 1},
+             "slab_copy": {"vf_lab_slab_copy": 1 + 2 + 5 * 20},
+             "slab_transpose": {"vf_lab_slab_transpose": 1 + 2 * 4}}
+# f32 operations per element of each fs_ops op (the product, then the
+# function; max, log, product and exp for exp_log_pow).
+LAB_OP_COUNT = {"sin": 2, "cos": 2, "sqrt": 1, "inv_sqrt": 2, "rsqrt": 1, "pow_srgb": 1,
+                "exp": 2, "log": 1, "exp_log_pow": 4}
+# The chain's f32 operations per pixel: shade_shipped's (SHADE_OPS) and the
+# chain's own copy of one channel's (about 40, counted from csrc/lab.cu).
+LAB_CHAIN_OPS = SHADE_OPS + 40
+LAB_CHAIN_PIXELS = 4096
+# The slab copy at the resolves' fields: g1024 x4 as (frames * 7, N).
+LAB_FIELDS = (VBATCH * vtx.FIELDS, VGRID * VGRID)
+
+
+def lab_time(run, plain, key, nbytes, ops, library=None, inner=KERNEL_INNER, reps=REPS):
+    """A lab kernel's per-call ms (CUDA events), device ms (profiler key
+    ``key``), its plain version's ms, the library call's and the bound."""
+    return {"ms": cuda_ms(run, reps=reps, inner=inner),
+            "device_ms": kernel_device_ms(run, key=key, calls=max(inner, 3)),
+            "plain_ms": cuda_ms(plain, reps=reps, inner=inner),
+            "library_ms": None if library is None else cuda_ms(library, reps=reps, inner=inner),
+            **bound_of(nbytes, ops)}
+
+
+def bits_equal(a, b):
+    return bool(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+
+
+def lab_fs_ops_checks(dev):
+    """Finding (a): each op on the card against torch-CUDA and against f64,
+    within the CUDA C++ Programming Guide's bound; per-op times."""
+    rows = lab_fs_ops.measure(dev)
+    for r in rows:
+        if not lab_fs_ops.within_guide(r):
+            raise AssertionError(f"vf_lab_fs_ops {r['op']} exceeds the guide's bound: {r}")
+    t, u, p = (torch.from_numpy(a).to(dev) for a in lab_fs_ops.make_inputs())
+    library = {"sqrt": lambda: torch.sqrt(p), "rsqrt": lambda: torch.rsqrt(p),
+               "pow_srgb": lambda: torch.pow(u, 1.0 / 2.4), "log": lambda: torch.log(p)}
+    per_op = {}
+    for r in rows:
+        op = r["op"]
+        run = lambda op=op: lab_kernels.fs_ops(t, u, p, op)
+        plain = lambda op=op: lab_kernels.fs_ops_plain(t, u, p, op)
+        err = float((run() - plain()).abs().max())
+        per_op[op] = {**r, "max_abs_err": err,
+                      **lab_time(run, plain, "lab_fs_ops_kernel", 2 * t.numel() * 4,
+                                 LAB_OP_COUNT[op] * t.numel(), library.get(op))}
+    return per_op
+
+
+def lab_chain_inputs(dev, n=LAB_CHAIN_PIXELS, seed=5):
+    rng = np.random.default_rng(seed)
+    cols = [rng.uniform(-0.7, 0.7, n), rng.uniform(-16, 16, n), rng.uniform(-16, 16, n)]
+    cols = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in cols]
+    return cols + [torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)]
+
+
+def lab_fs_chain_checks(dev):
+    """vf_lab_fs_chain against its plain version on the card, all 15 rows bit
+    for bit (tolerance 0: the card's plain ops are the kernel's functions),
+    and its u8f row equal to the probed channel's byte of shade_shipped's
+    word; at the script's two pixels and 4096 seeded ones. Times at both."""
+    _, lut_rgb, par = lab_fs_chain.script_inputs(dev)
+    script = [torch.tensor([px[i] for px in lab_fs_chain.PIXELS], device=dev,
+                           dtype=torch.float32 if i < 3 else torch.int32) for i in range(4)]
+    out = {}
+    u8f = lab_kernels.CHAIN_NAMES.index("u8f")
+    for label, cols in (("script_pixels", script), ("seeded_4096", lab_chain_inputs(dev))):
+        got = lab_kernels.fs_chain(*cols, lut_rgb, par)
+        want = lab_kernels.fs_chain_plain(*cols, lut_rgb, par)
+        if not bits_equal(got, want):
+            rows = [n for i, n in enumerate(lab_kernels.CHAIN_NAMES + ("word",))
+                    if not bits_equal(got[i], want[i])]
+            raise AssertionError(f"vf_lab_fs_chain differs from plain ({label}) in {rows}")
+        byte = (got[-1].view(torch.int32) >> (8 * cols[3])) & 0xFF
+        if not torch.equal(got[u8f], byte.to(torch.float32)):
+            raise AssertionError(f"vf_lab_fs_chain ({label}): u8f is not shade_shipped's byte")
+        n = cols[0].numel()
+        run = lambda cols=cols: lab_kernels.fs_chain(*cols, lut_rgb, par)
+        plain = lambda cols=cols: lab_kernels.fs_chain_plain(*cols, lut_rgb, par)
+        out[label] = {"pixels": n, "max_abs_err": 0.0,
+                      **lab_time(run, plain, "lab_fs_chain_kernel",
+                                 n * (3 * 4 + 4 + lab_kernels.CHAIN_ROWS * 4) + 256 * 3 * 4 + 20,
+                                 n * LAB_CHAIN_OPS)}
+    return out
+
+
+def lab_slab_copy_checks(dev):
+    """vf_lab_slab_copy equal to its plain version at the script's shape,
+    (8, 384), (300, 4096) (dynamic shared memory above 48 KB) and the
+    resolves' fields (g1024 x4 as (28, 1048576)); ragged columns raise.
+    Times at the script's shape and at the fields'."""
+    for shape in ((32, 1024), (8, 384), (300, 4096), LAB_FIELDS):
+        src = lab_slab_copy.source(*shape, device=dev)
+        if not torch.equal(lab_kernels.slab_copy(src), lab_kernels.slab_copy_plain(src)):
+            raise AssertionError(f"vf_lab_slab_copy differs from plain at {shape}")
+    try:
+        lab_kernels.slab_copy(torch.zeros(8, 1000, device=dev))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("vf_lab_slab_copy took 1000 columns")
+    out = {}
+    for label, shape in (("script", (lab_slab_copy.ROWS, lab_slab_copy.NLANES)),
+                         ("fields_g1024_x4", LAB_FIELDS)):
+        src = lab_slab_copy.source(*shape, device=dev)
+        out[label] = {"shape": list(shape), "max_abs_err": 0.0, **lab_time(
+            lambda src=src: lab_kernels.slab_copy(src),
+            lambda src=src: lab_kernels.slab_copy_plain(src), "lab_slab_copy_kernel",
+            2 * src.numel() * 4, src.numel(),
+            library=lambda src=src: src.unflatten(1, (-1, 128)).transpose(0, 1)
+            .reshape(-1, 128) * 2.0)}
+    return out
+
+
+def lab_slab_transpose_checks(dev):
+    """vf_lab_slab_transpose equal to its plain version: k_correct at the
+    script's (32, 128) and at (8, 384), (100, 70); k_loop at the script's
+    (128, 128) x 4096 with and without the transpose (integer sums below
+    2**24: exact in any order). Finding (d): ns per iteration of both loops;
+    the kernel's and the plain loop's times."""
+    for shape in ((32, 128), (8, 384), (100, 70)):
+        src = torch.arange(shape[0] * shape[1], dtype=torch.float32, device=dev).reshape(shape)
+        if not torch.equal(lab_kernels.slab_transpose(src), src.T):
+            raise AssertionError(f"vf_lab_slab_transpose differs from src.T at {shape}")
+    src = lab_slab_transpose.loop_source(dev)
+    iters = lab_slab_transpose.ITERS
+    S, cols = src.shape[0] // 4, src.shape[1]
+    out = {}
+    for transpose in (False, True):
+        got = lab_kernels.slab_transpose(src, iters, transpose)
+        if not torch.equal(got, lab_kernels.slab_transpose_plain(src, iters, transpose)):
+            raise AssertionError(f"vf_lab_slab_transpose's loop (transpose={transpose}) "
+                                 "differs from plain")
+        run = lambda t=transpose: lab_kernels.slab_transpose(src, iters, t)
+        plain = lambda t=transpose: lab_kernels.slab_transpose_plain(src, iters, t)
+        rec = {"iters": iters, "max_abs_err": 0.0,
+               **lab_time(run, plain, "lab_slab_loop_kernel", (src.numel() + cols) * 4,
+                          iters * (S + 1) * cols, inner=1, reps=3)}
+        rec["ns_per_iter"] = rec["ms"] * 1e6 / iters
+        rec["device_ns_per_iter"] = rec["device_ms"] * 1e6 / iters
+        out["loop_with_transpose" if transpose else "loop_without_transpose"] = rec
+    small = torch.arange(32 * 128, dtype=torch.float32, device=dev).reshape(32, 128)
+    out["k_correct"] = {"shape": [32, 128], **lab_time(
+        lambda: lab_kernels.slab_transpose(small), lambda: lab_kernels.slab_transpose_plain(small),
+        "lab_transpose_kernel", 2 * small.numel() * 4, 0,
+        library=lambda: small.T.contiguous())}
+    return out
+
+
+def phase7_lab(smi, dev):
+    """Slice 16's lab kernels: build, the four twins as processes on the
+    card (the main path, launches counted in each), each kernel against its
+    plain version, findings (a)-(d). Returns the kernels line's records."""
+    t0 = time.perf_counter()
+    path = lab_kernels.build()
+    lab_kernels.load()
+    seconds = time.perf_counter() - t0
+    ptxas = ptxas_summary(open(str(path) + ".log").read(), LAB_ENTRIES)
+    for entry in ptxas.values():      # the loops launch cols threads, dynamic smem
+        entry.pop("blocks_per_sm", None)
+    missing = [name for _, name in LAB_ENTRIES if name not in ptxas]
+    if missing:
+        raise AssertionError(f"ptxas reported no entry for {missing}")
+    with tempfile.TemporaryDirectory() as cwd:
+        res = run_entries({name: (f"vulkan_forge_torch.lab.{name}", [], {})
+                           for name in LAB_TWINS}, cwd)
+    launches, twins = dict.fromkeys(dict(LAB_KERNELS), 0), {}
+    for name, want in LAB_TWINS.items():
+        rc, stdout, err, counts = res[name]
+        if rc != 0:
+            raise AssertionError(f"lab twin {name} exited {rc}:\n{stdout}\n{err[-4000:]}")
+        for k, n in check_launches(counts, want, f"lab twin {name}").items():
+            launches[k] += n
+        if f"device: cuda ({smi})" not in stdout:
+            raise AssertionError(f"lab twin {name} did not name the card:\n{stdout}")
+        print(stdout, end="", flush=True)
+        twins[name] = stdout.splitlines()
+    if "lane-sliced DMA OK, match: True" not in twins["slab_copy"] \
+            or "in-kernel (32,128) transpose: OK" not in twins["slab_transpose"]:
+        raise AssertionError("a slab twin did not print its original's OK line")
+
+    ops = lab_fs_ops_checks(dev)
+    chain = lab_fs_chain_checks(dev)
+    scenes = {}
+    for name in lab_fs_chain.SCENES:
+        s = lab_fs_chain.from_scene(name, dev)
+        if not s["reproduces_images"]:
+            raise AssertionError(f"fs_chain --from-scene {name}: the chain's words do not "
+                                 "reproduce the images' bytes")
+        scenes[name] = s
+    sync()
+    copy = lab_slab_copy_checks(dev)
+    transpose = lab_slab_transpose_checks(dev)
+    say("lab", card=smi, build={"seconds": seconds, "library": os.path.relpath(path, ROOT),
+                                "ptxas": ptxas},
+        launches=launches, fs_ops=ops, fs_chain=chain, slab_copy=copy,
+        slab_transpose=transpose)
+    say("lab_findings", card=smi,
+        a={op: {k: r[k] for k in ("mismatches", "max_ulp", "kernel_vs_f64",
+                                  "kernel_vs_f64_misses", "plain_vs_f64",
+                                  "plain_vs_f64_misses", "guide_row")}
+           for op, r in ops.items()},
+        b={name: {"differ": s["differ"], "bytes": s["bytes"], "max_delta": s["max_delta"]}
+           for name, s in scenes.items()},
+        c={name: s["first_divergence"] for name, s in scenes.items() if s["differ"]},
+        d={"slab_copy": {k: {f: v[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms")}
+                         for k, v in copy.items()},
+           "ns_per_iter": {k: transpose[k]["ns_per_iter"]
+                           for k in ("loop_without_transpose", "loop_with_transpose")},
+           "device_ns_per_iter": {k: transpose[k]["device_ns_per_iter"]
+                                  for k in ("loop_without_transpose", "loop_with_transpose")}})
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    total = lambda key: sum(r[key] for r in ops.values())
+    return {
+        "vf_lab_fs_ops": {
+            "launches": launches["vf_lab_fs_ops"],
+            "max_abs_err": max(r["max_abs_err"] for r in ops.values()),
+            **{k: total(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes", "library_ms": None,
+            "per_op": {op: {k: r[k] for k in keys + ("max_ulp", "kernel_vs_f64")}
+                       for op, r in ops.items()}},
+        "vf_lab_fs_chain": {"launches": launches["vf_lab_fs_chain"],
+                            **{k: chain["script_pixels"][k] for k in keys + ("max_abs_err",)},
+                            "at_4096_pixels": {k: chain["seeded_4096"][k] for k in keys}},
+        "vf_lab_slab_copy": {"launches": launches["vf_lab_slab_copy"],
+                             **{k: copy["script"][k] for k in keys + ("max_abs_err",)},
+                             "at_fields_g1024_x4": {k: copy["fields_g1024_x4"][k]
+                                                    for k in keys}},
+        "vf_lab_slab_transpose": {
+            "launches": launches["vf_lab_slab_transpose"],
+            **{k: transpose["loop_with_transpose"][k] for k in keys + ("max_abs_err",)},
+            "ns_per_iter": transpose["loop_with_transpose"]["ns_per_iter"],
+            "without_transpose": {k: transpose["loop_without_transpose"][k]
+                                  for k in keys + ("ns_per_iter",)},
+            "k_correct": {k: transpose["k_correct"][k] for k in keys}},
+    }
+
+
 def profile_window(render, cams, label, top=12):
     """torch.profiler over render(*c) for each camera set: the device's busy
     share (union of device-event intervals over the span from the first to
@@ -3449,6 +3740,8 @@ def main() -> int:
         sync()
     phase6_entry_points(smi, dev)
     sync()
+    lab_rec = phase7_lab(smi, dev)
+    sync()
     src = "vulkan_forge_torch/csrc/raster.cu"
     vsrc = "vulkan_forge_torch/csrc/vtx.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -3506,6 +3799,15 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": seg_err[name],
                      **{k: seg_rec[name][k] for k in keys + ("plain_at", "ms_band")},
                      "library_ms": None})
+    # The lab kernels (csrc/lab.cu): each replaces the kernel a probe script
+    # launches; the times are at the twins' shapes (phase 7).
+    replaces = {"vf_lab_fs_ops": "scripts/exp_fs_ops.py:70",
+                "vf_lab_fs_chain": "scripts/exp_fs_mosaic_ops.py:100",
+                "vf_lab_slab_copy": "scripts/exp_lane_dma.py:38",
+                "vf_lab_slab_transpose": "scripts/exp_transpose.py:67"}
+    for name, _ in LAB_KERNELS:
+        line.append({"name": name, "route": "cuda", "source": "vulkan_forge_torch/csrc/lab.cu",
+                     "replaces": replaces[name], **lab_rec[name]})
     say("profiler", fallbacks=PROFILER_FALLBACKS)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -75,11 +75,17 @@
 // tile's tested (pair, pixel) items, which tiles.tile_work mirrors.
 //
 // Numerics: built with -fmad=false (no contraction) and without fast math,
-// so every +, -, *, / and sqrtf rounds once, exactly as the plain PyTorch
-// version (_raster/tiles.py, _raster/fragment.py) rounds its eager ops;
-// the per-pixel evaluation and the shader are in raster_common.cuh, shared
-// with vtx.cu, in the op order of tiles.py:79-97 and fragment.py:44-69.
-// Only sinf, cosf and powf may differ from the host library by ulps.
+// so every +, -, *, / and sqrtf rounds once (correctly rounded), as the
+// plain PyTorch version (_raster/tiles.py, _raster/fragment.py) rounds its
+// eager ops on the card, where torch's sqrt, 1/sqrt, sin, cos and pow
+// also gave these kernels' bits on every input of python -m
+// vulkan_forge_torch.lab.fs_ops. On the CPU they do not: torch's
+// vectorised sqrt is not correctly rounded (1 ulp off on 210 of that
+// probe's 32,768 inputs), and its sin, cos and pow differ from CUDA's by
+// an ulp on some inputs, so a CPU image may part from the card's by 1 u8
+// where such an ulp crosses a rounding step. The per-pixel evaluation and
+// the shader are in raster_common.cuh, shared with vtx.cu, in the op
+// order of tiles.py:79-97 and fragment.py:44-69.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

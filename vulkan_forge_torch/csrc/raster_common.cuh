@@ -3,9 +3,10 @@
 //
 // Built with -fmad=false and without fast math (see raster.cu), so every
 // +, -, *, / and sqrtf rounds once, as the plain PyTorch versions round
-// their eager ops, and the multiply-adds of the record evaluation are
-// fused as tiles.mad rounds them; the op order is theirs (tiles.eval_records,
-// fragment.py:44-69).
+// their eager ops on the card (on the CPU torch's sqrt is not correctly
+// rounded: raster.cu says what that does), and the multiply-adds of the
+// record evaluation are fused as tiles.mad rounds them; the op order is
+// theirs (tiles.eval_records, fragment.py:44-69).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,0 +1,353 @@
+"""Build, binding, plain versions and wrappers of the lab kernels.
+
+``csrc/lab.cu`` holds four kernels, each the counterpart of a TPU kernel
+that a probe in ``scripts/`` launches (see the note at the top of that file):
+
+  - ``fs_ops`` -> ``vf_lab_fs_ops``: ``scripts/exp_fs_ops.py:66-70``;
+  - ``fs_chain`` -> ``vf_lab_fs_chain``: ``scripts/exp_fs_mosaic_ops.py:73-100``;
+  - ``slab_copy`` -> ``vf_lab_slab_copy``: ``scripts/exp_lane_dma.py:24-30``;
+  - ``slab_transpose`` -> ``vf_lab_slab_transpose``:
+    ``scripts/exp_transpose.py:25-26`` (``iters=0``) and ``:48-61``.
+
+The source is compiled on first use with ``nvcc`` and the raster kernels'
+flags (``kernels.NVCC_FLAGS``: ``-fmad=false``, no fast math) into a library
+of its own, ``build/vulkan_forge_torch/libvf_lab_<hash>.so``, keyed by a hash
+of ``lab.cu``, the header it includes and the flags, and loaded with ctypes;
+the raster library and its build stay as they are. A failed build raises.
+
+Each wrapper takes a CPU tensor to its plain PyTorch version (``*_plain``
+below) and launches the kernel for a CUDA tensor, or raises; it counts its
+kernel launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from .._build import BUILD_DIR
+from .._formats import pack_rgba_u32, srgb_encode
+from .._raster import fragment, kernels
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SOURCE = _CSRC / "lab.cu"
+_HEADERS = (_CSRC / "raster_common.cuh",)
+
+# scripts/exp_fs_ops.py:45-56, in its order (the kernel's op index).
+OPS = ("sin", "cos", "sqrt", "inv_sqrt", "rsqrt", "pow_srgb", "exp", "log", "exp_log_pow")
+# The rows of fs_chain's output: scripts/exp_fs_mosaic_ops.py:45-46's
+# intermediates, then shade_shipped's word (as its bits).
+CHAIN_NAMES = ("t", "xf", "frac", "c0", "c1", "lin", "dhdx", "dhdz", "inv_len", "lambert",
+               "shade", "v", "s", "u8f")
+CHAIN_ROWS = len(CHAIN_NAMES) + 1
+SLAB = 128                      # the slab width: the TPU's 128 lanes
+# An H100 block's shared memory (227 KB), which bounds the slabs' rows.
+MAX_SMEM = 232448
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "vf_lab_ops": [],
+    "vf_lab_chain_rows": [],
+    "vf_lab_fs_ops": [_P, _P, _P, ctypes.c_longlong, _I, _P, _P],
+    "vf_lab_fs_chain": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "vf_lab_slab_copy": [_P, _I, _I, _P, _P],
+    "vf_lab_slab_transpose": [_P, _I, _I, _I, _I, _P, _P],
+}
+
+_lib = None
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for src in (_SOURCE,) + _HEADERS:
+        h.update(src.read_bytes())
+    h.update(" ".join(kernels.NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libvf_lab_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile csrc/lab.cu into its shared library unless it is already
+    built; the ``-Xptxas -v`` report is kept as ``<library>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        lib = os.path.join(tmp, out.name)
+        log = kernels._run([subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", lib, str(_SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)], "nvcc")
+        Path(str(out) + ".log").write_text(log)
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def load():
+    """Build (if needed) and load the lab library; returns the CDLL."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        if (lib.vf_lab_ops(), lib.vf_lab_chain_rows()) != (len(OPS), CHAIN_ROWS):
+            raise RuntimeError(f"csrc/lab.cu has {lib.vf_lab_ops()} ops and "
+                               f"{lib.vf_lab_chain_rows()} chain rows, lab/_kernels.py "
+                               f"{len(OPS)} and {CHAIN_ROWS}")
+        _lib = lib
+    return _lib
+
+
+def _launch(wrapper, symbol: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        err = getattr(load(), symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed with CUDA error {err}")
+    wrapper.launches += 1
+
+
+def _check(name: str, t: torch.Tensor, dtype, dim: int, device=None) -> None:
+    if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dim}-D {dtype}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+# ---------------- fs_ops ----------------
+
+def fs_ops_plain(t: torch.Tensor, u: torch.Tensor, p: torch.Tensor, op: str) -> torch.Tensor:
+    """The op of scripts/exp_fs_ops.py:45-56 named ``op`` in eager torch."""
+    if op == "sin":
+        return torch.sin(t * 1.3)
+    if op == "cos":
+        return torch.cos(t * 1.3)
+    if op == "sqrt":
+        return torch.sqrt(p)
+    if op == "inv_sqrt":
+        return 1.0 / torch.sqrt(p)
+    if op == "rsqrt":
+        return torch.rsqrt(p)
+    if op == "pow_srgb":
+        return torch.pow(u, 1.0 / 2.4)
+    if op == "exp":
+        return torch.exp(u * -3.0)
+    if op == "log":
+        return torch.log(p)
+    if op == "exp_log_pow":
+        return torch.exp(torch.log(torch.clamp_min(u, 1e-30)) * (1.0 / 2.4))
+    raise ValueError(f"op must be one of {OPS}, got {op!r}")
+
+
+def fs_ops(t: torch.Tensor, u: torch.Tensor, p: torch.Tensor, op: str) -> torch.Tensor:
+    """One of the shader's transcendental ops, elementwise (exp_fs_ops.py's
+    OPS): t, u, p contiguous float32 of one shape on one device.
+
+    CPU tensors: ``fs_ops_plain``. CUDA tensors: ``vf_lab_fs_ops``.
+    """
+    if op not in OPS:
+        raise ValueError(f"op must be one of {OPS}, got {op!r}")
+    for name, a in (("t", t), ("u", u), ("p", p)):
+        _check(name, a, torch.float32, a.dim(), t.device)
+        if a.shape != t.shape:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, t {tuple(t.shape)}")
+    if t.device.type == "cpu":
+        return fs_ops_plain(t, u, p, op)
+    out = torch.empty_like(t)
+    if t.numel():
+        _launch(fs_ops, "vf_lab_fs_ops", t.device, t.data_ptr(), u.data_ptr(), p.data_ptr(),
+                t.numel(), OPS.index(op), out.data_ptr())
+    return out
+
+
+fs_ops.launches = 0
+
+
+# ---------------- fs_chain ----------------
+
+def chain_params(h_range: torch.Tensor, exposure: torch.Tensor, sun_dir: torch.Tensor):
+    """par = [hr2, exposure, l0, l1, l2] (5,) float32 with
+    ``fragment.fs_scalars``'s ops, on the tensors' device: what the shaded
+    kernels' wrappers hand their kernels."""
+    hr2, expo, l = fragment.fs_scalars(h_range, exposure, sun_dir)
+    return torch.stack([hr2, expo, l[0], l[1], l[2]]).to(torch.float32).contiguous()
+
+
+def fs_chain_plain(hh, xx, zz, channel, lut, par) -> torch.Tensor:
+    """The shipped shader's chain in eager torch, in the op order and the
+    shapes of ``fragment.terrain_fs`` (per-pixel ops over (P,), per-channel
+    ops over (P, 3)), each channel's row gathered at ``channel``. Returns
+    (CHAIN_ROWS, P) float32; the last row is ``terrain_fs``'s word for the
+    pixel, as its bits."""
+    hr2, exposure, l0, l1, l2 = par
+    t = torch.clamp(0.5 + hh / hr2, 0.0, 1.0)
+    xf = t * 256.0 - 0.5
+    x0 = torch.floor(xf)
+    frac = xf - x0
+    i0 = torch.clamp(x0, 0, 255).to(torch.long)
+    i1 = torch.clamp(x0 + 1.0, 0, 255).to(torch.long)
+    c0, c1 = lut[i0], lut[i1]
+    lin = c0 * (1.0 - frac[:, None]) + c1 * frac[:, None]
+    dhdx = 1.3 * torch.cos(xx * 1.3) * 0.25
+    dhdz = -1.1 * torch.sin(zz * 1.1) * 0.25
+    inv_len = 1.0 / torch.sqrt(dhdx * dhdx + 1.0 + dhdz * dhdz)
+    lambert = torch.clamp((-dhdx * l0 + l1 - dhdz * l2) * inv_len, 0.0, 1.0)
+    shade = 0.15 + 0.85 * lambert
+    rgb = lin * exposure * shade[:, None]
+    v = torch.clamp(rgb, 0.0, 1.0)
+    s = srgb_encode(rgb)
+    u8f = torch.floor(torch.clamp(s, 0.0, 1.0) * 255.0 + 0.5)
+    one = torch.ones_like(s[:, 0])
+    word = pack_rgba_u32(s[:, 0], s[:, 1], s[:, 2], one).view(torch.int32)
+    pick = lambda a: a.gather(1, channel.to(torch.long)[:, None])[:, 0]
+    rows = [t, xf, frac, pick(c0), pick(c1), pick(lin), dhdx, dhdz, inv_len, lambert,
+            shade, pick(v), pick(s), pick(u8f), word.view(torch.float32)]
+    return torch.stack(rows)
+
+
+def fs_chain(hh: torch.Tensor, xx: torch.Tensor, zz: torch.Tensor, channel: torch.Tensor,
+             lut: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
+    """The shipped shader's intermediates at P pixels: hh, xx, zz (P,)
+    float32 varyings, channel (P,) int32 in 0..2 (the LUT channel each row
+    follows), lut (256, 3) float32 linear, par (5,) from ``chain_params``.
+    Returns (CHAIN_ROWS, P) float32: the rows of CHAIN_NAMES, then the
+    pixel's packed RGBA word as its bits.
+
+    CPU tensors: ``fs_chain_plain``. CUDA tensors: ``vf_lab_fs_chain``, whose
+    last row is ``vf::shade_shipped``'s own word.
+    """
+    for name, a in (("hh", hh), ("xx", xx), ("zz", zz)):
+        _check(name, a, torch.float32, 1, hh.device)
+        if a.shape != hh.shape:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, hh {tuple(hh.shape)}")
+    _check("channel", channel, torch.int32, 1, hh.device)
+    if channel.shape != hh.shape:
+        raise ValueError(f"channel has shape {tuple(channel.shape)}, hh {tuple(hh.shape)}")
+    _check("lut", lut, torch.float32, 2, hh.device)
+    if lut.shape != (256, 3):
+        raise ValueError(f"lut must be (256, 3), got {tuple(lut.shape)}")
+    _check("par", par, torch.float32, 1, hh.device)
+    if par.shape != (5,):
+        raise ValueError(f"par must be (5,) [hr2, exposure, l0, l1, l2], got {tuple(par.shape)}")
+    if channel.numel() and (int(channel.min()) < 0 or int(channel.max()) > 2):
+        raise ValueError("channel must lie in 0..2")
+    if hh.numel() >= 2**31:
+        raise ValueError("at most 2**31 - 1 pixels")
+    if hh.device.type == "cpu":
+        return fs_chain_plain(hh, xx, zz, channel, lut, par)
+    out = torch.empty((CHAIN_ROWS, hh.numel()), dtype=torch.float32, device=hh.device)
+    if hh.numel():
+        _launch(fs_chain, "vf_lab_fs_chain", hh.device, hh.data_ptr(), xx.data_ptr(),
+                zz.data_ptr(), channel.data_ptr(), hh.numel(), lut.data_ptr(), par.data_ptr(),
+                out.data_ptr())
+    return out
+
+
+fs_chain.launches = 0
+
+
+# ---------------- slab_copy ----------------
+
+def slab_copy_plain(src: torch.Tensor) -> torch.Tensor:
+    """scripts/exp_lane_dma.py:53-54's ``want`` in torch: the 128-column
+    slabs of src stacked, times 2."""
+    return src.unflatten(1, (-1, SLAB)).transpose(0, 1).reshape(-1, SLAB) * 2.0
+
+
+def slab_copy(src: torch.Tensor) -> torch.Tensor:
+    """(rows, N) float32, N a multiple of 128 -> (rows * N / 128, 128): slab
+    i of src (columns 128i..128i+127) times 2 at rows [i*rows, (i+1)*rows).
+
+    CPU tensors: ``slab_copy_plain``. CUDA tensors: ``vf_lab_slab_copy`` (a
+    slab's rows * 512 bytes must fit a block's shared memory).
+    """
+    _check("src", src, torch.float32, 2)
+    rows, cols = src.shape
+    if cols % SLAB:
+        raise ValueError(f"src has {cols} columns, not a multiple of {SLAB}")
+    if src.device.type == "cpu":
+        return slab_copy_plain(src)
+    if rows * SLAB * 4 > MAX_SMEM:
+        raise ValueError(f"a slab of {rows} rows exceeds a block's {MAX_SMEM} bytes of "
+                         "shared memory")
+    if src.data_ptr() % 16:
+        raise ValueError("src must start on a 16-byte boundary (cp.async copies 16 bytes)")
+    out = torch.empty((rows * cols // SLAB, SLAB), dtype=torch.float32, device=src.device)
+    if out.numel():
+        _launch(slab_copy, "vf_lab_slab_copy", src.device, src.data_ptr(), rows, cols,
+                out.data_ptr())
+    return out
+
+
+slab_copy.launches = 0
+
+
+# ---------------- slab_transpose ----------------
+
+def slab_transpose_plain(src: torch.Tensor, iters: int = 0,
+                         transpose: bool = True) -> torch.Tensor:
+    """k_correct (iters = 0: src.T) and k_loop (iters > 0) of
+    scripts/exp_transpose.py in eager torch."""
+    if iters == 0:
+        return src.T.contiguous()
+    S = src.shape[0] // 4
+    acc = torch.zeros((1, src.shape[1]), dtype=torch.float32, device=src.device)
+    for i in range(iters):
+        v = src[S * (i % 4):S * (i % 4 + 1)]
+        acc = acc + (v.T.sum(dim=1) if transpose else v.sum(dim=0)).reshape(1, -1)
+    return acc
+
+
+def slab_transpose(src: torch.Tensor, iters: int = 0, transpose: bool = True) -> torch.Tensor:
+    """iters = 0: (rows, cols) float32 -> src.T (cols, rows), through 32x32
+    tiles in shared memory. iters > 0: rows a multiple of 4, cols <= 1024;
+    iteration i sums the (rows/4, cols) slab at row (rows/4)*(i % 4) over its
+    rows, after a transpose in shared memory (``transpose``) or without one,
+    into a (1, cols) float32 accumulator.
+
+    CPU tensors: ``slab_transpose_plain``. CUDA tensors:
+    ``vf_lab_slab_transpose``.
+    """
+    _check("src", src, torch.float32, 2)
+    rows, cols = src.shape
+    if iters < 0 or iters >= 2**31:
+        raise ValueError(f"iters must lie in [0, 2**31), got {iters}")
+    if iters:
+        if rows % 4 or rows == 0:
+            raise ValueError(f"the loop takes 4 slabs: rows must be a positive multiple "
+                             f"of 4, got {rows}")
+        if cols > 1024:
+            raise ValueError(f"the loop takes one thread per column: at most 1024, got {cols}")
+    if src.device.type == "cpu":
+        return slab_transpose_plain(src, iters, transpose)
+    if iters and (rows * cols + cols * (rows // 4 + 1)) * 4 > MAX_SMEM:
+        raise ValueError(f"a ({rows}, {cols}) source and its slab's tile exceed a block's "
+                         f"{MAX_SMEM} bytes of shared memory")
+    shape = (1, cols) if iters else (cols, rows)
+    out = torch.empty(shape, dtype=torch.float32, device=src.device)
+    if src.numel():
+        _launch(slab_transpose, "vf_lab_slab_transpose", src.device, src.data_ptr(), rows,
+                cols, iters, int(bool(transpose)), out.data_ptr())
+    return out
+
+
+slab_transpose.launches = 0
+
+LAUNCHED = (fs_ops, fs_chain, slab_copy, slab_transpose)
