@@ -212,8 +212,8 @@ Phases, each printing one line, in order:
      vf_raster_gbuffer, terrain 1 and terrain_normals_flip 2 of each indexed
      kernel, add_terrain none) in both runs.
 
-  7. the lab kernels, slice 16 (csrc/lab.cu, built into a library of its
-     own: its seconds and ptxas report): the four lab twins (python -m
+  7. the lab kernels (csrc/lab.cu, built into a library of its own: its
+     seconds and ptxas report): the four lab twins (python -m
      vulkan_forge_torch.lab.fs_ops, fs_chain, slab_copy, slab_transpose)
      as processes on the card, together, launches counted in each (each
      its own kernel only: 10, 1, 103, 9), their lines printed; then each
@@ -235,11 +235,29 @@ Phases, each printing one line, in order:
      that differ between card and CPU; (c) where some differ, the first
      intermediate that diverges; (d) the slab copy's times and the loop's
      ns per iteration with and without the transpose.
+     Then the deposit probes: the five twins (python -m
+     vulkan_forge_torch.lab.deposit_breakdown, deposit_trip,
+     deposit_marginal, loop_floor, mosaic_facts) as processes one after
+     another (each prints a single-block loop's time: processes share the
+     card by time slices), launches counted (DEPOSIT_TWINS), their ns/step
+     parsed for every body; vf_lab_step_loop against its plain version for
+     all 32 bodies at 128 steps from a seeded scratch (bit for bit, out and
+     final scratch, where no sum rounds; within 1e-5 of each element's
+     scale for _bodies.SCALED), its ms and bound per body (LOOP_OPS);
+     vf_lab_onehot_dot in each mode on E_exact's permutation and E1's
+     one-hot (ffma bit-equal to plain, tf32 modes within DOT_TOLERANCE of
+     sum |a||b|; ffma and tf32x3 keep every E_exact bit, tf32's mismatches
+     reported); vf_lab_lane_ops equal to torch.roll and to the exponent in
+     torch; vf_lab_slab_transpose at E2's three shapes; the SASS of each
+     body's kernel (cuobjdump: its step loop's length). Findings (e) the
+     products' f32 bits per mode, (f) the loop floor's ns per step, (g) the
+     deposit bodies' ns per step, (h) the SASS loop lengths; then a line
+     "lab_time" with the phase's seconds.
 
 Then a line that lists any device time whose profiler sessions all missed
 (kernel_device_ms; that time is then queued_device_ms's: CUDA events around
 launches queued behind a spin kernel), one JSON line with the per-kernel
-record (all seventeen kernels), and last the line {"ok": true, "device":
+record (all twenty kernels), and last the line {"ok": true, "device":
 {...}}. Any failure raises and exits
 nonzero. It imports nothing of JAX and nothing of the JAX package.
 """
@@ -253,6 +271,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -271,9 +290,12 @@ from vulkan_forge_torch._parity import (FS_MAX_FRACTION, VARYING_RTOL,
                                         assert_fs_policy, assert_gbuffer_close)
 from vulkan_forge_torch._raster import (fragment, hw_oracle, kernels, packed, pipeline,
                                         segments, setup, tiles, transform, vtx)
+from vulkan_forge_torch.lab import _bodies as lab_bodies
 from vulkan_forge_torch.lab import _kernels as lab_kernels
+from vulkan_forge_torch.lab import deposit_breakdown as lab_breakdown
 from vulkan_forge_torch.lab import fs_chain as lab_fs_chain
 from vulkan_forge_torch.lab import fs_ops as lab_fs_ops
+from vulkan_forge_torch.lab import mosaic_facts as lab_facts
 from vulkan_forge_torch.lab import slab_copy as lab_slab_copy
 from vulkan_forge_torch.lab import slab_transpose as lab_slab_transpose
 
@@ -285,7 +307,7 @@ SWEEP_GRIDS = (8, 16, 32, 64, 128, 256, 512, 1024)
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s and
 # f32 operations/s outside the tensor cores.
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+PEAK_BYTES, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
 # f32 operations per unit of work, counted from the kernels' source
 # (add, sub, mul, div, min, max, compare, floor/ceil, conversions; a fused
 # multiply-add as two; selects and predicate logic not counted;
@@ -1225,10 +1247,12 @@ def distinct_vertices(entries, grid):
     return int(torch.unique(frame * grid * grid + verts).numel())
 
 
-def bound_of(nbytes, ops):
+def bound_of(nbytes, ops, peak=PEAK_F32):
     """The least time for a kernel's work: the larger of its bytes over
-    HBM's rate and its f32 operations over the peak rate; and what binds."""
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    HBM's rate and its operations over the peak rate for their type (f32
+    outside the tensor cores unless ``peak`` says otherwise); and what
+    binds."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
             "bytes": nbytes, "ops": ops}
 
@@ -2349,7 +2373,10 @@ SEG_KERNELS = (("vf_seg_gbuffer", kernels.seg_gbuffer),
 LAB_KERNELS = (("vf_lab_fs_ops", lab_kernels.fs_ops),
                ("vf_lab_fs_chain", lab_kernels.fs_chain),
                ("vf_lab_slab_copy", lab_kernels.slab_copy),
-               ("vf_lab_slab_transpose", lab_kernels.slab_transpose))
+               ("vf_lab_slab_transpose", lab_kernels.slab_transpose),
+               ("vf_lab_step_loop", lab_kernels.step_loop),
+               ("vf_lab_onehot_dot", lab_kernels.onehot_dot),
+               ("vf_lab_lane_ops", lab_kernels.lane_ops))
 ALL_KERNELS = (VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
                + LAB_KERNELS)
 POSTER = (7680, 4320)                      # 8K UHD: a print-size poster
@@ -3387,7 +3414,12 @@ LAB_ENTRIES = (("lab_fs_ops_kernel", "vf_lab_fs_ops"),
                ("lab_slab_copy_kernel", "vf_lab_slab_copy"),
                ("lab_transpose_kernel", "vf_lab_slab_transpose"),
                ("lab_slab_loop_kernelILb0", "vf_lab_slab_transpose, loop"),
-               ("lab_slab_loop_kernelILb1", "vf_lab_slab_transpose, loop with transpose"))
+               ("lab_slab_loop_kernelILb1", "vf_lab_slab_transpose, loop with transpose"),
+               ("lab_onehot_dot_kernel", "vf_lab_onehot_dot"),
+               ("lab_lane_ops_kernel", "vf_lab_lane_ops"))
+# One entry per body of the step loop (its template argument, BODIES' order).
+LOOP_ENTRIES = tuple((f"lab_step_loop_kernelILi{i}E", f"vf_lab_step_loop, {name}")
+                     for i, name in enumerate(lab_kernels.BODIES))
 # The lab twins (python -m vulkan_forge_torch.lab.<name> on the card) and
 # the launches each makes: fs_ops one per op and one for exp_log_pow's logf;
 # fs_chain one; slab_copy the check and the timing (2 warm-ups + 5 x 20);
@@ -3396,6 +3428,23 @@ LAB_TWINS = {"fs_ops": {"vf_lab_fs_ops": len(lab_kernels.OPS) + 1},
              "fs_chain": {"vf_lab_fs_chain": 1},
              "slab_copy": {"vf_lab_slab_copy": 1 + 2 + 5 * 20},
              "slab_transpose": {"vf_lab_slab_transpose": 1 + 2 * 4}}
+# The deposit probes' twins, one after another: what they print
+# is a single-block loop's time, and processes share the card by time
+# slices. Each body one launch and 3 timed (a warm-up, then the median of
+# 3); E_exact one product per mode; E1, E2, E3 and E4 a check and 2 + 5 x
+# 20 timed calls each (3 modes, 3 shapes, 2 ops).
+_N_BODIES = {script: sum(b.script == script for b in lab_bodies.BODIES)
+             for script in lab_bodies.SCRIPTS}
+DEPOSIT_TWINS = {
+    "deposit_breakdown": {"vf_lab_step_loop": 4 * _N_BODIES["exp_deposit_breakdown"],
+                          "vf_lab_onehot_dot": len(lab_kernels.DOT_MODES)},
+    "deposit_trip": {"vf_lab_step_loop": 4 * _N_BODIES["exp_deposit3"]},
+    "deposit_marginal": {"vf_lab_step_loop": 4 * _N_BODIES["exp_deposit2"]},
+    "loop_floor": {"vf_lab_step_loop": 4 * _N_BODIES["exp_loop_floor"]},
+    "mosaic_facts": {"vf_lab_onehot_dot": 3 * 103, "vf_lab_slab_transpose": 3 * 103,
+                     "vf_lab_lane_ops": 2 * 103,
+                     "vf_lab_step_loop": 4 * _N_BODIES["exp_mosaic_facts"]}}
+LAB_TWINS.update(DEPOSIT_TWINS)
 # f32 operations per element of each fs_ops op (the product, then the
 # function; max, log, product and exp for exp_log_pow).
 LAB_OP_COUNT = {"sin": 2, "cos": 2, "sqrt": 1, "inv_sqrt": 2, "rsqrt": 1, "pow_srgb": 1,
@@ -3544,23 +3593,266 @@ def lab_slab_transpose_checks(dev):
     return out
 
 
+# ---------------- phase 7, continued: the deposit probes ----------------
+
+LOOP_CHECK_STEPS = 128
+LOOP_SCRATCH_SEED = 17
+# f32 operations of one step of each body, counted from csrc/lab.cu (the
+# function's: a product's live rows only, 2 x 128 per output; one-hot builds
+# 2 per element of P), per element of the (8, 128) tile unless scalar.
+_T, _MM, _OH = 1024, 256, 2 * 128 * 128
+_EV = {"edges": 39, "aw": 48, "asum": 53}          # eval_slot per element
+
+
+def _full_ops(ev):
+    return 4 * (_T * (ev + 12) + _OH + 6 * _T * _MM + 6 * _T + 2 * (_T * _MM + _T)) + _T * 16
+
+
+LOOP_OPS = {
+    "v_eval": _T * 4 * (_EV["edges"] + 5), "v_pbuild": _T * 12, "v_tr": _T * 2,
+    "v_mm4": 4 * _T * (_MM + 1), "v_mm1": _T * (4 * _MM + 1), "v_mm48": _T * (4 * _MM + 1),
+    "v_gb": _T * (4 * _MM + 1),
+    "v_full": (_T * 4 * (_EV["edges"] + 8) + 4 * _OH + 6 * _T * _MM + 12 * _T
+               + 4 * _T * (_MM + 1) + _T * _MM + 4 * _T),
+    "d_base": _T * 2, "d_strips": _T * (8 * 53 + 7 + 16 + 64 + 6),
+    "d_eval4": _T * (4 * (_EV["asum"] + 5) + 1), "d_mm": 4 * _T * (3 * _MM + 3) + 3 * _T,
+    "d_full": _full_ops(_EV["asum"]),
+    "b_base": _T * 2, "b_eval1": _T * (_EV["aw"] + 5), "b_eval4": _T * (4 * (_EV["aw"] + 5) + 1),
+    "b_bm": _T * (4 * (_EV["aw"] + 8) + 1), "b_tr": _T * 2, "b_p1": _T * 3,
+    "b_mmA": _T * (_MM + 2), "b_full": _full_ops(_EV["aw"]),
+    "c_scalar": 1, "c_slice": 1, "c_rmwf": _T, "c_rmwd": _T, "c_rmwd_and": _T, "c_u4": _T,
+    "c_u8": _T, "c_eval4_u1": _T * (4 * (_EV["aw"] + 5) + 1),
+    "c_eval4_u4": _T * (4 * (_EV["aw"] + 5) + 1), "c_eval4_u8": _T * (4 * (_EV["aw"] + 5) + 1),
+    "e5": _T * 4 * (_EV["edges"] + 7) + 4 * _OH + 4 * _T * (2 * _MM + 2) + _T}
+
+
+def loop_scratch(script, dev):
+    rows = lab_bodies.SCRIPTS[script]["scratch"]
+    rng = np.random.default_rng(LOOP_SCRATCH_SEED)
+    return torch.from_numpy(rng.standard_normal((rows, 128)).astype(np.float32)).to(dev)
+
+
+def bits_differ(a, b):
+    return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).sum())
+
+
+def lab_step_loop_checks(dev):
+    """vf_lab_step_loop against its plain version, every body at 128 steps
+    from a seeded scratch (the script's input): bodies with no product
+    whose sums round bit for bit on out and on the final scratch; the
+    others (_bodies.SCALED) bit for bit too or, where a bit differs, within
+    1e-5 of each element's scale (the plain run with every product's terms
+    taken by magnitude, from the scratch's magnitudes). Per body: the
+    kernel's ms (CUDA events around one launch, median of 3), the plain
+    run's (host clock, one run) and the bound."""
+    out = {}
+    n = LOOP_CHECK_STEPS
+    for body in lab_bodies.BODIES:
+        script = lab_bodies.SCRIPTS[body.script]
+        big = lab_bodies.script_big(body.script, dev)
+        init = loop_scratch(body.script, dev)
+        got, acc = lab_kernels.step_loop(body.name, big, n, init)
+        sync()
+        t0 = time.perf_counter()
+        want, want_acc = lab_kernels.step_loop_plain(body.name, big, n, init)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = {"out": bits_differ(got, want), "scratch": bits_differ(acc, want_acc)}
+        err = max(float((got - want).abs().max()), float((acc - want_acc).abs().max()))
+        if body.name in lab_bodies.SCALED and (diff["out"] or diff["scratch"]):
+            mag_acc = init.abs()
+            mag = lab_bodies.run(body.name, big, n, mag_acc, product=lab_bodies.mm_magnitude)
+            for label, a, b, m in (("out", got, want, mag), ("scratch", acc, want_acc, mag_acc)):
+                if not bool(((a - b).abs() <= 1e-5 * m).all()):
+                    raise AssertionError(f"vf_lab_step_loop {body.name}: {label} beyond 1e-5 of "
+                                         "its scale")
+        elif diff["out"] or diff["scratch"]:
+            raise AssertionError(f"vf_lab_step_loop {body.name} differs from plain: {diff}")
+        run = lambda body=body, big=big, init=init: lab_kernels.step_loop(body.name, big, n, init)
+        ms = cuda_ms(run, reps=3, warmup=1)
+        nbytes = (script["big"] * 128 + 2 * script["scratch"] * 128 + 1024) * 4
+        out[body.name] = {"nstep": n, "bits_differ": diff, "max_abs_err": err, "ms": ms,
+                          "ns_per_step": ms * 1e6 / n, "plain_ms": plain_ms,
+                          **bound_of(nbytes, LOOP_OPS[body.name] * n)}
+    return out
+
+
+def lab_onehot_dot_checks(dev):
+    """vf_lab_onehot_dot on E_exact's permutation and E1's one-hot: ffma
+    bit-equal to its plain version, tf32 and tf32x3 within DOT_TOLERANCE of
+    sum_k |a||b|; ffma and tf32x3 give every E_exact column its one
+    contributor bit for bit (tf32's mismatches are reported). Per mode at
+    E1: E1's facts, times, the bound, torch.matmul (full f32) beside."""
+    facts, timing = {}, {}
+    vals, p = lab_breakdown.exact_inputs(dev)
+    a1, b1 = lab_facts.e1_inputs(dev)
+    for mode in lab_kernels.DOT_MODES:
+        for label, a, b in (("e_exact", vals, p), ("e1", a1, b1)):
+            got = lab_kernels.onehot_dot(a, b, mode)
+            want = lab_kernels.onehot_dot_plain(a, b, mode)
+            if mode == "ffma":
+                ok = bits_differ(got, want) == 0
+            else:
+                scale = lab_kernels.onehot_dot_plain(a.abs(), b.abs(), "ffma")
+                ok = bool(((got - want).abs() <= lab_kernels.DOT_TOLERANCE * scale).all())
+            if not ok:
+                raise AssertionError(f"vf_lab_onehot_dot {mode} differs from plain on {label}")
+        bad = lab_breakdown.single_contrib_mismatches(lab_kernels.onehot_dot(vals, p, mode),
+                                                      vals, p)
+        if mode != "tf32" and bad:
+            raise AssertionError(f"vf_lab_onehot_dot {mode}: {bad} E_exact elements are not "
+                                 "their contributor's bits")
+        got1 = lab_kernels.onehot_dot(a1, b1, mode)
+        facts[mode] = {"e_exact_mismatches": bad, "e_exact_elements": vals.numel(),
+                       **lab_facts.e1_facts(got1, a1, b1),
+                       "e1_kernel_vs_plain_bits_differ": bits_differ(
+                           got1, lab_kernels.onehot_dot_plain(a1, b1, mode))}
+        for label, a, b in (("e1", a1, b1), ("e_exact", vals, p)):
+            m, n = a.shape[0], b.shape[1]
+            nbytes = (m * 128 + 128 * n + m * n) * 4
+            rec = {"shape": [m, 128, n], "max_abs_err": float(
+                (lab_kernels.onehot_dot(a, b, mode) - lab_kernels.onehot_dot_plain(a, b, mode))
+                .abs().max()), **lab_time(
+                lambda mode=mode, a=a, b=b: lab_kernels.onehot_dot(a, b, mode),
+                lambda mode=mode, a=a, b=b: lab_kernels.onehot_dot_plain(a, b, mode),
+                "lab_onehot_dot_kernel", nbytes, 0,
+                library=lambda a=a, b=b: torch.matmul(a, b), inner=KERNEL_INNER, reps=3)}
+            rec.update(bound_of(nbytes, 2 * m * n * 128 * (3 if mode == "tf32x3" else 1),
+                                PEAK_F32 if mode == "ffma" else PEAK_TF32))
+            timing.setdefault(mode, {})[label] = rec
+    return facts, timing
+
+
+def lab_lane_ops_checks(dev):
+    """vf_lab_lane_ops equal to torch.roll (E3's (8, 128) by 5, and a (3,
+    1000) by -7) and to the exponent in torch (E4's bitmask sums, equal to
+    floor(log2) as well); vf_lab_slab_transpose at E2's three shapes equal
+    to x.T. Times, bounds and the library calls."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.random((8, 128), dtype=np.float32)).to(dev)
+    wide = torch.from_numpy(rng.random((3, 1000), dtype=np.float32)).to(dev)
+    masks = lab_facts.e4_inputs(dev)
+    for a, shift in ((x, lab_facts.ROLL), (wide, -7)):
+        if not torch.equal(lab_kernels.lane_ops(a, "roll", shift), torch.roll(a, shift, 1)):
+            raise AssertionError(f"vf_lab_lane_ops roll {shift} differs from torch.roll")
+    expo = lab_kernels.lane_ops(masks, "exponent")
+    if not torch.equal(expo, lab_kernels.lane_ops_plain(masks, "exponent")) or not np.array_equal(
+            expo.cpu().numpy(), np.floor(np.log2(masks.cpu().numpy())).astype(np.float32)):
+        raise AssertionError("vf_lab_lane_ops exponent differs from plain or floor(log2)")
+    ops = {"roll": {"max_abs_err": 0.0, **lab_time(
+               lambda: lab_kernels.lane_ops(x, "roll", lab_facts.ROLL),
+               lambda: lab_kernels.lane_ops_plain(x, "roll", lab_facts.ROLL),
+               "lab_lane_ops_kernel", 2 * x.numel() * 4, 0,
+               library=lambda: torch.roll(x, lab_facts.ROLL, 1), reps=3)},
+           "exponent": {"max_abs_err": 0.0, **lab_time(
+               lambda: lab_kernels.lane_ops(masks, "exponent"),
+               lambda: lab_kernels.lane_ops_plain(masks, "exponent"),
+               "lab_lane_ops_kernel", 2 * masks.numel() * 4, 4 * masks.numel(), reps=3)}}
+    e2 = {}
+    for shape in ((1, 128), (8, 128), (32, 128)):
+        src = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+        if not torch.equal(lab_kernels.slab_transpose(src), src.T):
+            raise AssertionError(f"vf_lab_slab_transpose differs from x.T at {shape} (E2)")
+        e2[str(list(shape))] = lab_time(
+            lambda src=src: lab_kernels.slab_transpose(src),
+            lambda src=src: lab_kernels.slab_transpose_plain(src), "lab_transpose_kernel",
+            2 * src.numel() * 4, 0, library=lambda src=src: src.T.contiguous(), reps=3)
+    return ops, e2
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_BRA = re.compile(r"\bBRA\b[^;]*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
+
+
+def sass_loops(path):
+    """Per step-loop body, from ``cuobjdump -sass`` of the lab library: the
+    kernel's instructions and its longest backward branch's span (the step
+    loop's body with the loops inside it): where nvcc hoisted a body's
+    work out of the step loop, that span is short."""
+    exe = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([exe, "-sass", str(path)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        if "Function : " in ln:
+            cur = ln.split("Function : ")[1].strip()
+            funcs[cur] = {"insns": [], "labels": {}, "pending": []}
+            continue
+        if cur is None:
+            continue
+        f = funcs[cur]
+        m = _SASS_LABEL.match(ln)
+        if m:
+            f["pending"].append(m.group(1))
+            continue
+        m = _SASS_INSN.search(ln)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in f["pending"]:
+                f["labels"][label] = addr
+            f["pending"] = []
+            f["insns"].append((addr, m.group(2)))
+    out = {}
+    for name, f in funcs.items():
+        m = re.search(r"lab_step_loop_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        spans = []
+        for addr, insn in f["insns"]:
+            b = _SASS_BRA.search(insn)
+            if not b:
+                continue
+            target = f["labels"].get(b.group(1)) if b.group(1) else int(b.group(2), 16)
+            if target is not None and target <= addr:
+                spans.append((addr - target) // 16 + 1)
+        out[lab_kernels.BODIES[int(m.group(1))]] = {
+            "instructions": len(f["insns"]), "backward_branches": len(spans),
+            "step_loop_instructions": max(spans) if spans else 0}
+    if len(out) != len(lab_kernels.BODIES):
+        raise AssertionError(f"cuobjdump showed {len(out)} step-loop kernels, not "
+                             f"{len(lab_kernels.BODIES)}")
+    return out
+
+
+_NS_LINE = re.compile(r"^(.*?): (\d+) ns/(?:step|logical-step)")
+
+
+def twin_ns(lines):
+    """{body: ns per logical step} from a loop twin's lines."""
+    labels = {b.label: b.name for b in lab_bodies.BODIES}
+    out = {}
+    for ln in lines:
+        m = _NS_LINE.match(ln)
+        if m and m.group(1) in labels:
+            out[labels[m.group(1)]] = int(m.group(2))
+    return out
+
+
 def phase7_lab(smi, dev):
-    """Slice 16's lab kernels: build, the four twins as processes on the
-    card (the main path, launches counted in each), each kernel against its
-    plain version, findings (a)-(d). Returns the kernels line's records."""
+    """The lab kernels: build, the twins as processes on the card (the main
+    path, launches counted in each: the shader and slab probes' four
+    together, then the deposit probes' five one after another), each
+    kernel against its plain version, findings (a)-(h). Returns the
+    kernels line's records."""
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     path = lab_kernels.build()
     lab_kernels.load()
     seconds = time.perf_counter() - t0
-    ptxas = ptxas_summary(open(str(path) + ".log").read(), LAB_ENTRIES)
+    ptxas = ptxas_summary(open(str(path) + ".log").read(), LAB_ENTRIES + LOOP_ENTRIES)
     for entry in ptxas.values():      # the loops launch cols threads, dynamic smem
         entry.pop("blocks_per_sm", None)
-    missing = [name for _, name in LAB_ENTRIES if name not in ptxas]
+    missing = [name for _, name in LAB_ENTRIES + LOOP_ENTRIES if name not in ptxas]
     if missing:
         raise AssertionError(f"ptxas reported no entry for {missing}")
     with tempfile.TemporaryDirectory() as cwd:
         res = run_entries({name: (f"vulkan_forge_torch.lab.{name}", [], {})
-                           for name in LAB_TWINS}, cwd)
+                           for name in LAB_TWINS if name not in DEPOSIT_TWINS}, cwd)
+        t_twins = time.perf_counter()
+        for name in DEPOSIT_TWINS:
+            res.update(run_entries({name: (f"vulkan_forge_torch.lab.{name}", [], {})}, cwd))
+    twins_seconds = time.perf_counter() - t_twins
     launches, twins = dict.fromkeys(dict(LAB_KERNELS), 0), {}
     for name, want in LAB_TWINS.items():
         rc, stdout, err, counts = res[name]
@@ -3575,6 +3867,18 @@ def phase7_lab(smi, dev):
     if "lane-sliced DMA OK, match: True" not in twins["slab_copy"] \
             or "in-kernel (32,128) transpose: OK" not in twins["slab_transpose"]:
         raise AssertionError("a slab twin did not print its original's OK line")
+    twin_steps = {}
+    for name in DEPOSIT_TWINS:
+        twin_steps.update(twin_ns(twins[name]))
+    if sorted(twin_steps) != sorted(lab_kernels.BODIES):
+        raise AssertionError(f"the deposit twins printed ns/step for {sorted(twin_steps)}")
+    wanted = ("E_exact HIGHEST single-contrib bitexact=True",
+              "E_exact tf32x3 single-contrib bitexact=True")
+    if any(w not in twins["deposit_breakdown"] for w in wanted):
+        raise AssertionError("deposit_breakdown: ffma or tf32x3 lost an E_exact bit")
+    facts_lines = [ln for ln in twins["mosaic_facts"] if ln.startswith(("E2", "E3", "E4"))]
+    if len(facts_lines) != 5 or not all(ln.endswith("correct=True") for ln in facts_lines):
+        raise AssertionError(f"mosaic_facts: E2-E4 not all correct: {facts_lines}")
 
     ops = lab_fs_ops_checks(dev)
     chain = lab_fs_chain_checks(dev)
@@ -3588,10 +3892,27 @@ def phase7_lab(smi, dev):
     sync()
     copy = lab_slab_copy_checks(dev)
     transpose = lab_slab_transpose_checks(dev)
+    t_checks = time.perf_counter()
+    loops = lab_step_loop_checks(dev)
+    for name, rec in loops.items():
+        # The twin's launch at the script's NSTEP against this one at 128
+        # steps: the cost of a step without the launch's fixed cost.
+        nstep = lab_bodies.SCRIPTS[lab_bodies.BY_NAME[name].script]["nstep"]
+        rec["twin_ns_per_step"] = twin_steps[name]
+        rec["marginal_ns_per_step"] = ((twin_steps[name] * nstep - rec["ms"] * 1e6)
+                                       / (nstep - rec["nstep"]))
+    dot_facts, dots = lab_onehot_dot_checks(dev)
+    lane, e2 = lab_lane_ops_checks(dev)
+    sass = sass_loops(path)
+    sync()
+    # The deposit probes' part of the phase: their five twins and checks.
+    added = {"deposit_twins_seconds": twins_seconds,
+             "deposit_checks_seconds": time.perf_counter() - t_checks}
+    added["added_seconds"] = added["deposit_twins_seconds"] + added["deposit_checks_seconds"]
     say("lab", card=smi, build={"seconds": seconds, "library": os.path.relpath(path, ROOT),
                                 "ptxas": ptxas},
         launches=launches, fs_ops=ops, fs_chain=chain, slab_copy=copy,
-        slab_transpose=transpose)
+        slab_transpose=transpose, step_loop=loops, onehot_dot=dots, lane_ops=lane, e2=e2)
     say("lab_findings", card=smi,
         a={op: {k: r[k] for k in ("mismatches", "max_ulp", "kernel_vs_f64",
                                   "kernel_vs_f64_misses", "plain_vs_f64",
@@ -3605,7 +3926,17 @@ def phase7_lab(smi, dev):
            "ns_per_iter": {k: transpose[k]["ns_per_iter"]
                            for k in ("loop_without_transpose", "loop_with_transpose")},
            "device_ns_per_iter": {k: transpose[k]["device_ns_per_iter"]
-                                  for k in ("loop_without_transpose", "loop_with_transpose")}})
+                                  for k in ("loop_without_transpose", "loop_with_transpose")}},
+        e={mode: f for mode, f in dot_facts.items()},
+        f={name: {"ns_per_step": twin_steps[name],
+                  "marginal_ns_per_step": loops[name]["marginal_ns_per_step"]}
+           for name in lab_kernels.BODIES if name.startswith("c_")},
+        g={name: {"ns_per_step": twin_steps[name],
+                  "marginal_ns_per_step": loops[name]["marginal_ns_per_step"]}
+           for name in ("d_base", "d_strips", "d_eval4", "d_mm", "d_full", "v_eval", "v_full",
+                        "b_full", "e5")},
+        h=sass)
+    say("lab_time", seconds=time.perf_counter() - t_phase, **added)
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     total = lambda key: sum(r[key] for r in ops.values())
     return {
@@ -3629,7 +3960,31 @@ def phase7_lab(smi, dev):
             "ns_per_iter": transpose["loop_with_transpose"]["ns_per_iter"],
             "without_transpose": {k: transpose["loop_without_transpose"][k]
                                   for k in keys + ("ns_per_iter",)},
-            "k_correct": {k: transpose["k_correct"][k] for k in keys}},
+            "k_correct": {k: transpose["k_correct"][k] for k in keys},
+            "e2": {shape: {k: r[k] for k in keys} for shape, r in e2.items()}},
+        "vf_lab_step_loop": {
+            "launches": launches["vf_lab_step_loop"],
+            "max_abs_err": max(r["max_abs_err"] for r in loops.values()),
+            **{k: sum(r[k] for r in loops.values()) for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "operations" if sum(r["ops"] for r in loops.values()) / PEAK_F32
+            > sum(r["bytes"] for r in loops.values()) / PEAK_BYTES else "bytes",
+            "library_ms": None, "at": f"one launch of each of the {len(loops)} bodies, "
+                                      f"{LOOP_CHECK_STEPS} steps",
+            "per_body": {name: {k: r[k] for k in ("ms", "ns_per_step", "twin_ns_per_step",
+                                                  "marginal_ns_per_step", "plain_ms",
+                                                  "bound_ms", "bound_by", "bits_differ",
+                                                  "max_abs_err")}
+                         for name, r in loops.items()}},
+        "vf_lab_onehot_dot": {"launches": launches["vf_lab_onehot_dot"],
+                              **{k: dots["ffma"]["e1"][k] for k in keys + ("max_abs_err",)},
+                              "at": "E1, (96, 128) @ (128, 128), ffma",
+                              "per_mode": {mode: {label: {k: r[k] for k in keys + ("max_abs_err",)}
+                                                  for label, r in shapes.items()}
+                                           for mode, shapes in dots.items()}},
+        "vf_lab_lane_ops": {"launches": launches["vf_lab_lane_ops"],
+                            **{k: lane["roll"][k] for k in keys + ("max_abs_err",)},
+                            "at": "E3, (8, 128) roll by 5",
+                            "exponent": {k: lane["exponent"][k] for k in keys}},
     }
 
 
@@ -3804,10 +4159,21 @@ def main() -> int:
     replaces = {"vf_lab_fs_ops": "scripts/exp_fs_ops.py:70",
                 "vf_lab_fs_chain": "scripts/exp_fs_mosaic_ops.py:100",
                 "vf_lab_slab_copy": "scripts/exp_lane_dma.py:38",
-                "vf_lab_slab_transpose": "scripts/exp_transpose.py:67"}
+                "vf_lab_slab_transpose": "scripts/exp_transpose.py:67",
+                "vf_lab_step_loop": "scripts/exp_deposit_breakdown.py:56",
+                "vf_lab_onehot_dot": "scripts/exp_deposit_breakdown.py:221",
+                "vf_lab_lane_ops": "scripts/exp_mosaic_facts.py:130"}
+    also = {"vf_lab_slab_transpose": ["scripts/exp_transpose.py:31",
+                                      "scripts/exp_mosaic_facts.py:102"],
+            "vf_lab_step_loop": ["scripts/exp_deposit3.py:46", "scripts/exp_deposit2.py:54",
+                                 "scripts/exp_loop_floor.py:42",
+                                 "scripts/exp_mosaic_facts.py:228"],
+            "vf_lab_onehot_dot": ["scripts/exp_mosaic_facts.py:61"],
+            "vf_lab_lane_ops": ["scripts/exp_mosaic_facts.py:155"]}
     for name, _ in LAB_KERNELS:
         line.append({"name": name, "route": "cuda", "source": "vulkan_forge_torch/csrc/lab.cu",
-                     "replaces": replaces[name], **lab_rec[name]})
+                     "replaces": replaces[name], **lab_rec[name],
+                     **({"also_replaces": also[name]} if name in also else {})})
     say("profiler", fallbacks=PROFILER_FALLBACKS)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

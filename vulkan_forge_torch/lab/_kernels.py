@@ -1,13 +1,22 @@
 """Build, binding, plain versions and wrappers of the lab kernels.
 
-``csrc/lab.cu`` holds four kernels, each the counterpart of a TPU kernel
+``csrc/lab.cu`` holds seven kernels, each the counterpart of TPU kernels
 that a probe in ``scripts/`` launches (see the note at the top of that file):
 
   - ``fs_ops`` -> ``vf_lab_fs_ops``: ``scripts/exp_fs_ops.py:66-70``;
   - ``fs_chain`` -> ``vf_lab_fs_chain``: ``scripts/exp_fs_mosaic_ops.py:73-100``;
   - ``slab_copy`` -> ``vf_lab_slab_copy``: ``scripts/exp_lane_dma.py:24-30``;
   - ``slab_transpose`` -> ``vf_lab_slab_transpose``:
-    ``scripts/exp_transpose.py:25-26`` (``iters=0``) and ``:48-61``.
+    ``scripts/exp_transpose.py:25-26`` (``iters=0``) and ``:48-61``; also
+    ``exp_mosaic_facts.py``'s E2 (``:96-102``);
+  - ``step_loop`` -> ``vf_lab_step_loop``: the loops of
+    ``exp_deposit_breakdown.py:56``, ``exp_deposit3.py:46``,
+    ``exp_deposit2.py:54``, ``exp_loop_floor.py:42`` and
+    ``exp_mosaic_facts.py:228`` (E5), one body each (``_bodies.BODIES``);
+  - ``onehot_dot`` -> ``vf_lab_onehot_dot``: ``exp_deposit_breakdown.py:221``
+    (E_exact) and ``exp_mosaic_facts.py:61`` (E1);
+  - ``lane_ops`` -> ``vf_lab_lane_ops``: ``exp_mosaic_facts.py:130`` (E3,
+    ``roll``) and ``:155`` (E4, ``exponent``).
 
 The source is compiled on first use with ``nvcc`` and the raster kernels'
 flags (``kernels.NVCC_FLAGS``: ``-fmad=false``, no fast math) into a library
@@ -34,6 +43,7 @@ import torch
 from .._build import BUILD_DIR
 from .._formats import pack_rgba_u32, srgb_encode
 from .._raster import fragment, kernels
+from . import _bodies
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCE = _CSRC / "lab.cu"
@@ -59,6 +69,10 @@ _SIGNATURES = {
     "vf_lab_fs_chain": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
     "vf_lab_slab_copy": [_P, _I, _I, _P, _P],
     "vf_lab_slab_transpose": [_P, _I, _I, _I, _I, _P, _P],
+    "vf_lab_bodies": [],
+    "vf_lab_step_loop": [_P, _P, _I, _I, _I, _P, _P],
+    "vf_lab_onehot_dot": [_P, _P, _I, _I, _I, _P, _P],
+    "vf_lab_lane_ops": [_P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -105,10 +119,11 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        if (lib.vf_lab_ops(), lib.vf_lab_chain_rows()) != (len(OPS), CHAIN_ROWS):
-            raise RuntimeError(f"csrc/lab.cu has {lib.vf_lab_ops()} ops and "
-                               f"{lib.vf_lab_chain_rows()} chain rows, lab/_kernels.py "
-                               f"{len(OPS)} and {CHAIN_ROWS}")
+        have = (lib.vf_lab_ops(), lib.vf_lab_chain_rows(), lib.vf_lab_bodies())
+        want = (len(OPS), CHAIN_ROWS, len(BODIES))
+        if have != want:
+            raise RuntimeError(f"csrc/lab.cu has {have} ops, chain rows and loop bodies, "
+                               f"lab/_kernels.py {want}")
         _lib = lib
     return _lib
 
@@ -350,4 +365,167 @@ def slab_transpose(src: torch.Tensor, iters: int = 0, transpose: bool = True) ->
 
 slab_transpose.launches = 0
 
-LAUNCHED = (fs_ops, fs_chain, slab_copy, slab_transpose)
+
+# ---------------- step_loop ----------------
+
+BODIES = tuple(b.name for b in _bodies.BODIES)
+
+
+def _step_checks(body: str, big: torch.Tensor, nstep: int, scratch):
+    if body not in _bodies.BY_NAME:
+        raise ValueError(f"body must be one of {BODIES}, got {body!r}")
+    spec = _bodies.BY_NAME[body]
+    script = _bodies.SCRIPTS[spec.script]
+    _check("big", big, torch.float32, 2)
+    if big.shape != (script["big"], _bodies.LANES):
+        raise ValueError(f"{body} takes big of ({script['big']}, 128) as "
+                         f"scripts/{spec.script}.py does, got {tuple(big.shape)}")
+    if nstep < 0 or nstep >= 2**31 or nstep % spec.unroll:
+        raise ValueError(f"nstep must be a multiple of {spec.unroll} in [0, 2**31), got {nstep}")
+    shape = (script["scratch"], _bodies.LANES)
+    if scratch is None:
+        return torch.zeros(shape, dtype=torch.float32, device=big.device)
+    _check("scratch", scratch, torch.float32, 2, big.device)
+    if scratch.shape != shape:
+        raise ValueError(f"{body}'s scratch is {shape}, got {tuple(scratch.shape)}")
+    return scratch.clone()
+
+
+def step_loop_plain(body: str, big: torch.Tensor, nstep: int, scratch=None):
+    """``_bodies.run`` on a copy of the scratch (zeros if None): (out (8,
+    128), final scratch)."""
+    acc = _step_checks(body, big, nstep, scratch)
+    return _bodies.run(body, big, nstep, acc), acc
+
+
+def step_loop(body: str, big: torch.Tensor, nstep: int, scratch=None):
+    """nstep steps of one deposit-probe body (``BODIES``: the scripts' names)
+    over big, float32 (rows, 128) with the script's rows
+    (``_bodies.SCRIPTS``), from a copy of ``scratch`` (the script's (rows,
+    128) float32; zeros if None). Returns (out (8, 128), final scratch).
+    nstep must be a multiple of the body's unroll (c_u4: 4).
+
+    CPU tensors: ``step_loop_plain``. CUDA tensors: ``vf_lab_step_loop``, one
+    block on one SM.
+    """
+    acc = _step_checks(body, big, nstep, scratch)
+    if big.device.type == "cpu":
+        return _bodies.run(body, big, nstep, acc), acc
+    out = torch.empty((_bodies.TILE, _bodies.LANES), dtype=torch.float32, device=big.device)
+    _launch(step_loop, "vf_lab_step_loop", big.device, big.data_ptr(), acc.data_ptr(),
+            acc.shape[0], BODIES.index(body), nstep // _bodies.BY_NAME[body].unroll,
+            out.data_ptr())
+    return out, acc
+
+
+step_loop.launches = 0
+
+
+# ---------------- onehot_dot ----------------
+
+DOT_MODES = ("ffma", "tf32", "tf32x3")
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 in torch: x to 10 mantissa bits, to nearest, ties
+    away from zero (add half of the 13 dropped bits' unit to the magnitude's
+    bits, then drop them)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_parts(x: torch.Tensor):
+    """x as hi + mid + lo, each on the tf32 grid (the kernel's split): each
+    part rounds what the ones before left; the three cover 24 bits."""
+    hi = tf32_round(x)
+    mid = tf32_round(x - hi)
+    return hi, mid, tf32_round((x - hi) - mid)
+
+
+def onehot_dot_plain(a: torch.Tensor, b: torch.Tensor, mode: str = "ffma") -> torch.Tensor:
+    """The kernel's products in eager torch, summed in k order from the k =
+    0 product (``_bodies.mm``): ffma on the operands; tf32 on both rounded
+    to tf32; tf32x3 on a's three parts and b rounded, the three results
+    added (hi + mid) + lo. The tensor cores sum a k = 8 step in an order of
+    their own; where a column sums more than one nonzero term, the kernel
+    is held to this within its tolerance (``DOT_TOLERANCE``)."""
+    if mode == "ffma":
+        return _bodies.mm(a, b)
+    bt = tf32_round(b)
+    if mode == "tf32":
+        return _bodies.mm(tf32_round(a), bt)
+    hi, mid, lo = tf32_parts(a)
+    return (_bodies.mm(hi, bt) + _bodies.mm(mid, bt)) + _bodies.mm(lo, bt)
+
+
+# |kernel - plain| <= DOT_TOLERANCE * sum_k |a_ik| |b_kj| (tf32 modes; ffma: 0).
+DOT_TOLERANCE = 1e-5
+
+
+def onehot_dot(a: torch.Tensor, b: torch.Tensor, mode: str = "ffma") -> torch.Tensor:
+    """a (m, 128) @ b (128, n), float32, 1 <= m, n <= 128, on one block:
+    ``ffma`` (CUDA cores, full float32: HIGHEST), ``tf32`` (one TF32
+    ``mma.sync`` pass: the default precision) or ``tf32x3`` (a split into
+    three tf32 parts, three passes added in float32).
+
+    CPU tensors: ``onehot_dot_plain``. CUDA tensors: ``vf_lab_onehot_dot``.
+    """
+    if mode not in DOT_MODES:
+        raise ValueError(f"mode must be one of {DOT_MODES}, got {mode!r}")
+    _check("a", a, torch.float32, 2)
+    _check("b", b, torch.float32, 2, a.device)
+    m, k = a.shape
+    n = b.shape[1]
+    if k != 128 or b.shape[0] != 128 or not (1 <= m <= 128 and 1 <= n <= 128):
+        raise ValueError(f"takes (m, 128) @ (128, n) with 1 <= m, n <= 128, got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return onehot_dot_plain(a, b, mode)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _launch(onehot_dot, "vf_lab_onehot_dot", a.device, a.data_ptr(), b.data_ptr(), m, n,
+            DOT_MODES.index(mode), out.data_ptr())
+    return out
+
+
+onehot_dot.launches = 0
+
+
+# ---------------- lane_ops ----------------
+
+LANE_OPS = ("roll", "exponent")
+
+
+def lane_ops_plain(x: torch.Tensor, op: str, shift: int = 0) -> torch.Tensor:
+    """roll: ``torch.roll(x, shift, 1)`` (np.roll's rule); exponent:
+    ``((bits >> 23) & 0xFF) - 127`` of each element, as float32."""
+    if op == "roll":
+        return torch.roll(x, shift, 1)
+    return _bodies.exponent(x)
+
+
+def lane_ops(x: torch.Tensor, op: str, shift: int = 0) -> torch.Tensor:
+    """E3 and E4 of exp_mosaic_facts.py over the rows of x, (rows, cols)
+    float32, cols <= 1024: ``roll`` x's columns by ``shift``
+    (``out[:, (c + shift) % cols] = x[:, c]``) or take each element's
+    ``exponent``.
+
+    CPU tensors: ``lane_ops_plain``. CUDA tensors: ``vf_lab_lane_ops``, one
+    block per row.
+    """
+    if op not in LANE_OPS:
+        raise ValueError(f"op must be one of {LANE_OPS}, got {op!r}")
+    _check("x", x, torch.float32, 2)
+    rows, cols = x.shape
+    if cols > 1024:
+        raise ValueError(f"one thread per column: at most 1024, got {cols}")
+    if x.device.type == "cpu":
+        return lane_ops_plain(x, op, shift)
+    out = torch.empty_like(x)
+    if x.numel():
+        _launch(lane_ops, "vf_lab_lane_ops", x.device, x.data_ptr(), rows, cols,
+                LANE_OPS.index(op), shift % cols, out.data_ptr())
+    return out
+
+
+lane_ops.launches = 0
+
+LAUNCHED = (fs_ops, fs_chain, slab_copy, slab_transpose, step_loop, onehot_dot, lane_ops)

@@ -14,8 +14,6 @@ median of 3, after a warm-up), with the card's name and power limit.
 """
 from __future__ import annotations
 
-import statistics
-
 import numpy as np
 import torch
 
@@ -38,21 +36,10 @@ def loop_source(device="cpu") -> torch.Tensor:
     return torch.arange(4 * 32 * 128, dtype=torch.float32, device=device).reshape(128, 128)
 
 
-def loop_ns(device, transpose: bool, iters: int = ITERS, reps: int = 3) -> float:
+def loop_ns(device, transpose: bool, iters: int = ITERS) -> float:
     """Nanoseconds per iteration of one k_loop launch on the card."""
     src = loop_source(device)
-    _kernels.slab_transpose(src, iters, transpose)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        _kernels.slab_transpose(src, iters, transpose)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) * 1e6 / iters)
-    return statistics.median(times)
+    return _cli.launch_ns(lambda: _kernels.slab_transpose(src, iters, transpose), iters)
 
 
 def main(argv=None) -> int:
