@@ -249,10 +249,18 @@ Phases, each printing one line, in order:
      sum |a||b|; ffma and tf32x3 keep every E_exact bit, tf32's mismatches
      reported); vf_lab_lane_ops equal to torch.roll and to the exponent in
      torch; vf_lab_slab_transpose at E2's three shapes; the SASS of each
-     body's kernel (cuobjdump: its step loop's length). Findings (e) the
-     products' f32 bits per mode, (f) the loop floor's ns per step, (g) the
-     deposit bodies' ns per step, (h) the SASS loop lengths; then a line
-     "lab_time" with the phase's seconds.
+     body's kernel (cuobjdump: its step loop's length); then the lines
+     "lab_launch_split" (one slab_transpose call at (8, 128) cut into the
+     parts of the lab's launch path: checks, the output's allocation,
+     device test, raw stream, the ctypes call with the launch and
+     cudaGetLastError), "lab_step_split" (a step-loop launch's fixed cost
+     cut into the scratch's clone, the allocation and the launch) and
+     "lab_floor" (lane_ops on (1, 32): the least a lab call costs, per
+     call and on the device). Each lab kernel's per-call time is taken in
+     turns with its library call. Findings (e) the products' f32 bits per
+     mode, (f) the loop floor's ns per step, (g) the deposit bodies' ns per
+     step, (h) the SASS loop lengths; then a line "lab_time" with the
+     phase's seconds (the deposit probes' and the splits' apart).
 
 Then a line that lists any device time whose profiler sessions all missed
 (kernel_device_ms; that time is then queued_device_ms's: CUDA events around
@@ -3415,7 +3423,9 @@ LAB_ENTRIES = (("lab_fs_ops_kernel", "vf_lab_fs_ops"),
                ("lab_transpose_kernel", "vf_lab_slab_transpose"),
                ("lab_slab_loop_kernelILb0", "vf_lab_slab_transpose, loop"),
                ("lab_slab_loop_kernelILb1", "vf_lab_slab_transpose, loop with transpose"),
-               ("lab_onehot_dot_kernel", "vf_lab_onehot_dot"),
+               ("lab_onehot_dot_ffma_kernel", "vf_lab_onehot_dot, ffma"),
+               ("lab_onehot_dot_mma_kernelILi1E", "vf_lab_onehot_dot, tf32"),
+               ("lab_onehot_dot_mma_kernelILi3E", "vf_lab_onehot_dot, tf32x3"),
                ("lab_lane_ops_kernel", "vf_lab_lane_ops"))
 # One entry per body of the step loop (its template argument, BODIES' order).
 LOOP_ENTRIES = tuple((f"lab_step_loop_kernelILi{i}E", f"vf_lab_step_loop, {name}")
@@ -3453,17 +3463,27 @@ LAB_OP_COUNT = {"sin": 2, "cos": 2, "sqrt": 1, "inv_sqrt": 2, "rsqrt": 1, "pow_s
 # chain's own copy of one channel's (about 40, counted from csrc/lab.cu).
 LAB_CHAIN_OPS = SHADE_OPS + 40
 LAB_CHAIN_PIXELS = 4096
+# Turns of kernel and library call (20 calls each) for the rows whose
+# per-call time is held against a PyTorch call's: E2, k_correct, E_exact, E1.
+LAB_TURNS = 9
 # The slab copy at the resolves' fields: g1024 x4 as (frames * 7, N).
 LAB_FIELDS = (VBATCH * vtx.FIELDS, VGRID * VGRID)
 
 
 def lab_time(run, plain, key, nbytes, ops, library=None, inner=KERNEL_INNER, reps=REPS):
-    """A lab kernel's per-call ms (CUDA events), device ms (profiler key
-    ``key``), its plain version's ms, the library call's and the bound."""
-    return {"ms": cuda_ms(run, reps=reps, inner=inner),
+    """A lab kernel's per-call ms (CUDA events) and the library call's, in
+    turns (kernel, library, library, kernel, ...; the median of each), its
+    device ms (profiler key ``key``), its plain version's ms and the
+    bound."""
+    ks, ls = [], []
+    for r in range(reps):
+        for fn in ((run, library) if r % 2 == 0 else (library, run)):
+            if fn is not None:
+                (ks if fn is run else ls).append(cuda_ms(fn, reps=1, inner=inner))
+    return {"ms": statistics.median(ks),
             "device_ms": kernel_device_ms(run, key=key, calls=max(inner, 3)),
             "plain_ms": cuda_ms(plain, reps=reps, inner=inner),
-            "library_ms": None if library is None else cuda_ms(library, reps=reps, inner=inner),
+            "library_ms": statistics.median(ls) if ls else None,
             **bound_of(nbytes, ops)}
 
 
@@ -3589,7 +3609,7 @@ def lab_slab_transpose_checks(dev):
     out["k_correct"] = {"shape": [32, 128], **lab_time(
         lambda: lab_kernels.slab_transpose(small), lambda: lab_kernels.slab_transpose_plain(small),
         "lab_transpose_kernel", 2 * small.numel() * 4, 0,
-        library=lambda: small.T.contiguous())}
+        library=lambda: small.T.contiguous(), reps=LAB_TURNS)}
     return out
 
 
@@ -3677,6 +3697,143 @@ def lab_step_loop_checks(dev):
     return out
 
 
+def dot_blocks(m, n, mode):
+    """The blocks vf_lab_onehot_dot launches (csrc/lab.cu): ffma a thread
+    per output, 128 a block; the tf32 modes a one-warp block per 16 x 8
+    output tile."""
+    return -(-m * n // 128) if mode == "ffma" else -(-m // 16) * -(-n // 8)
+
+
+# Calls over which each part of a lab launch's split is timed: host stamps
+# (time.perf_counter_ns) between the parts of one call, the median of each.
+SPLIT_CALLS = 2000
+STEP_SPLIT_CALLS = 200
+
+
+def stamp_medians(parts, calls, warmup=50):
+    """{part: median ns} over ``calls`` calls of parts(), which returns
+    {part: ns} for one call."""
+    for _ in range(warmup):
+        parts()
+    sync()
+    stamps = [parts() for _ in range(calls)]
+    sync()
+    return {k: statistics.median(s[k] for s in stamps) for k in stamps[0]}
+
+
+def lab_launch_split(dev):
+    """One vf_lab_slab_transpose call at (8, 128) cut into the parts of
+    lab/_kernels.py's launch path, with no synchronize between calls: the
+    checks, the output's new_empty, the current-device test, the raw stream
+    handle and the ctypes call (the launch and cudaGetLastError); beside
+    them the wrapper's whole call, a ctypes call of vf_lab_ops (no CUDA
+    call) and the function's call with 0 rows (cudaGetLastError, no
+    launch)."""
+    ns = time.perf_counter_ns
+    src = torch.rand(8, 128, device=dev)
+    rows, cols = src.shape
+    fns = lab_kernels._fns
+
+    def parts():
+        t0 = ns()
+        lab_kernels._check("src", src, torch.float32, 2)
+        t1 = ns()
+        out = src.new_empty((cols, rows))
+        t2 = ns()
+        index = src.get_device()
+        ready = torch._C._cuda_getDevice() == index and index in lab_kernels._prepared
+        t3 = ns()
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        t4 = ns()
+        err = fns["vf_lab_slab_transpose"](src.data_ptr(), rows, cols, 0, 1, out.data_ptr(),
+                                           stream)
+        t5 = ns()
+        assert err == 0 and ready, err
+        return {"checks": t1 - t0, "new_empty": t2 - t1, "device_test": t3 - t2,
+                "raw_stream": t4 - t3, "ctypes_call": t5 - t4, "sum": t5 - t0}
+
+    def alone():
+        out = src.new_empty((cols, rows))
+        stream = torch._C._cuda_getCurrentRawStream(src.get_device())
+        t0 = ns()
+        lab_kernels.slab_transpose(src)
+        t1 = ns()
+        fns["vf_lab_ops"]()
+        t2 = ns()
+        fns["vf_lab_slab_transpose"](src.data_ptr(), 0, cols, 0, 1, out.data_ptr(), stream)
+        t3 = ns()
+        return {"whole_call": t1 - t0, "ops_call": t2 - t1, "no_launch_call": t3 - t2}
+
+    lab_kernels.slab_transpose(src)        # the device's opt-ins, before the stamps
+    return {"shape": [8, 128], "calls": SPLIT_CALLS,
+            "ns": {"parts": stamp_medians(parts, SPLIT_CALLS),
+                   "alone": stamp_medians(alone, SPLIT_CALLS)}}
+
+
+def lab_step_split(dev):
+    """A step-loop launch's fixed cost (body c_scalar, 128 steps,
+    exp_loop_floor's input and a zero scratch): the wrapper's call between
+    CUDA events (one call after a synchronize), the kernel's device time and
+    their difference; the call cut into its parts by host stamps, a
+    synchronize after each call (the checks with the scratch's clone, the
+    output's allocation, the device test and raw stream, the ctypes call);
+    the clone and the whole call alone."""
+    ns = time.perf_counter_ns
+    body, nstep = "c_scalar", 128
+    big = lab_bodies.script_big("exp_loop_floor", dev)
+    scratch = torch.zeros((lab_bodies.SCRIPTS["exp_loop_floor"]["scratch"], lab_bodies.LANES),
+                          device=dev)
+    index = lab_kernels.BODIES.index(body)
+    iters = nstep // lab_bodies.BY_NAME[body].unroll
+    step = lab_kernels._fns["vf_lab_step_loop"]
+
+    def call():
+        return lab_kernels.step_loop(body, big, nstep, scratch)
+
+    def parts():
+        t0 = ns()
+        acc = lab_kernels._step_checks(body, big, nstep, scratch)
+        t1 = ns()
+        out = big.new_empty((lab_bodies.TILE, lab_bodies.LANES))
+        t2 = ns()
+        ready = torch._C._cuda_getDevice() == big.get_device()
+        stream = torch._C._cuda_getCurrentRawStream(big.get_device())
+        t3 = ns()
+        err = step(big.data_ptr(), acc.data_ptr(), acc.shape[0], index, iters, out.data_ptr(),
+                   stream)
+        t4 = ns()
+        sync()
+        assert err == 0 and ready, err
+        return {"checks_and_clone": t1 - t0, "new_empty": t2 - t1, "device_and_stream": t3 - t2,
+                "ctypes_call": t4 - t3, "sum": t4 - t0}
+
+    def alone():
+        t0 = ns()
+        scratch.clone()
+        t1 = ns()
+        call()
+        t2 = ns()
+        sync()
+        return {"clone": t1 - t0, "whole_call": t2 - t1}
+
+    ms = cuda_ms(call, warmup=1)
+    dev_ms = kernel_device_ms(call, key="lab_step_loop_kernel", calls=REPS)
+    return {"body": body, "nstep": nstep, "calls": STEP_SPLIT_CALLS, "ms": ms,
+            "kernel_device_ms": dev_ms, "fixed_ms": ms - dev_ms,
+            "clone_ms": cuda_ms(lambda: scratch.clone(), inner=KERNEL_INNER),
+            "ns": {"parts": stamp_medians(parts, STEP_SPLIT_CALLS, warmup=5),
+                   "alone": stamp_medians(alone, STEP_SPLIT_CALLS, warmup=5)}}
+
+
+def lab_floor(dev):
+    """The least a lab call costs: vf_lab_lane_ops' exponent on a (1, 32)
+    tensor, per call (CUDA events) and on the device."""
+    x = torch.rand(1, 32, device=dev) + 1.0
+    fn = lambda: lab_kernels.lane_ops(x, "exponent")
+    return {"shape": [1, 32], "op": "exponent", "ms": cuda_ms(fn, inner=KERNEL_INNER),
+            "device_ms": kernel_device_ms(fn, key="lab_lane_ops_kernel")}
+
+
 def lab_onehot_dot_checks(dev):
     """vf_lab_onehot_dot on E_exact's permutation and E1's one-hot: ffma
     bit-equal to its plain version, tf32 and tf32x3 within DOT_TOLERANCE of
@@ -3715,10 +3872,12 @@ def lab_onehot_dot_checks(dev):
                 .abs().max()), **lab_time(
                 lambda mode=mode, a=a, b=b: lab_kernels.onehot_dot(a, b, mode),
                 lambda mode=mode, a=a, b=b: lab_kernels.onehot_dot_plain(a, b, mode),
-                "lab_onehot_dot_kernel", nbytes, 0,
-                library=lambda a=a, b=b: torch.matmul(a, b), inner=KERNEL_INNER, reps=3)}
+                "lab_onehot_dot", nbytes, 0,
+                library=lambda a=a, b=b: torch.matmul(a, b), inner=KERNEL_INNER,
+                reps=LAB_TURNS)}
             rec.update(bound_of(nbytes, 2 * m * n * 128 * (3 if mode == "tf32x3" else 1),
                                 PEAK_F32 if mode == "ffma" else PEAK_TF32))
+            rec["blocks"] = dot_blocks(m, n, mode)
             timing.setdefault(mode, {})[label] = rec
     return facts, timing
 
@@ -3756,7 +3915,7 @@ def lab_lane_ops_checks(dev):
         e2[str(list(shape))] = lab_time(
             lambda src=src: lab_kernels.slab_transpose(src),
             lambda src=src: lab_kernels.slab_transpose_plain(src), "lab_transpose_kernel",
-            2 * src.numel() * 4, 0, library=lambda src=src: src.T.contiguous(), reps=3)
+            2 * src.numel() * 4, 0, library=lambda src=src: src.T.contiguous(), reps=LAB_TURNS)
     return ops, e2
 
 
@@ -3906,9 +4065,15 @@ def phase7_lab(smi, dev):
     sass = sass_loops(path)
     sync()
     # The deposit probes' part of the phase: their five twins and checks.
+    t_split = time.perf_counter()
     added = {"deposit_twins_seconds": twins_seconds,
-             "deposit_checks_seconds": time.perf_counter() - t_checks}
+             "deposit_checks_seconds": t_split - t_checks}
     added["added_seconds"] = added["deposit_twins_seconds"] + added["deposit_checks_seconds"]
+    say("lab_launch_split", card=smi, **lab_launch_split(dev))
+    say("lab_step_split", card=smi, **lab_step_split(dev))
+    say("lab_floor", card=smi, **lab_floor(dev))
+    sync()
+    added["launch_split_seconds"] = time.perf_counter() - t_split
     say("lab", card=smi, build={"seconds": seconds, "library": os.path.relpath(path, ROOT),
                                 "ptxas": ptxas},
         launches=launches, fs_ops=ops, fs_chain=chain, slab_copy=copy,

@@ -11,6 +11,7 @@ tests/test_torch_lab.py`` runs on the card host, which has none.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import importlib.util
 import io
 import os
@@ -262,6 +263,185 @@ def test_slab_loop_plain(transpose):
     np.testing.assert_array_equal(got, _loop_want(src.numpy(), slab_transpose.ITERS))
     with pytest.raises(ValueError, match="multiple of 4"):
         _kernels.slab_transpose(torch.zeros(6, 8), 3, transpose)
+
+
+# ---------------- the launch path ----------------
+
+def test_bound_table_covers_every_signature():
+    class Fn:
+        argtypes = restype = None
+
+    class Lib:
+        def __init__(self):
+            self.looked_up = []
+
+        def __getattr__(self, name):
+            self.looked_up.append(name)
+            fn = Fn()
+            setattr(self, name, fn)
+            return fn
+
+    lib = Lib()
+    fns = _kernels.bind(lib)
+    assert sorted(fns) == sorted(_kernels._SIGNATURES) == sorted(lib.looked_up)
+    for name, fn in fns.items():
+        assert fn is getattr(lib, name)
+        assert fn.argtypes == _kernels._SIGNATURES[name] and fn.restype is ctypes.c_int
+    # Every function the wrappers launch and every C entry of lab.cu is bound.
+    src = open(_kernels.__file__).read()
+    launched = set(re.findall(r'_launch\(\w+, "(vf_lab_\w+)"', src))
+    entries = set(re.findall(r"^int (vf_lab_\w+)\(", _kernels._SOURCE.read_text(), re.M))
+    assert len(launched) == len(_kernels.LAUNCHED)
+    assert launched <= entries == set(_kernels._SIGNATURES)
+
+
+def _fake_library(monkeypatch, prepare_error=0):
+    """The launch path over a stand-in library whose functions record their
+    calls, on a current device 0 whose raw stream handle is 100."""
+    calls = []
+
+    def fn(name, err=0):
+        def call(*args):
+            calls.append((name, args))
+            return err
+        return call
+
+    class OnDevice0:
+        def get_device(self):
+            return 0
+
+    monkeypatch.setattr(_kernels, "_lib", object())
+    monkeypatch.setattr(_kernels, "_fns", {"vf_lab_prepare": fn("prepare", prepare_error),
+                                           "vf_lab_ops": fn("ops")})
+    monkeypatch.setattr(_kernels, "_prepared", set())
+    monkeypatch.setattr(_kernels, "_current_device", lambda: 0)
+    monkeypatch.setattr(_kernels, "_raw_stream", lambda index: 100 + index)
+    monkeypatch.setattr(_kernels.lane_ops, "launches", 0)
+    return calls, OnDevice0()
+
+
+def test_launch_prepares_each_device_once(monkeypatch):
+    calls, t = _fake_library(monkeypatch)
+    for _ in range(3):
+        _kernels._launch(_kernels.lane_ops, "vf_lab_ops", t, 7)
+    assert calls == [("prepare", ())] + [("ops", (7, 100))] * 3
+    assert _kernels.lane_ops.launches == 3 and _kernels._prepared == {0}
+
+
+def test_launch_raises_when_prepare_fails(monkeypatch):
+    calls, t = _fake_library(monkeypatch, prepare_error=1)
+    with pytest.raises(RuntimeError, match="vf_lab_ops launch failed with CUDA error 1"):
+        _kernels._launch(_kernels.lane_ops, "vf_lab_ops", t, 7)
+    assert calls == [("prepare", ())]
+    assert _kernels.lane_ops.launches == 0 and not _kernels._prepared
+
+
+def _meta(*shape):
+    return torch.zeros(shape, device="meta")
+
+
+_F = torch.float32
+# Each wrapper's refusals on the CPU, with the messages the wrappers gave
+# before their launches were bound once.
+REFUSALS = [
+    (lambda: _kernels.fs_ops(torch.zeros(4), torch.zeros(4), torch.zeros(4), "tan"),
+     "op must be one of " + str(_kernels.OPS) + ", got 'tan'"),
+    (lambda: _kernels.fs_ops(torch.zeros(4, dtype=torch.float64), torch.zeros(4), torch.zeros(4),
+                             "sin"),
+     "t must be a contiguous 1-D torch.float32, got torch.float64 (4,)"),
+    (lambda: _kernels.fs_ops(torch.zeros(4), torch.zeros(5), torch.zeros(4), "sin"),
+     "u has shape (5,), t (4,)"),
+    (lambda: _kernels.fs_ops(torch.zeros(4), torch.zeros(4, 2)[:, 0], torch.zeros(4), "sin"),
+     "u must be a contiguous 1-D torch.float32, got torch.float32 (4,)"),
+    (lambda: _kernels.fs_ops(_meta(4), _meta(4), _meta(4), "sin"), "unsupported device meta"),
+    (lambda: _kernels.fs_chain(torch.zeros(3), torch.zeros(3), torch.zeros(3),
+                               torch.zeros(3, dtype=torch.int32), torch.zeros(256, 4),
+                               torch.zeros(5)),
+     "lut must be (256, 3), got (256, 4)"),
+    (lambda: _kernels.fs_chain(torch.zeros(3), torch.zeros(3), torch.zeros(3),
+                               torch.zeros(3, dtype=torch.int32), torch.zeros(256, 3),
+                               torch.zeros(4)),
+     "par must be (5,) [hr2, exposure, l0, l1, l2], got (4,)"),
+    (lambda: _kernels.fs_chain(torch.zeros(3), torch.zeros(3), torch.zeros(3),
+                               torch.full((3,), 3, dtype=torch.int32), torch.zeros(256, 3),
+                               torch.zeros(5)),
+     "channel must lie in 0..2"),
+    (lambda: _kernels.fs_chain(torch.zeros(3), torch.zeros(3), torch.zeros(3),
+                               torch.zeros(3), torch.zeros(256, 3), torch.zeros(5)),
+     "channel must be a contiguous 1-D torch.int32, got torch.float32 (3,)"),
+    (lambda: _kernels.slab_copy(torch.zeros(8, 1000)),
+     "src has 1000 columns, not a multiple of 128"),
+    (lambda: _kernels.slab_copy(_meta(8, 128)), "unsupported device meta"),
+    (lambda: _kernels.slab_transpose(torch.zeros(8, 128), -1),
+     "iters must lie in [0, 2**31), got -1"),
+    (lambda: _kernels.slab_transpose(torch.zeros(6, 8), 3),
+     "the loop takes 4 slabs: rows must be a positive multiple of 4, got 6"),
+    (lambda: _kernels.slab_transpose(torch.zeros(8, 2048), 3),
+     "the loop takes one thread per column: at most 1024, got 2048"),
+    (lambda: _kernels.slab_transpose(torch.zeros(8, 128).T), "src must be a contiguous 2-D "
+     "torch.float32, got torch.float32 (128, 8)"),
+    (lambda: _kernels.step_loop("c_none", torch.zeros(512, 128), 8),
+     f"body must be one of {_kernels.BODIES}, got 'c_none'"),
+    (lambda: _kernels.step_loop("c_scalar", torch.zeros(256, 128), 8),
+     "c_scalar takes big of (512, 128) as scripts/exp_loop_floor.py does, got (256, 128)"),
+    (lambda: _kernels.step_loop("c_u4", torch.zeros(512, 128), 6),
+     "nstep must be a multiple of 4 in [0, 2**31), got 6"),
+    (lambda: _kernels.step_loop("c_scalar", torch.zeros(512, 128), 8, torch.zeros(512, 128)),
+     "c_scalar's scratch is (768, 128), got (512, 128)"),
+    (lambda: _kernels.onehot_dot(torch.zeros(8, 128), torch.zeros(128, 8), "bf16"),
+     "mode must be one of ('ffma', 'tf32', 'tf32x3'), got 'bf16'"),
+    (lambda: _kernels.onehot_dot(torch.zeros(8, 64), torch.zeros(64, 8)),
+     "takes (m, 128) @ (128, n) with 1 <= m, n <= 128, got (8, 64) @ (64, 8)"),
+    (lambda: _kernels.onehot_dot(torch.zeros(129, 128), torch.zeros(128, 8)),
+     "takes (m, 128) @ (128, n) with 1 <= m, n <= 128, got (129, 128) @ (128, 8)"),
+    (lambda: _kernels.onehot_dot(torch.zeros(8, 128), torch.zeros(128, 8, dtype=torch.int32)),
+     "b must be a contiguous 2-D torch.float32, got torch.int32 (128, 8)"),
+    (lambda: _kernels.lane_ops(torch.zeros(2, 8), "rotate"),
+     "op must be one of ('roll', 'exponent'), got 'rotate'"),
+    (lambda: _kernels.lane_ops(torch.zeros(2, 2048), "roll", 1),
+     "one thread per column: at most 1024, got 2048"),
+    (lambda: _kernels.lane_ops(torch.zeros(2, 8, 1), "roll", 1),
+     "x must be a contiguous 2-D torch.float32, got torch.float32 (2, 8, 1)"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(REFUSALS)))
+def test_wrappers_refuse_as_before(case):
+    call, message = REFUSALS[case]
+    with pytest.raises(ValueError) as err:
+        call()
+    assert str(err.value) == message
+
+
+@pytest.mark.gpu
+def test_launch_lands_on_the_current_stream(cuda):
+    # The kernel reads x after a fill queued on s behind a ~30 ms spin: on
+    # any other stream it would read the zeros (exponent -127).
+    x = torch.zeros(8, 128, device=cuda)
+    _kernels.lane_ops(x, "exponent")      # builds and loads the library first
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    n = _kernels.lane_ops.launches
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        x.fill_(1.0)
+        out = _kernels.lane_ops(x, "exponent")
+        assert not s.query()
+    s.synchronize()
+    assert _kernels.lane_ops.launches == n + 1
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.gpu
+def test_launch_lands_on_the_tensors_device(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    x = torch.rand(8, 128, device="cuda:1")
+    with torch.cuda.device(0):
+        out = _kernels.lane_ops(x, "roll", 5)
+        assert torch.cuda.current_device() == 0
+    assert out.device == x.device
+    assert torch.equal(out, torch.roll(x, 5, 1))
 
 
 # ---------------- the CLIs ----------------

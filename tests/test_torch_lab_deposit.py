@@ -430,6 +430,33 @@ def test_onehot_dot_kernel_matches_plain(cuda, mode):
     assert (bad == 0) == (mode != "tf32")
 
 
+DOT_SIZES = (1, 7, 16, 17, 80, 96, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", _kernels.DOT_MODES)
+@pytest.mark.parametrize("m", DOT_SIZES)
+def test_onehot_dot_kernel_edges(cuda, mode, m):
+    # Rows and columns past a 16 x 8 tile's edge, and one-hot columns that
+    # collide, at every n: ffma bit for bit, the tf32 modes within
+    # DOT_TOLERANCE of sum |a||b|.
+    rng = np.random.default_rng(100 + m)
+    for n in DOT_SIZES:
+        a = (rng.standard_normal((m, 128)) * np.exp(rng.uniform(-20, 20, (m, 128))))
+        a = torch.from_numpy(a.astype(np.float32)).to(cuda)
+        b = np.zeros((128, n), np.float32)
+        b[np.arange(128), rng.integers(0, n, 128)] = 1.0
+        b = torch.from_numpy(b).to(cuda)
+        got = _kernels.onehot_dot(a, b, mode)
+        want = _kernels.onehot_dot_plain(a, b, mode)
+        assert got.shape == (m, n)
+        if mode == "ffma":
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (m, n)
+        else:
+            scale = _kernels.onehot_dot_plain(a.abs(), b.abs(), "ffma")
+            assert bool(((got - want).abs() <= _kernels.DOT_TOLERANCE * scale).all()), (m, n)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", _kernels.LANE_OPS)
 def test_lane_ops_kernel_matches_plain(cuda, op):

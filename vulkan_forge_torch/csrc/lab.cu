@@ -62,8 +62,12 @@
 // What bounds them on an H100: nothing at these sizes but latency. The
 // scripts' shapes are 32K elements (fs_ops), a few pixels (fs_chain),
 // 128 KB (slab copy) and one 64 KB source walked by one block (the loop),
-// so each launch costs a few microseconds of fixed overhead, and the loop
-// is a chain of dependent shared-memory steps on one SM; what the loop
+// so each launch costs a few microseconds of fixed overhead on the card
+// and more on the host: a call's time is its launch path, which
+// lab/_kernels.py keeps to the checks, the output's allocation and one
+// ctypes call (and the shared-memory opt-ins to vf_lab_prepare, once per
+// device).
+// The loop is a chain of dependent shared-memory steps on one SM; what it
 // measures is the per-iteration cost of the transpose, as the script's
 // does on the TPU. The step loop is the same on one SM: a chain of steps,
 // each a few hundred float32 operations per thread (the products: 128 k
@@ -729,10 +733,27 @@ LoopKernel loop_kernel(int body, std::integer_sequence<int, B...>) {
 }
 
 // ---------------- vf_lab_onehot_dot: E_exact and E1 ----------------
+//
+// What bounds it on an H100: its launch. The scripts' products are (80 or
+// 96, 128) @ (128, 128): 1.3-1.6 M multiply-adds, 112-128 KB of operands,
+// microseconds of work for one SM and well under one for the card. So the
+// work is spread over the card, and each output keeps its own instruction
+// sequence (the bits of every mode stay what they were on one block):
+//   ffma    one thread per output element, blocks of kDotThreads: the
+//           128-term chain in k order, a's row and b's column read from
+//           global memory (L1 and L2: a warp shares its row, and reads
+//           b's row k as 128 consecutive bytes);
+//   tf32,   one warp per 16 x 8 output tile, one warp a block (80 blocks
+//   tf32x3  for E_exact, 96 for E1): the warp loads the fragments of all
+//           16 k steps of its 16 rows of a and 8 columns of b into
+//           registers up front, then runs the mma steps, k0 ascending.
+// Elements past m and n read as zero (masked loads, not a zero-padded
+// copy), and neither kernel uses shared memory, so no launch needs the
+// opt-in above 48 KB.
 
-constexpr int kDotThreads = 1024;
+constexpr int kDotThreads = 128;
 constexpr int kDotK = 128;
-constexpr size_t kDotSmem = 2 * (size_t)kDotK * kDotK * sizeof(float);
+constexpr int kDotSteps = kDotK / 8;
 enum DotMode : int { kFfma, kTf32, kTf32x3 };
 
 // cvt.rna.tf32.f32: round to the tf32 grid (10 mantissa bits), to nearest,
@@ -753,66 +774,71 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// out (m, n) = a (m, 128) @ b (128, n), m, n <= 128; one block. Both
-// operands are staged in shared memory, zero-padded to 128 x 128. ffma:
-// one output per thread at a time, summed in k order from the k = 0
-// product. tf32 / tf32x3: each warp takes 16 x 8 output tiles, 16 mma
-// steps of k = 8 each; tf32x3 splits each element of a into three tf32
-// parts (hi, then the rounded remainders: they cover its 24 bits), runs
-// one pass per part into its own accumulator and adds the three in
-// float32, (hi + mid) + lo. b is rounded to tf32 once (exact for 0/1).
-__global__ void __launch_bounds__(kDotThreads, 1)
-    lab_onehot_dot_kernel(const float* __restrict__ a, const float* __restrict__ b, int m,
-                          int n, int mode, float* __restrict__ out) {
-  extern __shared__ __align__(16) float dot_smem[];
-  float* sa = dot_smem;                  // [row][k]
-  float* sb = dot_smem + kDotK * kDotK;  // [k][col]
-  const int t = threadIdx.x;
-  for (int e = t; e < kDotK * kDotK; e += kDotThreads) {
-    const int r = e >> 7, q = e & 127;
-    sa[e] = r < m ? a[r * kDotK + q] : 0.0f;
-    sb[e] = q < n ? b[r * n + q] : 0.0f;
-  }
-  __syncthreads();
-  if (mode == kFfma) {
-    for (int e = t; e < m * n; e += kDotThreads) {
-      const int r = e / n, col = e % n;
-      const float* ar = sa + r * kDotK;
-      float s = ar[0] * sb[col];
-      for (int k = 1; k < kDotK; ++k) s = s + ar[k] * sb[k * kDotK + col];
-      out[e] = s;
-    }
-    return;
-  }
-  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
-  const int tiles_n = (n + 7) / 8, tiles = (m + 15) / 16 * tiles_n;
-  const int parts = mode == kTf32 ? 1 : 3;
-  for (int tile = warp; tile < tiles; tile += kDotThreads / 32) {
-    const int r0 = tile / tiles_n * 16, n0 = tile % tiles_n * 8;
-    float d[3][4] = {};
-    for (int k0 = 0; k0 < kDotK; k0 += 8) {
-      // a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4); b0 (q, g), b1 (q + 4, g).
-      float av[4] = {sa[(r0 + g) * kDotK + k0 + q], sa[(r0 + g + 8) * kDotK + k0 + q],
-                     sa[(r0 + g) * kDotK + k0 + q + 4], sa[(r0 + g + 8) * kDotK + k0 + q + 4]};
-      const uint32_t b0 = tf32_rna(sb[(k0 + q) * kDotK + n0 + g]);
-      const uint32_t b1 = tf32_rna(sb[(k0 + q + 4) * kDotK + n0 + g]);
-      for (int p = 0; p < parts; ++p) {
-        uint32_t ap[4];
+// ffma: out (m, n) = a (m, 128) @ b (128, n), thread e the element (e / n,
+// e % n): s = a0 * b0, then s = s + ak * bk for k = 1..127, each product
+// and each sum rounded once (-fmad=false).
+__global__ void __launch_bounds__(kDotThreads)
+    lab_onehot_dot_ffma_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                               int m, int n, float* __restrict__ out) {
+  const int e = blockIdx.x * kDotThreads + threadIdx.x;
+  if (e >= m * n) return;
+  const int col = e % n;
+  const float* ar = a + (e / n) * kDotK;
+  float s = ar[0] * b[col];
+#pragma unroll 32
+  for (int k = 1; k < kDotK; ++k) s = s + ar[k] * b[k * n + col];
+  out[e] = s;
+}
+
+// tf32 (kParts 1) and tf32x3 (kParts 3): block i is the 16 x 8 output tile
+// i (row-major over the tiles), one warp, 16 mma steps of k = 8. tf32x3
+// splits each element of a into three tf32 parts (hi, then the rounded
+// remainders: they cover its 24 bits), runs one pass per part into its own
+// accumulator and adds the three in float32, (hi + mid) + lo. b is rounded
+// to tf32 once (exact for 0/1).
+template <int kParts>
+__global__ void __launch_bounds__(32)
+    lab_onehot_dot_mma_kernel(const float* __restrict__ a, const float* __restrict__ b, int m,
+                              int n, float* __restrict__ out) {
+  const int lane = threadIdx.x, g = lane >> 2, q = lane & 3;
+  const int tiles_n = (n + 7) / 8;
+  const int r0 = blockIdx.x / tiles_n * 16, n0 = blockIdx.x % tiles_n * 8;
+  const int ra = r0 + g, rb = r0 + g + 8, col = n0 + g;
+  // a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4); b0 (q, g),
+  // b1 (q + 4, g) of each step, k0 = 8 * step.
+  float av[kDotSteps][4];
+  uint32_t bv[kDotSteps][2];
 #pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          ap[v] = tf32_rna(av[v]);
-          av[v] = av[v] - __uint_as_float(ap[v]);
-        }
-        mma_tf32(d[p], ap, b0, b1);
+  for (int s = 0; s < kDotSteps; ++s) {
+    const int k = 8 * s + q;
+    av[s][0] = ra < m ? a[ra * kDotK + k] : 0.0f;
+    av[s][1] = rb < m ? a[rb * kDotK + k] : 0.0f;
+    av[s][2] = ra < m ? a[ra * kDotK + k + 4] : 0.0f;
+    av[s][3] = rb < m ? a[rb * kDotK + k + 4] : 0.0f;
+    bv[s][0] = tf32_rna(col < n ? b[k * n + col] : 0.0f);
+    bv[s][1] = tf32_rna(col < n ? b[(k + 4) * n + col] : 0.0f);
+  }
+  float d[kParts][4] = {};
+#pragma unroll
+  for (int s = 0; s < kDotSteps; ++s) {
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      uint32_t ap[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        ap[v] = tf32_rna(av[s][v]);
+        av[s][v] = av[s][v] - __uint_as_float(ap[v]);
       }
+      mma_tf32(d[p], ap, bv[s][0], bv[s][1]);
     }
-    // d[v]: (g, 2q), (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1).
+  }
+  // d[v]: (g, 2q), (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1).
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int row = r0 + g + (v >> 1) * 8, col = n0 + 2 * q + (v & 1);
-      const float val = mode == kTf32 ? d[0][v] : (d[0][v] + d[1][v]) + d[2][v];
-      if (row < m && col < n) out[row * n + col] = val;
-    }
+  for (int v = 0; v < 4; ++v) {
+    const int row = r0 + g + (v >> 1) * 8, c = n0 + 2 * q + (v & 1);
+    float val = d[0][v];
+    if constexpr (kParts == 3) val = (d[0][v] + d[1][v]) + d[2][v];
+    if (row < m && c < n) out[row * n + c] = val;
   }
 }
 
@@ -837,12 +863,15 @@ __global__ void lab_lane_ops_kernel(const float* __restrict__ x, int cols, int o
   out[base + c] = row[(c - shift + cols) % cols];
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory.
+// The most dynamic shared memory an H100 block may opt into.
+constexpr int kMaxSmem = 232448;
+
+// Opt a kernel into kMaxSmem bytes of dynamic shared memory on the current
+// device.
 template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
+int allow_smem(K kernel) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+                                   kMaxSmem);
 }
 
 }  // namespace
@@ -855,6 +884,19 @@ int vf_lab_ops() { return kOps; }
 int vf_lab_chain_rows() { return kChainRows; }
 // The step loop's bodies; lab._kernels.load() requires len(_bodies.BODIES).
 int vf_lab_bodies() { return kBodies; }
+
+// Opt every kernel that may take more than 48 KB of dynamic shared memory
+// (the slab copy, the slab loops, the step loop's bodies) into kMaxSmem on
+// the current device; lab._kernels calls it once per device, before the
+// device's first launch. Returns the first CUDA error.
+int vf_lab_prepare() {
+  int err = allow_smem(lab_slab_copy_kernel);
+  if (!err) err = allow_smem(lab_slab_loop_kernel<true>);
+  if (!err) err = allow_smem(lab_slab_loop_kernel<false>);
+  for (int body = 0; body < kBodies && !err; ++body)
+    err = allow_smem(loop_kernel(body, std::make_integer_sequence<int, kBodies>()));
+  return err;
+}
 
 // t, u, p, out: n f32 each; op: an index into exp_fs_ops.py's OPS.
 // Returns cudaGetLastError() after the launch.
@@ -886,8 +928,6 @@ int vf_lab_fs_chain(const float* hh, const float* xx, const float* zz,
 int vf_lab_slab_copy(const float* src, int rows, int cols, float* out,
                      void* stream) {
   const size_t smem = (size_t)rows * kSlabCols * sizeof(float);
-  int err = allow_smem(lab_slab_copy_kernel, smem);
-  if (err) return err;
   if (rows > 0 && cols > 0) {
     lab_slab_copy_kernel<<<cols / kSlabCols, kThreads, smem, (cudaStream_t)stream>>>(
         src, rows, cols, out);
@@ -910,15 +950,10 @@ int vf_lab_slab_transpose(const float* src, int rows, int cols, int iters,
   const size_t smem =
       ((size_t)rows * cols + (size_t)cols * (rows / 4 + 1)) * sizeof(float);
   const int threads = (cols + 31) / 32 * 32;
-  int err;
   if (transpose) {
-    err = allow_smem(lab_slab_loop_kernel<true>, smem);
-    if (err) return err;
     lab_slab_loop_kernel<true><<<1, threads, smem, (cudaStream_t)stream>>>(
         src, rows, cols, iters, out);
   } else {
-    err = allow_smem(lab_slab_loop_kernel<false>, smem);
-    if (err) return err;
     lab_slab_loop_kernel<false><<<1, threads, smem, (cudaStream_t)stream>>>(
         src, rows, cols, iters, out);
   }
@@ -933,8 +968,6 @@ int vf_lab_step_loop(const float* big, float* acc, int rows, int body, int iters
                      void* stream) {
   if (body < 0 || body >= kBodies) return (int)cudaErrorInvalidValue;
   const LoopKernel kernel = loop_kernel(body, std::make_integer_sequence<int, kBodies>());
-  const int err = allow_smem(kernel, kLoopSmem);
-  if (err) return err;
   kernel<<<1, kLoopThreads, kLoopSmem, (cudaStream_t)stream>>>(big, acc, rows, iters, out);
   return (int)cudaGetLastError();
 }
@@ -943,10 +976,18 @@ int vf_lab_step_loop(const float* big, float* acc, int rows, int body, int iters
 // 0 ffma, 1 tf32, 2 tf32x3.
 int vf_lab_onehot_dot(const float* a, const float* b, int m, int n, int mode, float* out,
                       void* stream) {
-  const int err = allow_smem(lab_onehot_dot_kernel, kDotSmem);
-  if (err) return err;
-  lab_onehot_dot_kernel<<<1, kDotThreads, kDotSmem, (cudaStream_t)stream>>>(a, b, m, n, mode,
-                                                                            out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mode == kFfma) {
+    lab_onehot_dot_ffma_kernel<<<(m * n + kDotThreads - 1) / kDotThreads, kDotThreads, 0, s>>>(
+        a, b, m, n, out);
+  } else {
+    const int tiles = (m + 15) / 16 * ((n + 7) / 8);
+    if (mode == kTf32) {
+      lab_onehot_dot_mma_kernel<1><<<tiles, 32, 0, s>>>(a, b, m, n, out);
+    } else {
+      lab_onehot_dot_mma_kernel<3><<<tiles, 32, 0, s>>>(a, b, m, n, out);
+    }
+  }
   return (int)cudaGetLastError();
 }
 

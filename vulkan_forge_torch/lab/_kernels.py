@@ -26,7 +26,16 @@ the raster library and its build stay as they are. A failed build raises.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version (``*_plain``
 below) and launches the kernel for a CUDA tensor, or raises; it counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches``. Every launch goes through
+``_launch``: the library's functions are bound once, at ``load()``, and a
+launch takes the tensor's device's current stream as a raw handle and
+switches the current device only when the tensor lies on another; the
+kernels that may take more than 48 KB of shared memory are opted into it
+once per device (``vf_lab_prepare``), before its first launch. So a small
+kernel's call costs little more than its output's allocation and the
+launch itself. Outputs are allocated with ``torch.empty``'s variants
+that take the dtype and device from an input (``new_empty``,
+``empty_like``): the same allocation, with less argument parsing.
 """
 from __future__ import annotations
 
@@ -73,9 +82,15 @@ _SIGNATURES = {
     "vf_lab_step_loop": [_P, _P, _I, _I, _I, _P, _P],
     "vf_lab_onehot_dot": [_P, _P, _I, _I, _I, _P, _P],
     "vf_lab_lane_ops": [_P, _I, _I, _I, _I, _P, _P],
+    "vf_lab_prepare": [],
 }
 
 _lib = None
+_fns = {}      # name -> the library's function, argument and result types set
+_prepared = set()   # the device indices vf_lab_prepare has run on
+# torch's C calls for the current device and a device's current stream (raw
+# handle), bound with the library: a CPU-only build of torch has neither.
+_current_device = _raw_stream = None
 
 
 def source_hash() -> str:
@@ -110,40 +125,79 @@ def build() -> Path:
     return out
 
 
+def bind(lib) -> dict:
+    """{name: function} for every name of _SIGNATURES, looked up once in
+    ``lib`` with its argument types and an int result set."""
+    fns = {}
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
 def load():
-    """Build (if needed) and load the lab library; returns the CDLL."""
-    global _lib
+    """Build (if needed) and load the lab library and bind its functions;
+    returns the CDLL."""
+    global _lib, _current_device, _raw_stream
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        have = (lib.vf_lab_ops(), lib.vf_lab_chain_rows(), lib.vf_lab_bodies())
+        fns = bind(lib)
+        have = (fns["vf_lab_ops"](), fns["vf_lab_chain_rows"](), fns["vf_lab_bodies"]())
         want = (len(OPS), CHAIN_ROWS, len(BODIES))
         if have != want:
             raise RuntimeError(f"csrc/lab.cu has {have} ops, chain rows and loop bodies, "
                                f"lab/_kernels.py {want}")
+        _fns.update(fns)
+        _current_device = torch._C._cuda_getDevice
+        _raw_stream = torch._C._cuda_getCurrentRawStream
         _lib = lib
     return _lib
 
 
-def _launch(wrapper, symbol: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        err = getattr(load(), symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+def _launch(wrapper, name: str, t: torch.Tensor, *args) -> None:
+    """Call the library's ``name`` with args and the current stream of t's
+    device, on that device (entered only if it is not the current one);
+    raise on a nonzero CUDA error, else count the launch. t is a CUDA
+    tensor, so torch's CUDA state is initialised: the current device and
+    the raw stream handle come from torch's own C calls, as its compiled
+    kernels' launchers take them."""
+    if _lib is None:
+        load()
+    index = t.get_device()
+    if _current_device() == index:
+        err = _call(name, index, args)
+    else:
+        with torch.cuda.device(index):
+            err = _call(name, index, args)
     if err != 0:
-        raise RuntimeError(f"{symbol} launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     wrapper.launches += 1
 
 
-def _check(name: str, t: torch.Tensor, dtype, dim: int, device=None) -> None:
-    if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
+def _call(name: str, index: int, args) -> int:
+    """The library's ``name`` on the current device, ``index``, on its
+    current stream; before the device's first launch, vf_lab_prepare (the
+    shared-memory opt-ins). The first nonzero CUDA error."""
+    if index not in _prepared:
+        err = _fns["vf_lab_prepare"]()
+        if err != 0:
+            return err
+        _prepared.add(index)
+    return _fns[name](*args, _raw_stream(index))
+
+
+def _check(name: str, t: torch.Tensor, dtype, dim: int, like=None) -> None:
+    """Raise unless t is a contiguous ``dim``-D ``dtype`` tensor on the CPU
+    or a CUDA device (the device of ``like``, if given)."""
+    if t.dtype is not dtype or t.dim() != dim or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous {dim}-D {dtype}, got {t.dtype} "
                          f"{tuple(t.shape)}")
-    if t.device.type not in ("cpu", "cuda"):
+    if not (t.is_cuda or t.is_cpu):
         raise ValueError(f"unsupported device {t.device}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if like is not None and t.get_device() != like.get_device():
+        raise ValueError(f"{name} is on {t.device}, expected {like.device}")
 
 
 # ---------------- fs_ops ----------------
@@ -180,14 +234,14 @@ def fs_ops(t: torch.Tensor, u: torch.Tensor, p: torch.Tensor, op: str) -> torch.
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
     for name, a in (("t", t), ("u", u), ("p", p)):
-        _check(name, a, torch.float32, a.dim(), t.device)
+        _check(name, a, torch.float32, a.dim(), t)
         if a.shape != t.shape:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, t {tuple(t.shape)}")
-    if t.device.type == "cpu":
+    if not t.is_cuda:
         return fs_ops_plain(t, u, p, op)
     out = torch.empty_like(t)
     if t.numel():
-        _launch(fs_ops, "vf_lab_fs_ops", t.device, t.data_ptr(), u.data_ptr(), p.data_ptr(),
+        _launch(fs_ops, "vf_lab_fs_ops", t, t.data_ptr(), u.data_ptr(), p.data_ptr(),
                 t.numel(), OPS.index(op), out.data_ptr())
     return out
 
@@ -249,27 +303,27 @@ def fs_chain(hh: torch.Tensor, xx: torch.Tensor, zz: torch.Tensor, channel: torc
     last row is ``vf::shade_shipped``'s own word.
     """
     for name, a in (("hh", hh), ("xx", xx), ("zz", zz)):
-        _check(name, a, torch.float32, 1, hh.device)
+        _check(name, a, torch.float32, 1, hh)
         if a.shape != hh.shape:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, hh {tuple(hh.shape)}")
-    _check("channel", channel, torch.int32, 1, hh.device)
+    _check("channel", channel, torch.int32, 1, hh)
     if channel.shape != hh.shape:
         raise ValueError(f"channel has shape {tuple(channel.shape)}, hh {tuple(hh.shape)}")
-    _check("lut", lut, torch.float32, 2, hh.device)
+    _check("lut", lut, torch.float32, 2, hh)
     if lut.shape != (256, 3):
         raise ValueError(f"lut must be (256, 3), got {tuple(lut.shape)}")
-    _check("par", par, torch.float32, 1, hh.device)
+    _check("par", par, torch.float32, 1, hh)
     if par.shape != (5,):
         raise ValueError(f"par must be (5,) [hr2, exposure, l0, l1, l2], got {tuple(par.shape)}")
     if channel.numel() and (int(channel.min()) < 0 or int(channel.max()) > 2):
         raise ValueError("channel must lie in 0..2")
     if hh.numel() >= 2**31:
         raise ValueError("at most 2**31 - 1 pixels")
-    if hh.device.type == "cpu":
+    if not hh.is_cuda:
         return fs_chain_plain(hh, xx, zz, channel, lut, par)
-    out = torch.empty((CHAIN_ROWS, hh.numel()), dtype=torch.float32, device=hh.device)
+    out = hh.new_empty((CHAIN_ROWS, hh.numel()))
     if hh.numel():
-        _launch(fs_chain, "vf_lab_fs_chain", hh.device, hh.data_ptr(), xx.data_ptr(),
+        _launch(fs_chain, "vf_lab_fs_chain", hh, hh.data_ptr(), xx.data_ptr(),
                 zz.data_ptr(), channel.data_ptr(), hh.numel(), lut.data_ptr(), par.data_ptr(),
                 out.data_ptr())
     return out
@@ -297,16 +351,16 @@ def slab_copy(src: torch.Tensor) -> torch.Tensor:
     rows, cols = src.shape
     if cols % SLAB:
         raise ValueError(f"src has {cols} columns, not a multiple of {SLAB}")
-    if src.device.type == "cpu":
+    if not src.is_cuda:
         return slab_copy_plain(src)
     if rows * SLAB * 4 > MAX_SMEM:
         raise ValueError(f"a slab of {rows} rows exceeds a block's {MAX_SMEM} bytes of "
                          "shared memory")
     if src.data_ptr() % 16:
         raise ValueError("src must start on a 16-byte boundary (cp.async copies 16 bytes)")
-    out = torch.empty((rows * cols // SLAB, SLAB), dtype=torch.float32, device=src.device)
+    out = src.new_empty((rows * cols // SLAB, SLAB))
     if out.numel():
-        _launch(slab_copy, "vf_lab_slab_copy", src.device, src.data_ptr(), rows, cols,
+        _launch(slab_copy, "vf_lab_slab_copy", src, src.data_ptr(), rows, cols,
                 out.data_ptr())
     return out
 
@@ -350,16 +404,16 @@ def slab_transpose(src: torch.Tensor, iters: int = 0, transpose: bool = True) ->
                              f"of 4, got {rows}")
         if cols > 1024:
             raise ValueError(f"the loop takes one thread per column: at most 1024, got {cols}")
-    if src.device.type == "cpu":
+    if not src.is_cuda:
         return slab_transpose_plain(src, iters, transpose)
     if iters and (rows * cols + cols * (rows // 4 + 1)) * 4 > MAX_SMEM:
         raise ValueError(f"a ({rows}, {cols}) source and its slab's tile exceed a block's "
                          f"{MAX_SMEM} bytes of shared memory")
     shape = (1, cols) if iters else (cols, rows)
-    out = torch.empty(shape, dtype=torch.float32, device=src.device)
+    out = src.new_empty(shape)
     if src.numel():
-        _launch(slab_transpose, "vf_lab_slab_transpose", src.device, src.data_ptr(), rows,
-                cols, iters, int(bool(transpose)), out.data_ptr())
+        _launch(slab_transpose, "vf_lab_slab_transpose", src, src.data_ptr(), rows,
+                cols, iters, 1 if transpose else 0, out.data_ptr())
     return out
 
 
@@ -385,7 +439,7 @@ def _step_checks(body: str, big: torch.Tensor, nstep: int, scratch):
     shape = (script["scratch"], _bodies.LANES)
     if scratch is None:
         return torch.zeros(shape, dtype=torch.float32, device=big.device)
-    _check("scratch", scratch, torch.float32, 2, big.device)
+    _check("scratch", scratch, torch.float32, 2, big)
     if scratch.shape != shape:
         raise ValueError(f"{body}'s scratch is {shape}, got {tuple(scratch.shape)}")
     return scratch.clone()
@@ -409,10 +463,10 @@ def step_loop(body: str, big: torch.Tensor, nstep: int, scratch=None):
     block on one SM.
     """
     acc = _step_checks(body, big, nstep, scratch)
-    if big.device.type == "cpu":
+    if not big.is_cuda:
         return _bodies.run(body, big, nstep, acc), acc
-    out = torch.empty((_bodies.TILE, _bodies.LANES), dtype=torch.float32, device=big.device)
-    _launch(step_loop, "vf_lab_step_loop", big.device, big.data_ptr(), acc.data_ptr(),
+    out = big.new_empty((_bodies.TILE, _bodies.LANES))
+    _launch(step_loop, "vf_lab_step_loop", big, big.data_ptr(), acc.data_ptr(),
             acc.shape[0], BODIES.index(body), nstep // _bodies.BY_NAME[body].unroll,
             out.data_ptr())
     return out, acc
@@ -462,26 +516,28 @@ DOT_TOLERANCE = 1e-5
 
 
 def onehot_dot(a: torch.Tensor, b: torch.Tensor, mode: str = "ffma") -> torch.Tensor:
-    """a (m, 128) @ b (128, n), float32, 1 <= m, n <= 128, on one block:
-    ``ffma`` (CUDA cores, full float32: HIGHEST), ``tf32`` (one TF32
-    ``mma.sync`` pass: the default precision) or ``tf32x3`` (a split into
-    three tf32 parts, three passes added in float32).
+    """a (m, 128) @ b (128, n), float32, 1 <= m, n <= 128: ``ffma`` (CUDA
+    cores, full float32: HIGHEST), ``tf32`` (one TF32 ``mma.sync`` pass: the
+    default precision) or ``tf32x3`` (a split into three tf32 parts, three
+    passes added in float32).
 
-    CPU tensors: ``onehot_dot_plain``. CUDA tensors: ``vf_lab_onehot_dot``.
+    CPU tensors: ``onehot_dot_plain``. CUDA tensors: ``vf_lab_onehot_dot``,
+    spread over the card (ffma: a thread per output; tf32 modes: a warp per
+    16 x 8 output tile).
     """
     if mode not in DOT_MODES:
         raise ValueError(f"mode must be one of {DOT_MODES}, got {mode!r}")
     _check("a", a, torch.float32, 2)
-    _check("b", b, torch.float32, 2, a.device)
+    _check("b", b, torch.float32, 2, a)
     m, k = a.shape
     n = b.shape[1]
     if k != 128 or b.shape[0] != 128 or not (1 <= m <= 128 and 1 <= n <= 128):
         raise ValueError(f"takes (m, 128) @ (128, n) with 1 <= m, n <= 128, got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    if a.device.type == "cpu":
+    if not a.is_cuda:
         return onehot_dot_plain(a, b, mode)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _launch(onehot_dot, "vf_lab_onehot_dot", a.device, a.data_ptr(), b.data_ptr(), m, n,
+    out = a.new_empty((m, n))
+    _launch(onehot_dot, "vf_lab_onehot_dot", a, a.data_ptr(), b.data_ptr(), m, n,
             DOT_MODES.index(mode), out.data_ptr())
     return out
 
@@ -517,11 +573,11 @@ def lane_ops(x: torch.Tensor, op: str, shift: int = 0) -> torch.Tensor:
     rows, cols = x.shape
     if cols > 1024:
         raise ValueError(f"one thread per column: at most 1024, got {cols}")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return lane_ops_plain(x, op, shift)
     out = torch.empty_like(x)
     if x.numel():
-        _launch(lane_ops, "vf_lab_lane_ops", x.device, x.data_ptr(), rows, cols,
+        _launch(lane_ops, "vf_lab_lane_ops", x, x.data_ptr(), rows, cols,
                 LANE_OPS.index(op), shift % cols, out.data_ptr())
     return out
 
