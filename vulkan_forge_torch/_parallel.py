@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import _colormap, _formats, _mesh
+from . import _colormap, _formats, _mesh, _trace
 from ._camera import look_at_rh, perspective_wgpu
 from ._device import resolve_device
 from ._raster import pipeline
@@ -49,39 +49,46 @@ def render_spike_frames(width: int, height: int, grid: int,
     padded to a multiple of the device count (repeating the last camera)
     and the pad frames are dropped from the result.
     """
-    width, height = size_wh(width, height)
-    grid = vgrid(grid)
-    if colormap not in _colormap.SUPPORTED:
-        raise _colormap.unknown_colormap_error(colormap)
-    B = len(eyes)
-    if B == 0:
-        raise ValueError("need at least one camera")
-    devs = _devices(devices)
-    n = len(devs)
+    with _trace.call("vf.render_spike_frames"):
+        width, height = size_wh(width, height)
+        grid = vgrid(grid)
+        if colormap not in _colormap.SUPPORTED:
+            raise _colormap.unknown_colormap_error(colormap)
+        B = len(eyes)
+        if B == 0:
+            raise ValueError("need at least one camera")
+        devs = _devices(devices)
+        with _trace.span("vf.inputs", devs):
+            n = len(devs)
+            with _trace.setup("vf.mesh"):
+                xyuv, idx = _mesh.build_grid_xyuv(grid)
+            heights = np.zeros((1, 1), np.float32)
+            lut = _colormap.build_lut(colormap)[0]
+            g = Globals()
+            sun = _normalize(np.array([0.5, 1.0, 0.3], np.float32))
+            aspect = np.float32(width) / np.float32(height)
+            proj = perspective_wgpu(np.float32(math.radians(float(fovy_deg))), aspect,
+                                    np.float32(znear), np.float32(zfar))
+            views = np.stack([look_at_rh(e, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+                              for e in eyes])
+            pad = (-B) % n
+            if pad:
+                views = np.concatenate([views, np.repeat(views[-1:], pad, axis=0)])
+            projs = np.broadcast_to(proj, views.shape).copy()
+            share = (B + pad) // n
 
-    xyuv, idx = _mesh.build_grid_xyuv(grid)
-    heights = np.zeros((1, 1), np.float32)
-    lut = _colormap.build_lut(colormap)[0]
-    g = Globals()
-    sun = _normalize(np.array([0.5, 1.0, 0.3], np.float32))
-    aspect = np.float32(width) / np.float32(height)
-    proj = perspective_wgpu(np.float32(math.radians(float(fovy_deg))), aspect,
-                            np.float32(znear), np.float32(zfar))
-    views = np.stack([look_at_rh(e, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)) for e in eyes])
-    pad = (-B) % n
-    if pad:
-        views = np.concatenate([views, np.repeat(views[-1:], pad, axis=0)])
-    projs = np.broadcast_to(proj, views.shape).copy()
-
-    share = (B + pad) // n
-    frames = []
-    for k, dev in enumerate(devs):              # every share launched ...
-        s = slice(k * share, (k + 1) * share)
-        img = pipeline.render_terrain_batch_u32(
-            xyuv, idx, heights, views[s], projs[s], spacing=g.spacing,
-            exaggeration=g.exaggeration, h_min=g.h_min, h_max=g.h_max,
-            exposure=g.exposure, sun_dir=sun, lut=lut, width=width, height=height,
-            fs_mode="shipped", grid_n=grid, device=dev)
-        frames.append(_formats.u32_image_to_rgba_u8(img))
-    # ... before any is read back.
-    return np.concatenate([f.cpu().numpy() for f in frames])[:B]
+        frames = []
+        for k, dev in enumerate(devs):              # every share launched ...
+            s = slice(k * share, (k + 1) * share)
+            img = pipeline.render_terrain_batch_u32(
+                xyuv, idx, heights, views[s], projs[s], spacing=g.spacing,
+                exaggeration=g.exaggeration, h_min=g.h_min, h_max=g.h_max,
+                exposure=g.exposure, sun_dir=sun, lut=lut, width=width, height=height,
+                fs_mode="shipped", grid_n=grid, device=dev)
+            frames.append(_formats.u32_image_to_rgba_u8(img))
+        # ... before any is read back.
+        out = []
+        for f in frames:
+            with _trace.span("vf.readback", f.device):
+                out.append(_trace.d2h(f).cpu().numpy())
+        return np.concatenate(out)[:B]

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _trace
 from .._formats import pack_rgba_u32, srgb_encode
 
 
@@ -66,7 +67,8 @@ def terrain_fs(h, x, z, mask, lut, h_range, exposure, sun_dir):
 
     rgb = lut_rgb * exposure * shade[..., None]
 
-    clear = torch.tensor([0.02, 0.02, 0.03], dtype=torch.float32, device=h.device)
+    clear = _trace.h2d(None, torch.tensor([0.02, 0.02, 0.03], dtype=torch.float32,
+                                          device=h.device))
     rgb = torch.where(mask[..., None], rgb, clear)
     srgb = srgb_encode(rgb)
     one = torch.ones_like(srgb[..., 0])
@@ -111,7 +113,8 @@ def terrain_fs_extended(h, u, v, mask, lut, heights, h_min, h_max, exposure,
     rgb = rgb * exposure
     rgb = rgb / (1.0 + rgb)
 
-    clear = torch.tensor([0.02, 0.02, 0.03], dtype=torch.float32, device=h.device)
+    clear = _trace.h2d(None, torch.tensor([0.02, 0.02, 0.03], dtype=torch.float32,
+                                          device=h.device))
     rgb = torch.where(mask[..., None], rgb, clear)
     srgb = srgb_encode(rgb)
     one = torch.ones_like(srgb[..., 0])

@@ -73,6 +73,7 @@ from pathlib import Path
 
 import torch
 
+from .. import _trace
 from .._build import BUILD_DIR
 from . import fragment, packed, segments, tiles, vtx
 from .setup import REC_WIDTH, TILE, Binning, tile_grid
@@ -193,32 +194,34 @@ def load():
     """Build (if needed) and load the kernel library; returns the CDLL."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        if lib.vf_tile() != TILE:
-            raise RuntimeError(f"csrc/raster.cu rasterizes {lib.vf_tile()}-pixel "
-                               f"tiles but setup.TILE is {TILE}")
-        for src, fn in (("vtx.cu", lib.vf_vtx_big_pixels),
-                        ("packed.cu", lib.vf_packed_big_pixels)):
-            if fn() != vtx.BIG_PIXELS:
-                raise RuntimeError(f"csrc/{src} lists triangles above {fn()} "
-                                   f"pixels but vtx.BIG_PIXELS is {vtx.BIG_PIXELS}")
-        if lib.vf_big_tile() != vtx.BIG_TILE:
-            raise RuntimeError(f"csrc/raster_common.cuh walks {lib.vf_big_tile()}-pixel big "
-                               f"tiles but vtx.BIG_TILE is {vtx.BIG_TILE}")
-        resolve = (lib.vf_resolve_tile_w(), lib.vf_resolve_warp_w())
-        if resolve != (vtx.RESOLVE_TILE_W, vtx.RESOLVE_WARP_W):
-            raise RuntimeError(f"csrc/raster_common.cuh resolves {resolve[0]}-pixel-wide "
-                               f"tiles in {resolve[1]}-pixel-wide warp patches but vtx.py "
-                               f"mirrors {vtx.RESOLVE_TILE_W} and {vtx.RESOLVE_WARP_W}")
-        if (lib.vf_seg_tile_h(), lib.vf_seg_tile_w()) != (segments.TILE_H, segments.TILE_W):
-            raise RuntimeError(f"csrc/segments.cu walks {lib.vf_seg_tile_h()}x"
-                               f"{lib.vf_seg_tile_w()} tiles but segments.py bins "
-                               f"{segments.TILE_H}x{segments.TILE_W}")
-        _lib = lib
+        with _trace.setup("vf.setup.load"):
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            if lib.vf_tile() != TILE:
+                raise RuntimeError(f"csrc/raster.cu rasterizes {lib.vf_tile()}-pixel "
+                                   f"tiles but setup.TILE is {TILE}")
+            for src, fn in (("vtx.cu", lib.vf_vtx_big_pixels),
+                            ("packed.cu", lib.vf_packed_big_pixels)):
+                if fn() != vtx.BIG_PIXELS:
+                    raise RuntimeError(f"csrc/{src} lists triangles above {fn()} "
+                                       f"pixels but vtx.BIG_PIXELS is {vtx.BIG_PIXELS}")
+            if lib.vf_big_tile() != vtx.BIG_TILE:
+                raise RuntimeError(f"csrc/raster_common.cuh walks {lib.vf_big_tile()}-pixel "
+                                   f"big tiles but vtx.BIG_TILE is {vtx.BIG_TILE}")
+            resolve = (lib.vf_resolve_tile_w(), lib.vf_resolve_warp_w())
+            if resolve != (vtx.RESOLVE_TILE_W, vtx.RESOLVE_WARP_W):
+                raise RuntimeError(f"csrc/raster_common.cuh resolves {resolve[0]}-pixel-wide "
+                                   f"tiles in {resolve[1]}-pixel-wide warp patches but vtx.py "
+                                   f"mirrors {vtx.RESOLVE_TILE_W} and {vtx.RESOLVE_WARP_W}")
+            if (lib.vf_seg_tile_h(), lib.vf_seg_tile_w()) != (segments.TILE_H,
+                                                              segments.TILE_W):
+                raise RuntimeError(f"csrc/segments.cu walks {lib.vf_seg_tile_h()}x"
+                                   f"{lib.vf_seg_tile_w()} tiles but segments.py bins "
+                                   f"{segments.TILE_H}x{segments.TILE_W}")
+            _lib = lib
     return _lib
 
 

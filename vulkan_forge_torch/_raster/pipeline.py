@@ -56,7 +56,7 @@ import os
 import numpy as np
 import torch
 
-from .. import _formats
+from .. import _formats, _trace
 from .._device import resolve_device
 from . import fragment, kernels, packed, segments, transform, vtx
 from .setup import (FILL_RULES, REC_WIDTH, bin_tiles, check_fill_rule, clip_to_fb,
@@ -97,13 +97,14 @@ def _check_render_env() -> None:
 def _f32(x, device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x, dtype=np.float32)
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return _trace.h2d(x, torch.as_tensor(x, dtype=torch.float32, device=device))
 
 
 def _tri_indices(indices, device) -> torch.Tensor:
     if not isinstance(indices, torch.Tensor):
         indices = np.asarray(indices, dtype=np.int64)
-    return torch.as_tensor(indices, dtype=torch.long, device=device).reshape(-1, 3)
+    return _trace.h2d(indices, torch.as_tensor(indices, dtype=torch.long,
+                                               device=device)).reshape(-1, 3)
 
 
 def _tri_indices_i32(indices, n_vertices: int, device) -> torch.Tensor:
@@ -112,9 +113,10 @@ def _tri_indices_i32(indices, n_vertices: int, device) -> torch.Tensor:
     through it, so every index must lie in [0, n_vertices)."""
     if not isinstance(indices, torch.Tensor):
         indices = np.asarray(indices).reshape(-1, 3).astype(np.int32)
-    idx = torch.as_tensor(indices, dtype=torch.int32, device=device).reshape(-1, 3)
+    idx = _trace.h2d(indices, torch.as_tensor(indices, dtype=torch.int32,
+                                              device=device)).reshape(-1, 3)
     if idx.numel():
-        lo, hi = (int(v) for v in torch.aminmax(idx))
+        lo, hi = (int(_trace.d2h(v)) for v in torch.aminmax(idx))
         if lo < 0 or hi >= n_vertices:
             raise ValueError(f"indices must lie in [0, {n_vertices}), got [{lo}, {hi}]")
     return idx.contiguous()
@@ -219,39 +221,48 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
     does not read ``VF_FILL_RULE`` (the reference's batched entries take no
     fill rule). Returns (B, H, W) uint32 RGBA words on ``device``.
     """
-    dev, hw, (xyuv, heights, views, projs, spacing, exaggeration, lut, exposure,
-              sun_dir, h_min, h_max) = _frame_inputs(
-        fs_mode, fill_rule, device, xyuv, heights, views, projs, spacing, exaggeration,
-        lut, exposure, sun_dir, h_min, h_max)
-    n_frames = views.shape[0]
-    n_tris = int(np.prod(np.shape(indices))) // 3
+    with _trace.span("vf.inputs", device):
+        dev, hw, (xyuv, heights, views, projs, spacing, exaggeration, lut, exposure,
+                  sun_dir, h_min, h_max) = _frame_inputs(
+            fs_mode, fill_rule, device, xyuv, heights, views, projs, spacing, exaggeration,
+            lut, exposure, sun_dir, h_min, h_max)
+        n_frames = views.shape[0]
+        n_tris = int(np.prod(np.shape(indices))) // 3
 
     # The vtx and indexed routes set up in registers without the hw rule's
     # snap and edge thresholds.
     if not hw and use_vtx_route(grid_n, xyuv.shape[0], n_tris):
-        fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
-                               width, height, fs_mode)
-        if fs_mode == "shipped":
-            return vtx.render_image_vtx_batch(fields, lut, h_max - h_min, exposure,
-                                              sun_dir, int(grid_n), width, height)
-        gbuf = vtx.render_gbuffer_vtx_batch(fields, int(grid_n), width, height)
+        with _trace.span("vf.vertex", dev):
+            fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
+                                   width, height, fs_mode)
+        with _trace.span("vf.raster", dev):
+            if fs_mode == "shipped":
+                return vtx.render_image_vtx_batch(fields, lut, h_max - h_min, exposure,
+                                                  sun_dir, int(grid_n), width, height)
+            gbuf = vtx.render_gbuffer_vtx_batch(fields, int(grid_n), width, height)
     elif not hw and use_indexed_route(grid_n, fs_mode):
-        fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
-                               width, height, fs_mode)
-        gbuf = packed.render_gbuffer_packed_batch(
-            fields, _tri_indices_i32(indices, xyuv.shape[0], dev), width, height)
+        with _trace.span("vf.vertex", dev):
+            fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
+                                   width, height, fs_mode)
+        with _trace.span("vf.raster", dev):
+            gbuf = packed.render_gbuffer_packed_batch(
+                fields, _tri_indices_i32(indices, xyuv.shape[0], dev), width, height)
     else:
-        records, binning = terrain_records(
-            xyuv, _tri_indices(indices, dev), heights, views, projs, spacing,
-            exaggeration, width, height, fs_mode, fill_rule)
-        if fs_mode == "shipped":
-            shade = kernels.raster_shade_shipped_hw if hw else kernels.raster_shade_shipped
-            return shade(records, binning, n_frames, width, height, lut, h_max - h_min,
-                         exposure, sun_dir)
-        gbuf = _gbuffer_kernel(hw)(records, binning, n_frames, width, height)
-    nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
-    return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,
-                                        sun_dir, nsp, exaggeration)
+        with _trace.span("vf.vertex", dev):
+            records, binning = terrain_records(
+                xyuv, _tri_indices(indices, dev), heights, views, projs, spacing,
+                exaggeration, width, height, fs_mode, fill_rule)
+        with _trace.span("vf.raster", dev):
+            if fs_mode == "shipped":
+                shade = (kernels.raster_shade_shipped_hw if hw
+                         else kernels.raster_shade_shipped)
+                return shade(records, binning, n_frames, width, height, lut,
+                             h_max - h_min, exposure, sun_dir)
+            gbuf = _gbuffer_kernel(hw)(records, binning, n_frames, width, height)
+    with _trace.span("vf.shade", dev):
+        nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
+        return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,
+                                            sun_dir, nsp, exaggeration)
 
 
 def render_terrain_u8(xyuv, indices, heights, view, proj, *, spacing,
@@ -270,21 +281,26 @@ def render_terrain_u8(xyuv, indices, heights, view, proj, *, spacing,
     is given, else the triangle count (one row: plain interval binning,
     pipeline.py:709). No other route reads it.
     """
-    rule = fill_rule_from_env()
-    n_tris = int(np.prod(np.shape(indices))) // 3
-    args = dict(spacing=spacing, exaggeration=exaggeration, h_min=h_min, h_max=h_max,
-                exposure=exposure, sun_dir=sun_dir, lut=lut, width=width, height=height,
-                fs_mode=fs_mode, normal_spacing=normal_spacing, grid_n=grid_n,
-                device=device)
-    if use_segment_route(n_tris, height, rule):
+    with _trace.span("vf.inputs", device):
+        rule = fill_rule_from_env()
+        n_tris = int(np.prod(np.shape(indices))) // 3
+        args = dict(spacing=spacing, exaggeration=exaggeration, h_min=h_min, h_max=h_max,
+                    exposure=exposure, sun_dir=sun_dir, lut=lut, width=width,
+                    height=height, fs_mode=fs_mode, normal_spacing=normal_spacing,
+                    grid_n=grid_n, device=device)
+        segment = use_segment_route(n_tris, height, rule)
+        if not segment:
+            views, projs = _f32(view, None)[None], _f32(proj, None)[None]
+    if segment:
         img = render_terrain_segments_u32(xyuv, indices, heights, view, proj,
                                           row_size=row_size, **args)
     else:
-        img = render_terrain_batch_u32(xyuv, indices, heights, _f32(view, None)[None],
-                                       _f32(proj, None)[None], fill_rule=rule, **args)[0]
+        img = render_terrain_batch_u32(xyuv, indices, heights, views, projs,
+                                       fill_rule=rule, **args)[0]
     if as_device:
         return img
-    return _formats.u32_image_to_rgba_u8(img).cpu().numpy()
+    with _trace.span("vf.readback", device):
+        return _trace.d2h(_formats.u32_image_to_rgba_u8(img)).cpu().numpy()
 
 
 def segment_frame(fields, indices, grid_n, width: int, height: int, row_size=None):
@@ -320,22 +336,28 @@ def render_terrain_segments_u32(xyuv, indices, heights, view, proj, *, spacing,
     shipped shader or ``vf_seg_gbuffer`` and the extended shader. The
     arguments are ``render_terrain_u8``'s. Returns (H, W) uint32 RGBA on
     ``device``."""
-    dev, _, (xyuv, heights, views, projs, spacing, exaggeration, lut, exposure, sun_dir,
-             h_min, h_max) = _frame_inputs(
-        fs_mode, "inclusive", device, xyuv, heights, _f32(view, None)[None],
-        _f32(proj, None)[None], spacing, exaggeration, lut, exposure, sun_dir, h_min, h_max)
-    fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration, width, height,
-                           fs_mode)
-    frame = segments.stack_frames([segment_frame(fields, indices, grid_n, width, height,
-                                                 row_size)])
-    del fields
-    if fs_mode == "shipped":
-        return segments.render_image_segments_batch(*frame, 1, width, height, lut,
-                                                    h_max - h_min, exposure, sun_dir)[0]
-    gbuf = segments.render_gbuffer_segments_batch(*frame, 1, width, height)
-    nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
-    return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,
-                                        sun_dir, nsp, exaggeration)[0]
+    with _trace.span("vf.inputs", device):
+        dev, _, (xyuv, heights, views, projs, spacing, exaggeration, lut, exposure,
+                 sun_dir, h_min, h_max) = _frame_inputs(
+            fs_mode, "inclusive", device, xyuv, heights, _f32(view, None)[None],
+            _f32(proj, None)[None], spacing, exaggeration, lut, exposure, sun_dir, h_min,
+            h_max)
+    with _trace.span("vf.vertex", dev):
+        fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration, width,
+                               height, fs_mode)
+    with _trace.span("vf.raster", dev):
+        frame = segments.stack_frames([segment_frame(fields, indices, grid_n, width, height,
+                                                     row_size)])
+        del fields
+        if fs_mode == "shipped":
+            return segments.render_image_segments_batch(*frame, 1, width, height, lut,
+                                                        h_max - h_min, exposure,
+                                                        sun_dir)[0]
+        gbuf = segments.render_gbuffer_segments_batch(*frame, 1, width, height)
+    with _trace.span("vf.shade", dev):
+        nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
+        return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,
+                                            sun_dir, nsp, exaggeration)[0]
 
 
 def triangle_records(width: int, height: int, device, fill_rule: str = "inclusive"):
@@ -343,7 +365,7 @@ def triangle_records(width: int, height: int, device, fill_rule: str = "inclusiv
     ``device``, set up under ``fill_rule``."""
     clip, colors = transform.triangle_vs(_f32(_TRI_POS, device), _f32(_TRI_COLOR, device))
     x, y, z, w = clip_to_fb(clip, width, height)
-    indices = torch.tensor([[0, 1, 2]], dtype=torch.long, device=device)
+    indices = _trace.h2d(None, torch.tensor([[0, 1, 2]], dtype=torch.long, device=device))
     records, bbox = triangle_setup(x, y, z, w, colors, indices, width, height, fill_rule)
     return records.reshape(-1, REC_WIDTH), bin_tiles(bbox, width, height)
 
@@ -352,11 +374,17 @@ def render_triangle_u8(width: int, height: int, device=None, as_device: bool = F
     """Deterministic gradient triangle under the fill rule of
     ``VF_FILL_RULE`` -> (H, W, 4) uint8 numpy array, or with ``as_device``
     its (H, W) uint32 words on the device."""
-    _check_render_env()
-    rule = fill_rule_from_env()
-    records, binning = triangle_records(width, height, resolve_device(device), rule)
-    v0, v1, v2, mask = _gbuffer_kernel(rule == "hw")(records, binning, 1, width, height)
-    img = fragment.triangle_fs(v0[0], v1[0], v2[0], mask[0])
+    with _trace.span("vf.inputs", device):
+        _check_render_env()
+        rule = fill_rule_from_env()
+        dev = resolve_device(device)
+    with _trace.span("vf.vertex", dev):
+        records, binning = triangle_records(width, height, dev, rule)
+    with _trace.span("vf.raster", dev):
+        v0, v1, v2, mask = _gbuffer_kernel(rule == "hw")(records, binning, 1, width, height)
+    with _trace.span("vf.shade", dev):
+        img = fragment.triangle_fs(v0[0], v1[0], v2[0], mask[0])
     if as_device:
         return img
-    return _formats.u32_image_to_rgba_u8(img).cpu().numpy()
+    with _trace.span("vf.readback", dev):
+        return _trace.d2h(_formats.u32_image_to_rgba_u8(img)).cpu().numpy()

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import _colormap, _dem, _formats, _mesh
+from . import _colormap, _dem, _formats, _mesh, _trace
 from ._camera import look_at_rh, perspective_wgpu
 from ._device import resolve_device
 from ._io import save_png_rgba
@@ -61,7 +61,7 @@ def grid_mesh(width: int, height: int, dx: float, dy: float, device):
     same f32 ops); the device only copies them into place and does integer
     index arithmetic, so the values are ``make_grid``'s bit for bit.
     """
-    xs, ys, us, vs = (torch.from_numpy(a).to(device)
+    xs, ys, us, vs = (_trace.h2d(a, torch.from_numpy(a).to(device))
                       for a in _mesh.grid_axes(width, height, dx, dy))
     shape = (height, width)
     xyuv = torch.stack([xs[None, :].expand(shape), ys[:, None].expand(shape),
@@ -128,8 +128,10 @@ class Renderer:
         img = render()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            _trace.count("syncs")
         t1 = time.perf_counter()
-        out = _formats.u32_image_to_rgba_u8(img).cpu().numpy()
+        with _trace.span("vf.readback", self.device):
+            out = _trace.d2h(_formats.u32_image_to_rgba_u8(img)).cpu().numpy()
         t2 = time.perf_counter()
         self._record_metrics((t1 - t0) * 1e3, (t2 - t1) * 1e3)
         return out
@@ -141,14 +143,16 @@ class Renderer:
 
     def render_triangle_rgba(self) -> np.ndarray:
         """Render the fixed gradient triangle -> (H, W, 4) uint8."""
-        return self._timed(lambda: _pipeline.render_triangle_u8(
-            self.width, self.height, device=self.device, as_device=True))
+        with _trace.call("vf.Renderer.render_triangle_rgba"):
+            return self._timed(lambda: _pipeline.render_triangle_u8(
+                self.width, self.height, device=self.device, as_device=True))
 
     def render_triangle_png(self, path: str) -> None:
         save_png_rgba(str(path), self.render_triangle_rgba())
 
     # ---------------- terrain state ----------------
 
+    @_trace.setup("vf.Renderer.add_terrain")
     def add_terrain(self, heightmap, spacing, exaggeration=1.0,
                     colormap="viridis") -> None:
         """Store a DEM (heights are multiplied by exaggeration at ingest,
@@ -222,6 +226,7 @@ class Renderer:
 
     # ---------------- height texture path ----------------
 
+    @_trace.setup("vf.Renderer.upload_height_r32f")
     def upload_height_r32f(self) -> None:
         """Upload the stored heights as the device height texture: an
         (H, W) float32 tensor on ``self.device`` (the R32Float texture of
@@ -230,9 +235,8 @@ class Renderer:
         terr = self._require_terrain()
         if terr.width == 0 or terr.height == 0:
             raise RuntimeError("terrain dimensions are zero")
-        self._height_tex = torch.as_tensor(
-            np.ascontiguousarray(terr.heights.reshape(terr.height, terr.width)),
-            device=self.device)
+        host = np.ascontiguousarray(terr.heights.reshape(terr.height, terr.width))
+        self._height_tex = _trace.h2d(host, torch.as_tensor(host, device=self.device))
 
     def debug_read_height_patch(self, x: int, y: int, w: int, h: int) -> np.ndarray:
         """Read back an (h, w) float32 patch (parity: src/lib.rs:573-666)."""
@@ -288,27 +292,31 @@ class Renderer:
         normals, Lambert + ambient floor, Reinhard tonemap in linear, sRGB
         encode.
         """
-        terr = self._require_terrain()
-        if self._mesh is None:
-            self._mesh = grid_mesh(terr.width, terr.height, terr.spacing[0],
-                                   terr.spacing[1], self.device)
-        xyuv, tris = self._mesh
-        view, proj = self._default_terrain_camera(terr)
-        lut, _fmt = _colormap.build_lut(terr.colormap)
-        heights = (self._height_tex if self._height_tex is not None
-                   else terr.heights.reshape(terr.height, terr.width))
-        # Heights were pre-multiplied by exaggeration at ingest and the mesh
-        # is already in world units, so spacing/exaggeration enter the vertex
-        # stage as 1; the true DEM spacing only scales the normals' slope.
-        return self._timed(lambda: _pipeline.render_terrain_u8(
-            xyuv, tris, heights, view, proj,
-            spacing=1.0, exaggeration=1.0,
-            normal_spacing=float(terr.spacing[0]),
-            h_min=self._terrain_meta.h_min, h_max=self._terrain_meta.h_max,
-            exposure=self._globals.exposure, sun_dir=self._globals.sun_dir,
-            lut=lut, width=self.width, height=self.height,
-            fs_mode="extended", row_size=2 * (terr.width - 1), device=self.device,
-            as_device=True))
+        with _trace.call("vf.Renderer.render_rgba"):
+            with _trace.span("vf.inputs", self.device):
+                terr = self._require_terrain()
+                if self._mesh is None:
+                    with _trace.setup("vf.mesh"):
+                        self._mesh = grid_mesh(terr.width, terr.height, terr.spacing[0],
+                                               terr.spacing[1], self.device)
+                xyuv, tris = self._mesh
+                view, proj = self._default_terrain_camera(terr)
+                lut, _fmt = _colormap.build_lut(terr.colormap)
+                heights = (self._height_tex if self._height_tex is not None
+                           else terr.heights.reshape(terr.height, terr.width))
+            # Heights were pre-multiplied by exaggeration at ingest and the
+            # mesh is already in world units, so spacing/exaggeration enter
+            # the vertex stage as 1; the true DEM spacing only scales the
+            # normals' slope.
+            return self._timed(lambda: _pipeline.render_terrain_u8(
+                xyuv, tris, heights, view, proj,
+                spacing=1.0, exaggeration=1.0,
+                normal_spacing=float(terr.spacing[0]),
+                h_min=self._terrain_meta.h_min, h_max=self._terrain_meta.h_max,
+                exposure=self._globals.exposure, sun_dir=self._globals.sun_dir,
+                lut=lut, width=self.width, height=self.height,
+                fs_mode="extended", row_size=2 * (terr.width - 1), device=self.device,
+                as_device=True))
 
     def render_png(self, path: str) -> None:
         save_png_rgba(str(path), self.render_rgba())

@@ -13,7 +13,7 @@ import math
 
 import numpy as np
 
-from . import _colormap, _mesh
+from . import _colormap, _mesh, _trace
 from ._camera import look_at_rh, perspective_wgpu, validate_camera_params
 from ._device import resolve_device
 from ._io import save_png_rgba
@@ -27,6 +27,7 @@ class _TerrainObjectBase:
     """Shared state + render path for TerrainSpike/Scene."""
 
     _seed_sun_from_light: bool  # TerrainSpike seeds sun from the light vec
+    _call_span: str             # the trace range of render_rgba
 
     def __init__(self, width: int, height: int, grid: "int | None" = 128,
                  colormap: "str | None" = "viridis", device=None):
@@ -41,7 +42,8 @@ class _TerrainObjectBase:
         self.height = int(height)
         self.grid = grid
 
-        self._xyuv, self._indices = _mesh.build_grid_xyuv(grid)
+        with _trace.setup("vf.mesh"):
+            self._xyuv, self._indices = _mesh.build_grid_xyuv(grid)
         view, proj, light = default_view_proj(self.width, self.height)
         self._view = view
         self._proj = proj
@@ -83,14 +85,15 @@ class _TerrainObjectBase:
     def render_rgba(self) -> np.ndarray:
         """Shipped terrain pipeline -> (H, W, 4) uint8."""
         g = self._globals
-        return _pipeline.render_terrain_u8(
-            self._xyuv, self._indices,
-            self._heights, self._view, self._proj,
-            spacing=g.spacing, exaggeration=g.exaggeration,
-            h_min=g.h_min, h_max=g.h_max,
-            exposure=g.exposure, sun_dir=g.sun_dir,
-            lut=self._lut, width=self.width, height=self.height,
-            fs_mode="shipped", grid_n=self.grid, device=self.device)
+        with _trace.call(self._call_span):
+            return _pipeline.render_terrain_u8(
+                self._xyuv, self._indices,
+                self._heights, self._view, self._proj,
+                spacing=g.spacing, exaggeration=g.exaggeration,
+                h_min=g.h_min, h_max=g.h_max,
+                exposure=g.exposure, sun_dir=g.sun_dir,
+                lut=self._lut, width=self.width, height=self.height,
+                fs_mode="shipped", grid_n=self.grid, device=self.device)
 
     def render_png(self, path: str) -> None:
         save_png_rgba(str(path), self.render_rgba())
@@ -100,6 +103,7 @@ class TerrainSpike(_TerrainObjectBase):
     """Analytic terrain spike (parity: src/terrain/mod.rs:221-547)."""
 
     _seed_sun_from_light = True
+    _call_span = "vf.TerrainSpike.render_rgba"
 
     def _default_height(self) -> np.ndarray:
         # 1x1 zero dummy height texture (src/terrain/mod.rs:341-356).
@@ -110,6 +114,7 @@ class Scene(_TerrainObjectBase):
     """Scene object with height upload (parity: src/scene/mod.rs:24-348)."""
 
     _seed_sun_from_light = False
+    _call_span = "vf.Scene.render_rgba"
 
     def _default_height(self) -> np.ndarray:
         # 2x2 gradient dummy so the first frame has variance
