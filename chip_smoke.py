@@ -63,25 +63,33 @@ Phases, each printing one line, in order:
      images under the FS policy; the (tile, record) pairs each tile
      evaluated (the kernel's evaluated output) equal the torch mirror of
      its skip tests (segments.overlap_walk); the plain walk's time there.
+  2f. vertex stage vs plain: vf_vs_fields (csrc/vtx.cu) against
+     vtx.vs_fields_plain on the same CUDA tensors, both shaders, at the
+     relight frame (a Renderer's 3601^2 mesh, texture and default camera,
+     800x600) and at g1024 with 4 orbit cameras: every field bit for bit,
+     NaN as NaN, one launch a call.
   3. main path, slice 1: the public API on device="cuda"
      (make_terrain(800,600,128) render_rgba/render_png,
      Scene(160,120,32,"magma") with a height upload -- both name their grid
      and take the vtx route --, render_triangle_rgba(800,600),
      and the batched entry without grid_n, which takes any mesh through the
      record route, 2 cameras at g128); both record kernels' launch counters
-     must advance; each image is held to the same call on device="cpu"
+     must advance, and vf_vs_fields' must read 3 (the vtx route's frames;
+     in every main-path slice it reads one launch per frame batch on the
+     vtx, indexed and segment routes, and none on the record route); each image is held to the same call on device="cpu"
      under the FS policy; after the counts are read, the triangle and the
      batch records again with evaluated items equal to the mirror's.
   3b. main path, slice 2: make_terrain(800,600,1024).render_rgba(), the
      batched entry with 4 orbit cameras at grid=1024, and one extended-
      shader frame at grid=1024, all on device="cuda"; every vertex-stream
-     kernel's counter must advance and no record kernel may launch. The
-     single frames are held to device="cpu", the batch to the record route.
+     kernel's counter must advance and no record kernel may launch;
+     vf_vs_fields 3. The single frames are held to device="cpu", the batch to the record route.
   3c. main path, slice 3: Renderer(800,600) on device="cuda" with
      add_terrain(DEM-2048, 30 m, x1.5, "terrain"), upload_height_r32f,
      set_sun, set_exposure, render_rgba and render_png, then render_rgba of
      a 3601^2 DEM (the SRTM 1" tile, T = 25.9M > 2^24); every indexed
-     kernel's counter must advance and no record or vtx kernel may launch.
+     kernel's counter must advance and no record or vtx kernel may launch;
+     vf_vs_fields 3.
      Both frames' g-buffers are held bit for bit to the record route's on
      the card (skipped if it cannot fit), a DEM-256 frame to device="cpu"
      under the FS policy; render_metrics must be filled in.
@@ -89,14 +97,14 @@ Phases, each printing one line, in order:
      restored after) render_triangle_rgba(800,600),
      make_terrain(800,600,1024).render_rgba() and the Renderer's DEM-2048
      render_rgba() on device="cuda"; both hw kernels' counters must advance
-     and no other kernel may launch. The triangle and a Scene 160x120 g32
+     and no other kernel may launch (vf_vs_fields 0). The triangle and a Scene 160x120 g32
      are held to device="cpu" under the FS policy; after the counts are
      read, the three frames' hw records with evaluated items equal to the
      mirror's.
   3e. main path, slice 5: at 7680x4320 make_terrain(7680,4320,1024)
      .render_rgba() and Renderer.render_rgba() at DEM-2048 and DEM-3601
      on device="cuda"; both segment kernels' counters must advance and no
-     other kernel may launch. Each frame's g-buffer must equal the vtx or
+     other kernel may launch but vf_vs_fields, once a frame. Each frame's g-buffer must equal the vtx or
      indexed route's on the same frame bit for bit, and its image that
      route's under the FS policy; peak device memory per frame. Then, on
      the 8 tile rows of each frame that walk the most records, the kernels
@@ -107,8 +115,8 @@ Phases, each printing one line, in order:
      ok with NVIDIA's vendor id, device_probe("TPU") unsupported,
      enumerate_adapters() one adapter per card with the framebuffer limit;
      render_spike_frames(800,600,1024) on 4 orbit eyes with the counts set
-     to 0 just before it (the three vtx kernels of the shaded path must
-     launch, no other), byte-equal to render_terrain_batch_u32 and to
+     to 0 just before it (the three vtx kernels of the shaded path and
+     vf_vs_fields must launch, no other), byte-equal to render_terrain_batch_u32 and to
      TerrainSpike.render_rgba() per eye, then timed in turns with the
      direct batch (phase 4b's vtx route, mesh and frames on the card;
      median of 5 camera sets, host clock after synchronize, Mpix/s) and the
@@ -189,6 +197,10 @@ Phases, each printing one line, in order:
      pairs, the intervals K8's walk visits and those the y-extent test
      skips, the records scanned, and the kernel's time on the whole
      frame's tables and on the band's.
+  4f. timing of the vertex stage: vf_vs_fields at 2f's shapes, both
+     shaders: per call over 20 back-to-back launches (CUDA events), device
+     time per launch (torch.profiler), vtx.vs_fields_plain's time, and the
+     bound (bytes: xyuv, the distinct texels, the fields written).
   5. profile, only with --profile: torch.profiler over 3 batches of each
      headline path (32 cameras g128 on the record route, 4 cameras g1024 on
      the vtx route); the device's busy share and the ops with the most
@@ -204,13 +216,14 @@ Phases, each printing one line, in order:
      held to one JSON line with bench.py's metric for its environment, the
      route that ran (vtx, or record), device cuda, the card's nvidia-smi
      line, 5 reps, and its launches (counted in the process: each route
-     kernel once per camera set, 6, no other kernel); then the five example
+     kernel once per camera set, 6, vf_vs_fields too on the vtx route, no
+     other kernel); then the five example
      twins (python -m vulkan_forge_torch.examples.<name> --device cuda)
      together in a temporary directory and again in-process in another:
      exit 0, the same printed lines (but the Renderer's timing metrics),
      PNG pixels equal, and the launches each twin makes (the triangles 2 of
      vf_raster_gbuffer, terrain 1 and terrain_normals_flip 2 of each indexed
-     kernel, add_terrain none) in both runs.
+     kernel and of vf_vs_fields, add_terrain none) in both runs.
 
   7. the lab kernels (csrc/lab.cu, built into a library of its own: its
      seconds and ptxas report): the four lab twins (python -m
@@ -265,7 +278,7 @@ Phases, each printing one line, in order:
 Then a line that lists any device time whose profiler sessions all missed
 (kernel_device_ms; that time is then queued_device_ms's: CUDA events around
 launches queued behind a spin kernel), one JSON line with the per-kernel
-record (all twenty kernels), and last the line {"ok": true, "device":
+record (all twenty-one kernels), and last the line {"ok": true, "device":
 {...}}. Any failure raises and exits
 nonzero. It imports nothing of JAX and nothing of the JAX package.
 """
@@ -520,7 +533,9 @@ ENTRIES = (("raster_kernelILb0ELb0", "vf_raster_gbuffer"),
            ("packed_cover_big_kernel", "vf_packed_cover_big"),
            ("packed_resolve_kernel", "vf_packed_resolve_gbuffer"),
            ("seg_kernelILb0", "vf_seg_gbuffer"),
-           ("seg_kernelILb1", "vf_seg_shade_shipped"))
+           ("seg_kernelILb1", "vf_seg_shade_shipped"),
+           ("vs_fields_kernelILb0", "vf_vs_fields, extended"),
+           ("vs_fields_kernelILb1", "vf_vs_fields, shipped"))
 
 
 def blocks_per_sm(registers, smem_bytes, threads=256):
@@ -860,8 +875,8 @@ def phase3_main_path():
     """The public API on the card; returns the main path's launch counts."""
     os.makedirs(OUT_DIR, exist_ok=True)
     png = os.path.join(OUT_DIR, "spike_800x600_g128.png")
-    kernels.raster_gbuffer.launches = 0
-    kernels.raster_shade_shipped.launches = 0
+    for _, fn in RECORD_KERNELS + VS_KERNELS:
+        fn.launches = 0
 
     spike = vt.make_terrain(W, H, GRID, device="cuda")
     out = {"spike_800x600_g128": spike.render_rgba()}
@@ -881,11 +896,13 @@ def phase3_main_path():
         return _formats.u32_image_to_rgba_u8(img).cpu().numpy()
     out["batch_800x600_g128_x2"] = batch("cuda")
     sync()
-    launches = {"vf_raster_gbuffer": kernels.raster_gbuffer.launches,
-                "vf_raster_shade_shipped": kernels.raster_shade_shipped.launches}
-    for name, n in launches.items():
-        if n <= 0:
+    launches = {name: fn.launches for name, fn in RECORD_KERNELS + VS_KERNELS}
+    for name, _ in RECORD_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
+    # The vtx route's frames: the spike's render_rgba and render_png and the
+    # Scene's; the triangle and the batch without grid_n take the record route.
+    check_vs_launches(launches, 3, "slice 1's main path")
     # The record frames of this phase again, with the kernels' evaluated
     # items held to the mirror's (after the launch counts were read).
     a = batch_args("cuda")
@@ -927,6 +944,10 @@ VTX_KERNELS = (("vf_vtx_cover", kernels.vtx_cover),
                ("vf_vtx_resolve_shade_shipped", kernels.vtx_resolve_shade_shipped))
 RECORD_KERNELS = (("vf_raster_gbuffer", kernels.raster_gbuffer),
                   ("vf_raster_shade_shipped", kernels.raster_shade_shipped))
+# The vertex stage of the vtx, indexed and segment routes (csrc/vtx.cu):
+# one launch per frame batch on each; the record route keeps the torch
+# vertex shader and never launches it.
+VS_KERNELS = (("vf_vs_fields", kernels.vs_fields),)
 
 
 def dem(rows, cols, seed=0):
@@ -957,7 +978,7 @@ def phase3b_vtx_main_path(dev):
     ext_h = dem(257, 257, seed=1)
     ext_args = dict(batch_args(dev), fs_mode="extended", grid_n=VGRID)
     ext_args.update(h_min=float(ext_h.min()), h_max=float(ext_h.max()))
-    for _, fn in VTX_KERNELS + RECORD_KERNELS:
+    for _, fn in VTX_KERNELS + RECORD_KERNELS + VS_KERNELS:
         fn.launches = 0
 
     spike = vt.make_terrain(W, H, VGRID, device=dev)
@@ -966,13 +987,14 @@ def phase3b_vtx_main_path(dev):
                                               grid_n=VGRID, **batch_args(dev))
     ext = pipeline.render_terrain_u8(xyuv, idx, ext_h, spike._view, spike._proj, **ext_args)
     sync()
-    launches = {name: fn.launches for name, fn in VTX_KERNELS + RECORD_KERNELS}
+    launches = {name: fn.launches for name, fn in VTX_KERNELS + RECORD_KERNELS + VS_KERNELS}
     for name, _ in VTX_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"slice 2's main path never launched {name}")
     for name, _ in RECORD_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 2's main path launched the record kernel {name}")
+    check_vs_launches(launches, 3, "slice 2's main path")    # frame, batch, extended frame
 
     if batch.dtype != torch.uint32 or tuple(batch.shape) != (VBATCH, H, W):
         raise AssertionError(f"bad batch {batch.dtype} {tuple(batch.shape)}")
@@ -1672,7 +1694,7 @@ def phase3c_renderer_main_path(dev):
     png = os.path.join(OUT_DIR, f"renderer_dem{DEM_MAIN}_{W}x{H}.png")
     main = make_renderer(DEM_MAIN, dev)
     srtm = make_renderer(SRTM, dev, seed=1)
-    every = PACKED_KERNELS + VTX_KERNELS + RECORD_KERNELS
+    every = PACKED_KERNELS + VTX_KERNELS + RECORD_KERNELS + VS_KERNELS
     for _, fn in every:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1692,6 +1714,8 @@ def phase3c_renderer_main_path(dev):
     for name, _ in VTX_KERNELS + RECORD_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 3's main path launched {name}")
+    # DEM-2048's render_rgba and render_png, the SRTM tile's render_rgba.
+    check_vs_launches(launches, 3, "slice 3's main path")
 
     if set(metrics) != {"render_ms", "readback_ms", "total_ms", "bytes", "width", "height"} \
             or not metrics["render_ms"] > 0 or metrics["bytes"] != W * H * 4:
@@ -2153,7 +2177,7 @@ def phase3d_hw_main_path(dev):
     and the triangle are held to device="cpu". Returns the launch counts."""
     spike = vt.make_terrain(W, H, VGRID, device=dev)
     main = make_renderer(DEM_MAIN, dev)
-    every = HW_KERNELS + RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS
+    every = HW_KERNELS + RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS + VS_KERNELS
     previous = os.environ.get("VF_FILL_RULE")
     os.environ["VF_FILL_RULE"] = "hw"
     try:
@@ -2182,6 +2206,7 @@ def phase3d_hw_main_path(dev):
     for name, _ in RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 4's main path launched {name}")
+    check_vs_launches(launches, 0, "slice 4's main path")   # hw: the record route alone
     # The three frames' hw records again, with the kernels' evaluated items
     # held to the mirror's (after the launch counts were read).
     xyuv, tris, heights, views, projs = renderer_frame(main)
@@ -2386,7 +2411,7 @@ LAB_KERNELS = (("vf_lab_fs_ops", lab_kernels.fs_ops),
                ("vf_lab_onehot_dot", lab_kernels.onehot_dot),
                ("vf_lab_lane_ops", lab_kernels.lane_ops))
 ALL_KERNELS = (VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
-               + LAB_KERNELS)
+               + VS_KERNELS + LAB_KERNELS)
 POSTER = (7680, 4320)                      # 8K UHD: a print-size poster
 MAP_TILE = (4096, 4096)                    # a 4096^2 map tile
 SEG_CHECK = (256, 4352)                    # tall, yet small enough for the plain walk
@@ -2668,7 +2693,8 @@ def phase3e_seg_main_path(dev):
     Returns the launch counts and each frame's ``band_check``."""
     w, h = POSTER
     frames = poster_frames(dev)
-    every = SEG_KERNELS + RECORD_KERNELS + HW_KERNELS + VTX_KERNELS + PACKED_KERNELS
+    every = (SEG_KERNELS + RECORD_KERNELS + HW_KERNELS + VTX_KERNELS + PACKED_KERNELS
+             + VS_KERNELS)
     out, peak, band = {}, {}, {}
     for _, fn in every:
         fn.launches = 0
@@ -2685,6 +2711,7 @@ def phase3e_seg_main_path(dev):
     for name, _ in RECORD_KERNELS + HW_KERNELS + VTX_KERNELS + PACKED_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 5's main path launched {name}")
+    check_vs_launches(launches, len(frames), "slice 5's main path")
 
     clear = np.array([39, 39, 48], np.uint8)    # the terrain's clear colour in sRGB u8
     checks = {}
@@ -2882,11 +2909,117 @@ def phase4e_seg_timing(smi, dev, band):
 
 
 
+# ---------------- the vertex stage (vf_vs_fields) ----------------
+
+# f32 operations of vf_vs_fields, counted from csrc/vtx.cu: per vertex the
+# texel index (per axis a multiply, floor, two compares and the NaN test),
+# the spacing clamp and the world position (VS_OPS_VERTEX), the shipped
+# shader's relief besides (sinf, cosf, four multiplies, two adds:
+# VS_OPS_RELIEF); per vertex and frame the two 4x4 products (16 multiplies
+# and 12 adds each) and clip_to_fb (abs, compare, 3 divides, 6 multiplies
+# and adds): VS_OPS_FRAME.
+VS_OPS_VERTEX, VS_OPS_RELIEF, VS_OPS_FRAME = 15, 8, 67
+
+
+def check_vs_launches(launches, calls, label):
+    """vf_vs_fields launched once per frame batch on the vtx, indexed and
+    segment routes, ``calls`` of them, and never on the record route."""
+    if launches["vf_vs_fields"] != calls:
+        raise AssertionError(f"{label}: vf_vs_fields launched {launches['vf_vs_fields']} "
+                             f"times, expected {calls}")
+
+
+def vs_shapes(dev):
+    """The vertex stage's inputs (xyuv, heights, views, projs, spacing,
+    exaggeration) at the main path's shapes, one shape at a time: the
+    relight frame (a Renderer's own 3601^2 mesh, height texture and default
+    camera at 800x600, as each srtm1.relight call draws it) and the
+    headline batch (the g1024 spike grid, its 1x1 zero texture, 4 orbit
+    cameras and make_terrain's spacing and exaggeration)."""
+    xyuv, _, heights, views, projs = renderer_frame(make_renderer(SRTM, dev, seed=1))
+    one = tensor(1.0, dev)
+    yield f"relight DEM-{SRTM} x1", (xyuv, heights, views, projs, one, one)
+    del xyuv, heights
+    torch.cuda.empty_cache()
+    views, projs = orbit_cameras(VBATCH, W, H, phase=0.7)
+    a = batch_args(dev)
+    yield f"spike g{VGRID} x{VBATCH}", (
+        tensor(_mesh.build_grid_xyuv(VGRID)[0], dev), tensor(np.zeros((1, 1)), dev),
+        tensor(views, dev), tensor(projs, dev), tensor(a["spacing"], dev),
+        tensor(a["exaggeration"], dev))
+
+
+def vs_bound(args, fs_mode):
+    """bound_of vf_vs_fields on these inputs: 16 bytes of xyuv per vertex,
+    the distinct texels read (4 bytes each), the fields written (7 f32 per
+    vertex and frame); VS_OPS_* operations."""
+    n, frames = args[0].shape[0], args[2].shape[0]
+    nbytes = n * 16 + 4 * min(n, args[1].numel()) + frames * n * vtx.FIELDS * 4
+    ops = n * (VS_OPS_VERTEX + VS_OPS_RELIEF * (fs_mode == "shipped") + frames * VS_OPS_FRAME)
+    return bound_of(nbytes, ops)
+
+
+def phase2f_vs_kernel(dev):
+    """vf_vs_fields against vs_fields_plain on the same CUDA tensors at the
+    main path's shapes, both shaders: every field bit for bit (NaN as NaN),
+    one launch a call. Returns its max_abs_err (0.0: any difference
+    raises)."""
+    cases = {}
+    for label, args in vs_shapes(dev):
+        for mode in ("extended", "shipped"):
+            n = kernels.vs_fields.launches
+            got = kernels.vs_fields(*args, W, H, mode)
+            sync()
+            if kernels.vs_fields.launches != n + 1:
+                raise AssertionError(f"{label} {mode}: {kernels.vs_fields.launches - n} "
+                                     "vf_vs_fields launches in one call")
+            want = vtx.vs_fields_plain(*args, W, H, mode)
+            differ = got.view(torch.int32) != want.view(torch.int32)
+            count = int(differ.sum())
+            if count:
+                b, k, v = (int(i) for i in differ.nonzero()[0])
+                raise AssertionError(
+                    f"{label} {mode}: vf_vs_fields differs from vs_fields_plain in {count} "
+                    f"values; first frame {b}, field {k}, vertex {v}: {float(got[b, k, v])!r} "
+                    f"against {float(want[b, k, v])!r}")
+            cases[f"{label} {mode}"] = {"vertices": args[0].shape[0],
+                                        "frames": args[2].shape[0], "bit_equal": True,
+                                        "nan_values": int(torch.isnan(got).sum())}
+            del got, want, differ
+    torch.cuda.empty_cache()
+    say("vs_kernel_vs_plain", tolerance="every field bit for bit, NaN as NaN", cases=cases)
+    return 0.0
+
+
+def phase4f_vs_timing(smi, dev):
+    """vf_vs_fields at the main path's shapes, both shaders: per call over
+    20 back-to-back launches (CUDA events), device time per launch
+    (torch.profiler), the plain version's time and the bound (vs_bound).
+    Returns the kernels line's record: the relight frame, extended (what
+    each srtm1.relight call runs), and every case under ``cases``."""
+    cases = {}
+    for label, args in vs_shapes(dev):
+        for mode in ("extended", "shipped"):
+            kern = lambda: kernels.vs_fields(*args, W, H, mode)
+            rec = {"ms": cuda_ms(kern, inner=KERNEL_INNER),
+                   "device_ms": kernel_device_ms(kern, key="vs_fields_kernel"),
+                   "plain_ms": cuda_ms(lambda: vtx.vs_fields_plain(*args, W, H, mode)),
+                   **vs_bound(args, mode)}
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            cases[f"{label} {mode}"] = rec
+    torch.cuda.empty_cache()
+    at = f"relight DEM-{SRTM} x1 extended"
+    say("vs_timing", card=smi, config=f"{W}x{H}; kernel: 20 back-to-back launches, median of "
+        f"{REPS}; device_ms: torch.profiler per launch; plain: vtx.vs_fields_plain, median of "
+        f"{REPS} calls", kernel_ms=cases)
+    return {**cases[at], "at": at, "cases": cases}
+
+
 # ---------------- slice 11: the public surface on the card ----------------
 
-# render_spike_frames takes the vtx route's shaded path; the other kernels
-# must not launch there.
-SPIKE_KERNELS = tuple(k for k in VTX_KERNELS if k[0] != "vf_vtx_resolve_gbuffer")
+# render_spike_frames takes the vtx route's shaded path (and its vertex
+# stage); the other kernels must not launch there.
+SPIKE_KERNELS = tuple(k for k in VTX_KERNELS if k[0] != "vf_vtx_resolve_gbuffer") + VS_KERNELS
 # Grids above 1024 (the API admits up to 4096): frames per render_spike_frames
 # call. Each frame is also checked alone against the plain version.
 BIG_GRIDS = ((2048, 4), (4096, 4))
@@ -2933,6 +3066,7 @@ def spike_frames_headline(dev):
         if (launches[name] > 0) != (name in dict(SPIKE_KERNELS)):
             raise AssertionError(f"render_spike_frames launched {name} "
                                  f"{launches[name]} times")
+    check_vs_launches(launches, 1, "render_spike_frames")   # one batch on the one card
     if frames.dtype != np.uint8 or frames.shape != (VBATCH, H, W, 4):
         raise AssertionError(f"bad frames {frames.dtype} {frames.shape}")
     xyuv, idx = _mesh.build_grid_xyuv(VGRID)
@@ -3213,16 +3347,18 @@ BENCH_RUNS = (("headline", {}, "vtx"),
               ("dem2048", {"VF_BENCH_DEM": "2048"}, "vtx"),
               ("record_g128", {"VF_BENCH_GRID": "128", "VF_DENSE": "record"}, "record"))
 # The kernels of each route's shaded batch, one launch per camera set.
-ROUTE_KERNELS = {"vtx": ("vf_vtx_cover", "vf_vtx_cover_big", "vf_vtx_resolve_shade_shipped"),
+ROUTE_KERNELS = {"vtx": ("vf_vs_fields", "vf_vtx_cover", "vf_vtx_cover_big",
+                         "vf_vtx_resolve_shade_shipped"),
                  "record": ("vf_raster_shade_shipped",)}
 # The example twins and the launches each makes (none: add_terrain renders
-# nothing; the Renderer's frames take the indexed route, one launch each).
-PACKED_NAMES = tuple(name for name, _ in PACKED_KERNELS)
+# nothing; the Renderer's frames take the indexed route, one launch of each
+# of its kernels, the vertex stage's included).
+INDEXED_NAMES = ("vf_vs_fields",) + tuple(name for name, _ in PACKED_KERNELS)
 EXAMPLES = {"triangle": {"vf_raster_gbuffer": 2},
             "two_triangles": {"vf_raster_gbuffer": 2},
-            "terrain": dict.fromkeys(PACKED_NAMES, 1),
+            "terrain": dict.fromkeys(INDEXED_NAMES, 1),
             "add_terrain": {},
-            "terrain_normals_flip": dict.fromkeys(PACKED_NAMES, 2)}
+            "terrain_normals_flip": dict.fromkeys(INDEXED_NAMES, 2)}
 ENTRY_TIMEOUT = 300
 # Runs a module as `python -m` does, then writes every kernel wrapper's launch
 # count to the JSON file VF_SMOKE_LAUNCHES names (the module's exit code stands).
@@ -4226,7 +4362,10 @@ def main() -> int:
     sync()
     seg_err = phase2e_seg_kernels(dev)
     sync()
+    vs_err = phase2f_vs_kernel(dev)
+    sync()
     launches = phase3_main_path()
+    vs_launches = launches["vf_vs_fields"]
     sync()
     vtx_launches = phase3b_vtx_main_path(dev)
     launches.update({name: vtx_launches[name] for name, _ in VTX_KERNELS})
@@ -4239,6 +4378,9 @@ def main() -> int:
     sync()
     seg_launches, seg_band = phase3e_seg_main_path(dev)
     launches.update({name: seg_launches[name] for name, _ in SEG_KERNELS})
+    # The vertex stage runs on every main path but the record route's.
+    launches["vf_vs_fields"] = vs_launches + sum(
+        d["vf_vs_fields"] for d in (vtx_launches, packed_launches, hw_launches, seg_launches))
     for b in seg_band.values():
         for name, err in b["err"].items():
             seg_err[name] = max(seg_err[name], err)
@@ -4254,6 +4396,8 @@ def main() -> int:
     hw_rec = phase4d_hw_timing(smi, dev)
     sync()
     seg_rec = phase4e_seg_timing(smi, dev, seg_band)
+    sync()
+    vs_rec = phase4f_vs_timing(smi, dev)
     sync()
     if opts.profile:
         phase5_profile(dev)
@@ -4319,6 +4463,14 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": seg_err[name],
                      **{k: seg_rec[name][k] for k in keys + ("plain_at", "ms_band")},
                      "library_ms": None})
+    # The vertex stage: the JAX pipeline's vs_fields (terrain_vs or its
+    # extended body, then clip_to_fb, stacked), which XLA fuses on the TPU;
+    # the times at the relight frame, extended, every shape under "cases".
+    line.append({"name": "vf_vs_fields", "route": "cuda", "source": vsrc,
+                 "replaces": "vulkan_forge/_raster/pipeline.py:467-482",
+                 "launches": launches["vf_vs_fields"], "max_abs_err": vs_err,
+                 **{k: vs_rec[k] for k in keys + ("device_ms", "bound_share", "at", "cases")},
+                 "library_ms": None})
     # The lab kernels (csrc/lab.cu): each replaces the kernel a probe script
     # launches; the times are at the twins' shapes (phase 7).
     replaces = {"vf_lab_fs_ops": "scripts/exp_fs_ops.py:70",

@@ -29,18 +29,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _terrain(grid, W, H, eye, dev, batch=1, fill_rule="inclusive"):
-    xyuv, idx = _mesh.build_grid_xyuv(grid)
+def _orbit_cameras(batch, W, H, eye, fovy=60, near=0.1):
+    """(views, projs) of ``batch`` cameras about ``eye``, each turned 0.7 rad
+    further about the y axis, looking at the origin; far 100."""
     views = np.stack([_camera.look_at_rh(
         (eye[0] * math.cos(0.7 * b) - eye[2] * math.sin(0.7 * b), eye[1],
          eye[0] * math.sin(0.7 * b) + eye[2] * math.cos(0.7 * b)), (0, 0, 0), (0, 1, 0))
         for b in range(batch)])
-    proj = _camera.perspective_wgpu(np.float32(math.radians(45)), np.float32(W / H),
-                                    np.float32(0.1), np.float32(100))
+    proj = _camera.perspective_wgpu(np.float32(math.radians(fovy)), np.float32(W / H),
+                                    np.float32(near), np.float32(100))
+    return views, np.stack([proj] * batch)
+
+
+def _terrain(grid, W, H, eye, dev, batch=1, fill_rule="inclusive"):
+    xyuv, idx = _mesh.build_grid_xyuv(grid)
+    views, projs = _orbit_cameras(batch, W, H, eye, fovy=45)
     t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
     records, binning = pipeline.terrain_records(
         t(xyuv), torch.as_tensor(idx.astype(np.int64).reshape(-1, 3), device=dev),
-        t(np.zeros((1, 1))), t(views), t(np.stack([proj] * batch)), t(1.0), t(1.0), W, H,
+        t(np.zeros((1, 1))), t(views), t(projs), t(1.0), t(1.0), W, H,
         fill_rule=fill_rule)
     lut, _ = _colormap.build_lut("terrain")
     shade = (t(lut), t(1.0), t(1.1), t([0.35, 0.9, 0.2]))
@@ -198,16 +205,10 @@ def _vtx_fields(grid, W, H, eye, dev, batch=1, fs_mode="shipped", near=0.1):
     close ``eye`` gives near-camera triangles; with a near plane closer
     than a cell, valid triangles crossing w = 0)."""
     xyuv, _ = _mesh.build_grid_xyuv(grid)
-    views = np.stack([_camera.look_at_rh(
-        (eye[0] * math.cos(0.7 * b) - eye[2] * math.sin(0.7 * b), eye[1],
-         eye[0] * math.sin(0.7 * b) + eye[2] * math.cos(0.7 * b)), (0, 0, 0), (0, 1, 0))
-        for b in range(batch)])
-    proj = _camera.perspective_wgpu(np.float32(math.radians(60)), np.float32(W / H),
-                                    np.float32(near), np.float32(100))
+    views, projs = _orbit_cameras(batch, W, H, eye, near=near)
     t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
     heights = t(np.random.default_rng(grid).uniform(-0.3, 0.3, (9, 11)))
-    return vtx.vs_fields(t(xyuv), heights, t(views), t(np.stack([proj] * batch)),
-                         t(0.9), t(1.2), W, H, fs_mode)
+    return vtx.vs_fields(t(xyuv), heights, t(views), t(projs), t(0.9), t(1.2), W, H, fs_mode)
 
 
 VTX_CASES = [(24, 128, 96, (2.0, 1.5, 2.5), 2, 0.1), (64, 161, 83, (-2.0, 1.4, 2.6), 1, 0.1),
@@ -585,6 +586,170 @@ def test_renderer_device_none_raises_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         vt.Renderer(64, 48)
+
+
+# ---------------- the vertex stage (vf_vs_fields) ----------------
+
+def _vs_grid(grid, batch, tex=(9, 11), sp=0.9):
+    """A grid mesh under ``batch`` orbit cameras, a seeded texture."""
+    xyuv, _ = _mesh.build_grid_xyuv(grid)
+    heights = np.random.default_rng(grid).uniform(-0.3, 0.3, tex)
+    return (xyuv, heights, *_orbit_cameras(batch, 161, 83, (2.0, 1.5, 2.5)), sp, 1.2)
+
+
+def _vs_uv_edges():
+    """300 vertices whose u, v sit on texel edges, at 0 and 1 and outside
+    [0, 1] (they clamp); the texture holds a NaN and an inf."""
+    rng = np.random.default_rng(5)
+    edges = np.float32([0.0, -0.0, 1.0, 1 - 2**-24, 2**-24, -0.5, 1.5, -np.inf, np.inf,
+                        3 / 13, 4 / 7, 0.5, 1 / 7, 12 / 13])
+    xyuv = np.stack([rng.uniform(-1, 1, 300), rng.uniform(-1, 1, 300),
+                     rng.choice(edges, 300), rng.choice(edges, 300)], axis=-1)
+    heights = rng.uniform(-0.3, 0.3, (7, 13))
+    heights[2, 5], heights[6, 12] = np.nan, np.inf
+    return (xyuv, heights, *_orbit_cameras(2, 161, 83, (2.0, 1.5, 2.5)), 0.9, 1.2)
+
+
+def _vs_w_tiny():
+    """Frame 0 puts clip w = world z (identity view; the projection's last
+    row picks z), with z at and about the 1e-12 guard, zero, subnormal and
+    behind the eye; frame 1 looks from inside the mesh, near plane 0.001."""
+    rng = np.random.default_rng(6)
+    g, zero, one = np.float32([1e-12, 0.0, 1.0])
+    below, above = np.nextafter(g, zero), np.nextafter(g, one)
+    ws = np.float32([0.0, -0.0, 1e-13, -1e-13, g, -g, below, above, -below, 1e-11, -5.0,
+                     1e-40, 2.0, 0.25])
+    n = 4 * ws.size + 3
+    xyuv = np.stack([rng.uniform(-1, 1, n), np.resize(ws, n), rng.uniform(0, 1, n),
+                     rng.uniform(0, 1, n)], axis=-1)
+    proj0 = np.eye(4)
+    proj0[3] = (0.0, 0.0, 1.0, 0.0)
+    views, projs = _orbit_cameras(2, 161, 83, (0.3, 0.35, 0.2), near=0.001)
+    views[0], projs[0] = np.eye(4), proj0
+    return (xyuv, rng.uniform(-0.3, 0.3, (3, 3)), views, projs, 1.0, 1.0)
+
+
+# name -> numpy inputs (xyuv, heights, views, projs, spacing, exaggeration)
+VS_CASES = {"orbit-b1": lambda: _vs_grid(37, 1),      # 1,369 vertices: a partial block
+            "orbit-b4": lambda: _vs_grid(45, 4),
+            "tex-1x1": lambda: _vs_grid(19, 1, tex=(1, 1), sp=1e-10),  # spacing clamps
+            "nan-spacing": lambda: _vs_grid(9, 2, sp=np.nan),
+            "uv-edges": _vs_uv_edges,
+            "w-tiny": _vs_w_tiny}
+
+
+def _vs_inputs(case, dev):
+    """The vertex stage's tensors of ``case`` on ``dev``; "renderer-3601" is
+    a Renderer's own 3601^2 mesh, texture and default camera at 800x600, as
+    the relight calls draw them."""
+    if case == "renderer-3601":
+        r = vt.Renderer(800, 600, device=dev)
+        dem = np.random.default_rng(7).uniform(0.0, 1500.0, (3601, 3601)).astype(np.float32)
+        r.add_terrain(dem, (30.0, 30.0), 1.5, "terrain")
+        r.upload_height_r32f()
+        terr = r._terrain
+        xyuv, _ = trend.grid_mesh(terr.width, terr.height, *terr.spacing, r.device)
+        view, proj = r._default_terrain_camera(terr)
+        t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=r.device)
+        return (xyuv, r._height_tex, t(view[None]), t(proj[None]), t(1.0), t(1.0)), 800, 600
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+    return tuple(t(a) for a in VS_CASES[case]()), 161, 83
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fs_mode", ["shipped", "extended"])
+@pytest.mark.parametrize("case", sorted(VS_CASES) + ["renderer-3601"])
+def test_vs_fields_kernel_matches_plain(cuda, case, fs_mode):
+    """vf_vs_fields' fields equal vs_fields_plain's on the same CUDA tensors
+    bit for bit, NaNs included, in one launch."""
+    args, W, H = _vs_inputs(case, cuda)
+    n = kernels.vs_fields.launches
+    got = vtx.vs_fields(*args, W, H, fs_mode)
+    torch.cuda.synchronize()
+    assert kernels.vs_fields.launches == n + 1
+    want = vtx.vs_fields_plain(*args, W, H, fs_mode)
+    assert got.is_contiguous() and _bits_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_vs_fields_kernel_rejects_bad_layouts(cuda):
+    (xyuv, heights, views, projs, sp, ex), W, H = _vs_inputs("orbit-b1", cuda)
+    with pytest.raises(ValueError, match="xyuv must be contiguous"):
+        kernels.vs_fields(torch.cat([xyuv, xyuv], 1)[:, :4], heights, views, projs, sp, ex, W, H)
+    shifted = torch.empty(xyuv.numel() + 1, device=cuda)[1:].view(-1, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.vs_fields(shifted, heights, views, projs, sp, ex, W, H)
+    with pytest.raises(ValueError, match="spacing is on"):
+        kernels.vs_fields(xyuv, heights, views, projs, sp.cpu(), ex, W, H)
+
+
+@pytest.mark.parametrize("fs_mode", ["shipped", "extended"])
+@pytest.mark.parametrize("case", sorted(VS_CASES))
+def test_vs_fields_cpu_takes_the_plain_version(case, fs_mode, monkeypatch):
+    """CPU tensors go through vtx.vs_fields to vs_fields_plain unchanged:
+    no library is loaded and no launch is counted."""
+    monkeypatch.setattr(kernels, "load", lambda: pytest.fail("the CPU path loaded the library"))
+    args, W, H = _vs_inputs(case, "cpu")
+    n = kernels.vs_fields.launches
+    got = vtx.vs_fields(*args, W, H, fs_mode)
+    assert kernels.vs_fields.launches == n
+    assert _bits_equal(got, vtx.vs_fields_plain(*args, W, H, fs_mode))
+    assert got.shape == (args[2].shape[0], vtx.FIELDS, args[0].shape[0])
+
+
+# Inputs with no vertex or no camera: empty fields, nothing launched.
+VS_EMPTY = {"no-vertex": lambda a: (a[0][:0], *a[1:]),
+            "no-camera": lambda a: (*a[:2], a[2][:0], a[3][:0], *a[4:])}
+
+
+def _vs_empty(case, dev, monkeypatch):
+    monkeypatch.setattr(kernels, "load", lambda: pytest.fail("an empty call loaded the library"))
+    args, W, H = _vs_inputs("orbit-b4", dev)
+    args = VS_EMPTY[case](args)
+    n = kernels.vs_fields.launches
+    got = vtx.vs_fields(*args, W, H, "extended")
+    assert kernels.vs_fields.launches == n
+    assert got.device == args[0].device and got.dtype == torch.float32
+    assert got.shape == vtx.vs_fields_plain(*args, W, H, "extended").shape
+    assert got.shape == (args[2].shape[0], vtx.FIELDS, args[0].shape[0]) and got.numel() == 0
+
+
+@pytest.mark.parametrize("case", sorted(VS_EMPTY))
+def test_vs_fields_empty_counts_no_launch(case, monkeypatch):
+    """No vertex or no camera: the empty (B, 7, N) fields, with the library
+    not loaded and no launch counted."""
+    _vs_empty(case, "cpu", monkeypatch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(VS_EMPTY))
+def test_vs_fields_kernel_empty_counts_no_launch(cuda, case, monkeypatch):
+    _vs_empty(case, cuda, monkeypatch)
+
+
+VS_REFUSALS = {
+    "fs_mode": (lambda a: a, {"fs_mode": "fancy"}, "fs_mode"),
+    "xyuv-f64": (lambda a: (a[0].double(), *a[1:]), {}, "xyuv must be a float32"),
+    "xyuv-n3": (lambda a: (a[0][:, :3], *a[1:]), {}, r"xyuv must be \(N, 4\)"),
+    "heights-1d": (lambda a: (a[0], a[1].reshape(-1), *a[2:]), {}, "heights must be"),
+    "views-3x4": (lambda a: (*a[:2], a[2][:, :3], *a[3:]), {}, "views and projs"),
+    "projs-batch": (lambda a: (*a[:3], a[3][:1], *a[4:]), {}, "views and projs"),
+    "spacing-2": (lambda a: (*a[:4], a[4].repeat(2), a[5]), {}, "one value each"),
+    "exaggeration-float": (lambda a: (*a[:5], 1.2), {}, "exaggeration must be a float32"),
+    "meta": (lambda a: tuple(t.to("meta") for t in a), {}, "unsupported device"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VS_REFUSALS))
+def test_vs_fields_rejects_bad_inputs(case):
+    change, kw, match = VS_REFUSALS[case]
+    args, W, H = _vs_inputs("orbit-b4", "cpu")
+    with pytest.raises(ValueError, match=match):
+        kernels.vs_fields(*change(args), W, H, **kw)
 
 
 # ---------------- the cover passes' bbox test (vf_vtx_cover, vf_packed_cover) ----------------

@@ -28,7 +28,9 @@ each, which together replace ``vtx._vtx_kernel`` (K3a, vtx.py:590) and
     (K3b's).
 
 ``vtx.render_gbuffer_vtx_batch`` and ``vtx.render_image_vtx_batch`` chain
-them.
+them. It also holds the vertex stage of the vtx, indexed and segment
+routes, ``vs_fields`` -> ``vf_vs_fields``: the post-VS fields that every
+one of their kernels reads (``vtx.vs_fields`` dispatches to it).
 
 ``csrc/packed.cu`` holds the indexed-mesh route's three kernels, which
 together replace ``packed._packed_kernel`` (K5, packed.py:222) and
@@ -103,6 +105,7 @@ _SIGNATURES = {
     "vf_vtx_resolve_gbuffer": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vf_vtx_resolve_shade_shipped": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "vf_vtx_big_pixels": [],
+    "vf_vs_fields": [_P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
     "vf_big_tile": [],
     "vf_resolve_tile_w": [],
     "vf_resolve_warp_w": [],
@@ -392,6 +395,75 @@ def raster_shade_shipped_hw(records: torch.Tensor, binning: Binning,
 
 raster_shade_shipped.launches = 0
 raster_shade_shipped_hw.launches = 0
+
+
+# ---------------- vertex stage (csrc/vtx.cu) ----------------
+
+def _check_vs_inputs(xyuv, heights, views, projs, spacing, exaggeration,
+                     fs_mode: str) -> None:
+    if fs_mode not in ("shipped", "extended"):
+        raise ValueError(f"fs_mode must be 'shipped' or 'extended', got {fs_mode!r}")
+    tensors = (("xyuv", xyuv), ("heights", heights), ("views", views), ("projs", projs),
+               ("spacing", spacing), ("exaggeration", exaggeration))
+    for name, t in tensors:
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be a float32 tensor, got "
+                             f"{getattr(t, 'dtype', type(t).__name__)}")
+        if t.device != xyuv.device:
+            raise ValueError(f"{name} is on {t.device}, xyuv on {xyuv.device}")
+    if xyuv.dim() != 2 or xyuv.shape[1] != 4:
+        raise ValueError(f"xyuv must be (N, 4), got {tuple(xyuv.shape)}")
+    if xyuv.shape[0] >= 2**31:
+        raise ValueError("xyuv must stay below 2**31 vertices")
+    if heights.dim() != 2 or heights.numel() == 0:
+        raise ValueError(f"heights must be a non-empty (Ht, Wt), got {tuple(heights.shape)}")
+    if views.dim() != 3 or views.shape[1:] != (4, 4) or projs.shape != views.shape:
+        raise ValueError(f"views and projs must both be (B, 4, 4), got "
+                         f"{tuple(views.shape)} and {tuple(projs.shape)}")
+    if spacing.numel() != 1 or exaggeration.numel() != 1:
+        raise ValueError("spacing and exaggeration must hold one value each")
+    if xyuv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {xyuv.device}")
+
+
+def vs_fields(xyuv: torch.Tensor, heights: torch.Tensor, views: torch.Tensor,
+              projs: torch.Tensor, spacing: torch.Tensor, exaggeration: torch.Tensor,
+              width: int, height: int, fs_mode: str = "shipped") -> torch.Tensor:
+    """The vertex stage: post-VS fields (B, 7, N) float32 of B cameras
+    (arguments as ``vtx.vs_fields``).
+
+    CPU tensors: vtx.vs_fields_plain. CUDA tensors: ``vf_vs_fields``, which
+    reads spacing and exaggeration on the device. No vertex or no camera:
+    the empty fields, on either device, with nothing launched or counted.
+    """
+    _check_vs_inputs(xyuv, heights, views, projs, spacing, exaggeration, fs_mode)
+    B, N = views.shape[0], xyuv.shape[0]
+    if B * N == 0:
+        return torch.empty((B, vtx.FIELDS, N), dtype=torch.float32, device=xyuv.device)
+    if xyuv.device.type == "cpu":
+        return vtx.vs_fields_plain(xyuv, heights, views, projs, spacing, exaggeration,
+                                   width, height, fs_mode)
+    for name, t in (("xyuv", xyuv), ("heights", heights), ("views", views),
+                    ("projs", projs)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    # The kernel reads each vertex's [x, z, u, v] as one 16-byte load.
+    if xyuv.data_ptr() % 16:
+        raise ValueError("xyuv must start on a 16-byte boundary")
+    fields = torch.empty((B, vtx.FIELDS, N), dtype=torch.float32, device=xyuv.device)
+    lib = load()
+    with torch.cuda.device(xyuv.device):
+        err = lib.vf_vs_fields(xyuv.data_ptr(), N, heights.data_ptr(), heights.shape[0],
+                               heights.shape[1], views.data_ptr(), projs.data_ptr(), B,
+                               spacing.data_ptr(), exaggeration.data_ptr(), width, height,
+                               int(fs_mode == "shipped"), fields.data_ptr(),
+                               _stream(xyuv.device))
+    _raise_on(err, "vf_vs_fields")
+    vs_fields.launches += 1
+    return fields
+
+
+vs_fields.launches = 0
 
 
 # ---------------- vertex-stream route (csrc/vtx.cu) ----------------

@@ -79,8 +79,22 @@ def vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
     ``vulkan_forge/_raster/pipeline.py:467-482``, without its eighth, zero
     row, which only pads the TPU's 8-row tiles). fs_mode "shipped"
     uses ``terrain_vs`` (varyings h, x, z), "extended" uses
-    ``terrain_vs_extended`` (varyings h, u, v). views/projs: (B, 4, 4).
+    ``terrain_vs_extended`` (varyings h, u, v). xyuv: (N, 4), heights:
+    (Ht, Wt), views/projs: (B, 4, 4), spacing and exaggeration: one value
+    each, all float32 tensors on one device.
+
+    CPU tensors: ``vs_fields_plain``. CUDA tensors: ``kernels.vs_fields``
+    (``vf_vs_fields``), bit-equal to it.
     """
+    return kernels.vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
+                             width, height, fs_mode)
+
+
+def vs_fields_plain(xyuv, heights, views, projs, spacing, exaggeration,
+                    width: int, height: int, fs_mode: str = "shipped"):
+    """``vs_fields`` as torch ops: ``transform.terrain_vs`` or
+    ``terrain_vs_extended``, then ``setup.clip_to_fb``, stacked. The
+    specification ``vf_vs_fields`` is held to."""
     vs = transform.terrain_vs if fs_mode == "shipped" else transform.terrain_vs_extended
     clip, vary = vs(xyuv, heights, views, projs, spacing, exaggeration)
     x, y, z, w = clip_to_fb(clip, width, height)
