@@ -840,12 +840,12 @@ def _check_segments(records: torch.Tensor, ids: torch.Tensor, bbox: torch.Tensor
     # The kernels copy records and read bboxes 16 bytes at a time.
     if records.data_ptr() % 16 or bbox.data_ptr() % 16:
         raise ValueError("records and bbox must start on a 16-byte boundary")
-    if ids.numel() and int(ids.min()) < 0:
+    if ids.numel() and int(_trace.d2h(ids.min())) < 0:
         raise ValueError("ids must be original triangle ids, >= 0")
     order = binning.tile_order
     if order.numel() and not torch.equal(
-            order.sort(-1).values, torch.arange(nty * ntx, device=order.device,
-                                                dtype=torch.int32).expand_as(order)):
+            _trace.sync(order.sort(-1).values),
+            torch.arange(nty * ntx, device=order.device, dtype=torch.int32).expand_as(order)):
         raise ValueError("binning.tile_order must be a permutation of each frame's tiles")
 
 

@@ -326,6 +326,17 @@ def segment_frame(fields, indices, grid_n, width: int, height: int, row_size=Non
             binning)
 
 
+def _walk_counters(frame, width: int, height: int, device):
+    """Tally a traced frame's segment-walk counters (``frame`` from
+    ``segments.stack_frames``) and return the kernel's ``evaluated``
+    output, whose sum tallies as ``seg_pairs``."""
+    _trace.count("seg_records", frame[0].shape[0])
+    _trace.count("seg_table_bytes", segments.table_bytes(frame[3]))
+    _trace.count("seg_pixels", width * height)
+    ntx, nty = segments.seg_grid(width, height)
+    return _trace.device_count("seg_pairs", (1, ntx * nty), device)
+
+
 def render_terrain_segments_u32(xyuv, indices, heights, view, proj, *, spacing,
                                 exaggeration, h_min, h_max, exposure, sun_dir, lut,
                                 width: int, height: int, fs_mode: str = "shipped",
@@ -345,15 +356,19 @@ def render_terrain_segments_u32(xyuv, indices, heights, view, proj, *, spacing,
     with _trace.span("vf.vertex", dev):
         fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration, width,
                                height, fs_mode)
+    evaluated = None
     with _trace.span("vf.raster", dev):
-        frame = segments.stack_frames([segment_frame(fields, indices, grid_n, width, height,
-                                                     row_size)])
+        with _trace.span("vf.seg.bin", dev):
+            frame = segments.stack_frames([segment_frame(fields, indices, grid_n, width,
+                                                         height, row_size)])
+            if _trace.on():
+                evaluated = _walk_counters(frame, width, height, dev)
         del fields
         if fs_mode == "shipped":
             return segments.render_image_segments_batch(*frame, 1, width, height, lut,
-                                                        h_max - h_min, exposure,
-                                                        sun_dir)[0]
-        gbuf = segments.render_gbuffer_segments_batch(*frame, 1, width, height)
+                                                        h_max - h_min, exposure, sun_dir,
+                                                        evaluated)[0]
+        gbuf = segments.render_gbuffer_segments_batch(*frame, 1, width, height, evaluated)
     with _trace.span("vf.shade", dev):
         nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
         return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,

@@ -48,6 +48,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _trace
 from . import fragment, kernels
 from .tiles import eval_records
 
@@ -100,7 +101,7 @@ def compact_valid(records: torch.Tensor, bbox: torch.Tensor, ids=None):
     REC_WIDTH), original ids (N,) int32, compacted bbox (N, 4) int32 in
     stream order), N the valid count.
     """
-    src = torch.nonzero(bbox[:, 1] >= bbox[:, 0]).squeeze(1)
+    src = torch.nonzero(_trace.sync(bbox[:, 1] >= bbox[:, 0])).squeeze(1)
     orig = src if ids is None else ids.to(torch.long)[src]
     return records[orig], orig.to(torch.int32), bbox[src].to(torch.int32).contiguous()
 
@@ -125,16 +126,17 @@ def segment_bin(bbox: torch.Tensor, width: int, height: int, row_size: int) -> S
     rows = -(-T // row_size)
     dev = bbox.device
     b = bbox.to(torch.long)
-    t = torch.nonzero(b[:, 1] >= b[:, 0]).squeeze(1)     # valid ids, ascending
+    t = torch.nonzero(_trace.sync(b[:, 1] >= b[:, 0])).squeeze(1)   # valid ids, ascending
     b = b[t]
     row = torch.div(t, row_size, rounding_mode="floor")
-    counts = torch.bincount(row, minlength=rows)
+    counts = torch.bincount(_trace.sync(row, 2), minlength=rows)    # its min and max
     row_base = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t.numel(), device=dev) - row_base[row]
 
     tx0 = torch.div(b[:, 0], TILE_W, rounding_mode="floor")
     span = torch.div(b[:, 1], TILE_W, rounding_mode="floor") - tx0 + 1
-    pair = torch.repeat_interleave(torch.arange(t.numel(), device=dev), span)
+    # Two reads: the output's size and the check that no count is negative.
+    pair = torch.repeat_interleave(torch.arange(t.numel(), device=dev), _trace.sync(span, 2))
     k = torch.arange(pair.numel(), device=dev) - (torch.cumsum(span, 0) - span)[pair]
     key = (tx0[pair] + k) * rows + row[pair]
     seg_lo = torch.full((ntx * rows,), _NO_LO, dtype=torch.long, device=dev)
@@ -183,6 +185,11 @@ def segment_bin(bbox: torch.Tensor, width: int, height: int, row_size: int) -> S
                           i32(order))
 
 
+def table_bytes(binning: SegmentBinning) -> int:
+    """Bytes of the tables the kernels read: every table but counts_est."""
+    return sum(t.nbytes for name, t in binning._asdict().items() if name != "counts_est")
+
+
 def column_major_perm(cells_rows: int, cells_cols: int, device=None) -> torch.Tensor:
     """Stream order that walks a grid mesh column by column
     (pipeline.py:147-161): perm[j] is the original id at stream position j,
@@ -195,7 +202,7 @@ def column_major_perm(cells_rows: int, cells_cols: int, device=None) -> torch.Te
 def segment_axis_estimate(binning: SegmentBinning) -> int:
     """The walk's work estimate: the records all tiles walk
     (pipeline.py:164-180 sums counts_est in f32; exact here)."""
-    return int(binning.counts_est.sum(dtype=torch.int64))
+    return int(_trace.d2h(binning.counts_est.sum(dtype=torch.int64)))
 
 
 def walk_order(bbox: torch.Tensor, width: int, height: int, row_size: int):
@@ -369,23 +376,25 @@ def render_gbuffer_walk(records: torch.Tensor, ids: torch.Tensor, walk, n_frames
 
 def render_gbuffer_segments_batch(records: torch.Tensor, ids: torch.Tensor,
                                   bbox: torch.Tensor, binning: SegmentBinning,
-                                  n_frames: int, width: int, height: int):
+                                  n_frames: int, width: int, height: int, evaluated=None):
     """B frames of compacted records through the segment walk (the
     counterpart of JAX's entry of the same name, segments.py:338):
     ``kernels.seg_gbuffer``. records (N, REC_WIDTH) f32, ids (N,) int32,
     bbox (N, 4) int32 and a binning with a leading frame axis, from
-    ``stack_frames``. Returns (v0, v1, v2, mask), each (B, H, W)."""
-    return kernels.seg_gbuffer(records, ids, bbox, binning, n_frames, width, height)
+    ``stack_frames``; ``evaluated`` as the kernel takes it. Returns (v0,
+    v1, v2, mask), each (B, H, W)."""
+    return kernels.seg_gbuffer(records, ids, bbox, binning, n_frames, width, height,
+                               evaluated)
 
 
 def render_image_segments_batch(records: torch.Tensor, ids: torch.Tensor,
                                 bbox: torch.Tensor, binning: SegmentBinning,
                                 n_frames: int, width: int, height: int, lut, h_range,
-                                exposure, sun_dir):
+                                exposure, sun_dir, evaluated=None):
     """``render_gbuffer_segments_batch`` with the shipped shader fused:
     ``kernels.seg_shade_shipped``. Returns (B, H, W) uint32 RGBA."""
     return kernels.seg_shade_shipped(records, ids, bbox, binning, n_frames, width, height,
-                                     lut, h_range, exposure, sun_dir)
+                                     lut, h_range, exposure, sun_dir, evaluated)
 
 
 def render_image_segments_plain(records, ids, binning, n_frames, width, height,

@@ -12,7 +12,10 @@ spans, in the order it runs:
   - ``vf.vertex``: the vertex shader, ``clip_to_fb``, the fields' stacking
     or the records' setup and binning;
   - ``vf.raster``: the route's kernel chain with its arguments (the
-    indexed route's index check included), allocations and fills;
+    indexed route's index check included), allocations and fills; on the
+    segment-walk route it holds ``vf.seg.bin``, the walk's set-up before
+    the kernel's wrapper: corner records with the index check, walk
+    order, compaction and stacking;
   - ``vf.shade``: the torch fragment shader, where it runs outside a kernel;
   - ``vf.readback``: packing the frame and copying it to the host.
 
@@ -29,13 +32,20 @@ at entry and at exit. Its stream ms run from when the stream reached the
 stage to when the stage's last op finished: the stage's device work plus
 the time the device waited for the host inside the stage. A call's stages
 follow one another on a stream, so they tile its timeline without
-overlap. Pairs whose end event has completed are resolved as later spans
+overlap; a span nested in a stage (``vf.seg.bin``) is part of its time. Pairs whose end event has completed are resolved as later spans
 open; ``snapshot`` waits for the rest.
 
-Counters (``count``, ``h2d``, ``d2h``) tally against the innermost open
-span while on: ``syncs``, every blocking wait for the device (a
-synchronize, a host read of a CUDA tensor, a blocking host-to-device
-copy), and ``h2d_bytes`` and ``d2h_bytes``, the bytes moved each way.
+Counters (``count``, ``h2d``, ``d2h``, ``sync``, ``device_count``) tally
+against the innermost open span while on: ``syncs``, every blocking wait
+for the device (a synchronize, a host read of a CUDA tensor, a blocking
+host-to-device copy, a torch op that reads a size back, as
+``torch.nonzero`` does), and ``h2d_bytes`` and ``d2h_bytes``, the bytes
+moved each way. The segment-walk route adds ``seg_records``,
+``seg_table_bytes`` and ``seg_pixels`` (what its kernel reads and
+writes, known on the host) and ``seg_pairs`` (the (tile, record) pairs
+its kernel evaluates, which the kernel counts on the device: the record
+keeps the kernel's output and sums it when it is snapshot, so the call
+reads nothing back for it).
 
 Set-up spans (``setup``: ``vf.setup.load``, ``vf.Renderer.add_terrain``,
 ``vf.Renderer.upload_height_r32f``, ``vf.mesh``) wrap one-off work and
@@ -75,6 +85,7 @@ class Record:
         self.stack = []          # the spans open while on, innermost last
         self.call_devices = None  # the CUDA devices of the open call
         self.pending = deque()   # (name, start event, end event)
+        self.on_device = []      # (name, kind, device tensor to sum)
 
     def add(self, name, host_s=0.0, stream_ms=0.0, n=1):
         agg = self.spans.setdefault(name, [0, 0.0, 0.0])
@@ -86,6 +97,13 @@ class Record:
         if self.stack:
             c = self.counters.setdefault(self.stack[-1], {})
             c[kind] = c.get(kind, 0) + n
+
+    def settle(self):
+        """Tally the device counts kept so far."""
+        for name, kind, t in self.on_device:
+            c = self.counters.setdefault(name, {})
+            c[kind] = c.get(kind, 0) + int(t.sum(dtype=torch.int64))
+        self.on_device = []
 
     def resolve(self, wait=False):
         while self.pending:
@@ -217,14 +235,37 @@ def d2h(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def sync(t: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """``t``, from which a torch op is about to read ``n`` values back to
+    the host before it returns (``torch.nonzero``'s count, the size of a
+    ``repeat_interleave``): ``n`` syncs when it is on a card."""
+    if on() and t.is_cuda:
+        RECORD.tally("syncs", n)
+    return t
+
+
+def device_count(kind: str, shape, device):
+    """While on, a zeroed int32 tensor of ``shape`` on ``device`` for a
+    kernel to count into, whose sum tallies as ``kind`` against the
+    innermost open span when the record is snapshot; None while off."""
+    if not on():
+        return None
+    t = torch.zeros(shape, dtype=torch.int32, device=device)
+    if RECORD.stack:
+        RECORD.on_device.append((RECORD.stack[-1], kind, t))
+    return t
+
+
 def snapshot() -> dict:
     """The record so far: ``calls``, ``cuda_calls`` and ``device_calls``;
     ``spans``, per name {count, host_s, stream_ms}, and ``counters``, per
     innermost span name {kind: n}, both empty unless a traced call ran on
     a CUDA device; ``setup_s``, per set-up span name, and
-    ``setup_before_s``. Waits for the stream events still pending."""
+    ``setup_before_s``. Waits for the stream events still pending and
+    sums the device counts."""
     rec = RECORD
     rec.resolve(wait=True)
+    rec.settle()
     staged = rec.cuda_calls > 0
     return {
         "calls": rec.calls, "cuda_calls": rec.cuda_calls, "device_calls": rec.device_calls,
