@@ -104,7 +104,10 @@ Phases, each printing one line, in order:
   3e. main path, slice 5: at 7680x4320 make_terrain(7680,4320,1024)
      .render_rgba() and Renderer.render_rgba() at DEM-2048 and DEM-3601
      on device="cuda"; both segment kernels' counters must advance and no
-     other kernel may launch but vf_vs_fields, once a frame. Each frame's g-buffer must equal the vtx or
+     other kernel may launch but vf_vs_fields, once a frame, and the
+     set-up's chain, exactly as seg_setup_launches says for each frame (3
+     to 3d, the twins and render_spike_frames launch it never). Each
+     frame's g-buffer must equal the vtx or
      indexed route's on the same frame bit for bit, and its image that
      route's under the FS policy; peak device memory per frame. Then, on
      the 8 tile rows of each frame that walk the most records, the kernels
@@ -197,6 +200,17 @@ Phases, each printing one line, in order:
      pairs, the intervals K8's walk visits and those the y-extent test
      skips, the records scanned, and the kernel's time on the whole
      frame's tables and on the band's.
+  4g. the segment walk's set-up (kernels.seg_setup, the vf_seg_setup_*
+     kernels of csrc/segments.cu) at 7680x4320, through the index buffer (a
+     Renderer DEM-3601 at its default camera, the poster cell's frame) and
+     on the grid (make_terrain g1024): held byte for byte to
+     segments.setup_frame_plain on the same card tensors (records' bits,
+     ids, bboxes, the seven tables, the walk axis), its launches exactly
+     as seg_setup_launches says; at the Renderer's frame each set-up
+     kernel's device ms (torch.profiler, per call it kept of 5) and the
+     chain's (CUDA events) against its byte bound, the plain version's ms,
+     and the frame on the segment route against the indexed route
+     (render_rgba, in turns).
   4f. timing of the vertex stage: vf_vs_fields at 2f's shapes, both
      shaders: per call over 20 back-to-back launches (CUDA events), device
      time per launch (torch.profiler), vtx.vs_fields_plain's time, and the
@@ -535,7 +549,21 @@ ENTRIES = (("raster_kernelILb0ELb0", "vf_raster_gbuffer"),
            ("seg_kernelILb0", "vf_seg_gbuffer"),
            ("seg_kernelILb1", "vf_seg_shade_shipped"),
            ("vs_fields_kernelILb0", "vf_vs_fields, extended"),
-           ("vs_fields_kernelILb1", "vf_vs_fields, shipped"))
+           ("vs_fields_kernelILb1", "vf_vs_fields, shipped"),
+           ("seg_bbox_kernelILb0", "vf_seg_setup_bbox, indexed"),
+           ("seg_bbox_kernelILb1", "vf_seg_setup_bbox, grid"),
+           ("seg_init_kernel", "vf_seg_setup_init"),
+           ("seg_count_kernelILb0", "vf_seg_setup_count, rows"),
+           ("seg_count_kernelILb1", "vf_seg_setup_count, columns"),
+           ("seg_scan_kernel", "vf_seg_setup_scan (1024 threads)"),
+           ("seg_bin_kernelILb0", "vf_seg_setup_bin, rows"),
+           ("seg_bin_kernelILb1", "vf_seg_setup_bin, columns"),
+           ("seg_tables_kernel", "vf_seg_setup_tables"),
+           ("seg_prefix_kernel", "vf_seg_setup_prefix"),
+           ("seg_compact_kernelILb0ELb0", "vf_seg_setup_compact, rows, indexed"),
+           ("seg_compact_kernelILb0ELb1", "vf_seg_setup_compact, rows, grid"),
+           ("seg_compact_kernelILb1ELb0", "vf_seg_setup_compact, columns, indexed"),
+           ("seg_compact_kernelILb1ELb1", "vf_seg_setup_compact, columns, grid"))
 
 
 def blocks_per_sm(registers, smem_bytes, threads=256):
@@ -875,7 +903,8 @@ def phase3_main_path():
     """The public API on the card; returns the main path's launch counts."""
     os.makedirs(OUT_DIR, exist_ok=True)
     png = os.path.join(OUT_DIR, "spike_800x600_g128.png")
-    for _, fn in RECORD_KERNELS + VS_KERNELS:
+    every = RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS
+    for _, fn in every:
         fn.launches = 0
 
     spike = vt.make_terrain(W, H, GRID, device="cuda")
@@ -896,10 +925,13 @@ def phase3_main_path():
         return _formats.u32_image_to_rgba_u8(img).cpu().numpy()
     out["batch_800x600_g128_x2"] = batch("cuda")
     sync()
-    launches = {name: fn.launches for name, fn in RECORD_KERNELS + VS_KERNELS}
+    launches = {name: fn.launches for name, fn in every}
     for name, _ in RECORD_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
+    for name, _ in SEG_SETUP_KERNELS:
+        if launches[name] != 0:
+            raise AssertionError(f"slice 1's main path launched {name}")
     # The vtx route's frames: the spike's render_rgba and render_png and the
     # Scene's; the triangle and the batch without grid_n take the record route.
     check_vs_launches(launches, 3, "slice 1's main path")
@@ -978,7 +1010,8 @@ def phase3b_vtx_main_path(dev):
     ext_h = dem(257, 257, seed=1)
     ext_args = dict(batch_args(dev), fs_mode="extended", grid_n=VGRID)
     ext_args.update(h_min=float(ext_h.min()), h_max=float(ext_h.max()))
-    for _, fn in VTX_KERNELS + RECORD_KERNELS + VS_KERNELS:
+    every = VTX_KERNELS + RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS
+    for _, fn in every:
         fn.launches = 0
 
     spike = vt.make_terrain(W, H, VGRID, device=dev)
@@ -987,11 +1020,11 @@ def phase3b_vtx_main_path(dev):
                                               grid_n=VGRID, **batch_args(dev))
     ext = pipeline.render_terrain_u8(xyuv, idx, ext_h, spike._view, spike._proj, **ext_args)
     sync()
-    launches = {name: fn.launches for name, fn in VTX_KERNELS + RECORD_KERNELS + VS_KERNELS}
+    launches = {name: fn.launches for name, fn in every}
     for name, _ in VTX_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"slice 2's main path never launched {name}")
-    for name, _ in RECORD_KERNELS:
+    for name, _ in RECORD_KERNELS + SEG_SETUP_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 2's main path launched the record kernel {name}")
     check_vs_launches(launches, 3, "slice 2's main path")    # frame, batch, extended frame
@@ -1694,7 +1727,7 @@ def phase3c_renderer_main_path(dev):
     png = os.path.join(OUT_DIR, f"renderer_dem{DEM_MAIN}_{W}x{H}.png")
     main = make_renderer(DEM_MAIN, dev)
     srtm = make_renderer(SRTM, dev, seed=1)
-    every = PACKED_KERNELS + VTX_KERNELS + RECORD_KERNELS + VS_KERNELS
+    every = PACKED_KERNELS + VTX_KERNELS + RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS
     for _, fn in every:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1711,7 +1744,7 @@ def phase3c_renderer_main_path(dev):
     for name, _ in PACKED_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"slice 3's main path never launched {name}")
-    for name, _ in VTX_KERNELS + RECORD_KERNELS:
+    for name, _ in VTX_KERNELS + RECORD_KERNELS + SEG_SETUP_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 3's main path launched {name}")
     # DEM-2048's render_rgba and render_png, the SRTM tile's render_rgba.
@@ -2177,7 +2210,8 @@ def phase3d_hw_main_path(dev):
     and the triangle are held to device="cpu". Returns the launch counts."""
     spike = vt.make_terrain(W, H, VGRID, device=dev)
     main = make_renderer(DEM_MAIN, dev)
-    every = HW_KERNELS + RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS + VS_KERNELS
+    every = (HW_KERNELS + RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS + VS_KERNELS
+             + SEG_SETUP_KERNELS)
     previous = os.environ.get("VF_FILL_RULE")
     os.environ["VF_FILL_RULE"] = "hw"
     try:
@@ -2203,7 +2237,7 @@ def phase3d_hw_main_path(dev):
     for name, _ in HW_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"slice 4's main path never launched {name}")
-    for name, _ in RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS:
+    for name, _ in RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS + SEG_SETUP_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 4's main path launched {name}")
     check_vs_launches(launches, 0, "slice 4's main path")   # hw: the record route alone
@@ -2403,6 +2437,9 @@ def phase4d_hw_timing(smi, dev):
 
 SEG_KERNELS = (("vf_seg_gbuffer", kernels.seg_gbuffer),
                ("vf_seg_shade_shipped", kernels.seg_shade_shipped))
+# The segment walk's set-up: one wrapper over the vf_seg_setup_* chain,
+# counting each of its launches; only the segment route runs it.
+SEG_SETUP_KERNELS = (("vf_seg_setup", kernels.seg_setup),)
 LAB_KERNELS = (("vf_lab_fs_ops", lab_kernels.fs_ops),
                ("vf_lab_fs_chain", lab_kernels.fs_chain),
                ("vf_lab_slab_copy", lab_kernels.slab_copy),
@@ -2411,7 +2448,7 @@ LAB_KERNELS = (("vf_lab_fs_ops", lab_kernels.fs_ops),
                ("vf_lab_onehot_dot", lab_kernels.onehot_dot),
                ("vf_lab_lane_ops", lab_kernels.lane_ops))
 ALL_KERNELS = (VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
-               + VS_KERNELS + LAB_KERNELS)
+               + SEG_SETUP_KERNELS + VS_KERNELS + LAB_KERNELS)
 POSTER = (7680, 4320)                      # 8K UHD: a print-size poster
 MAP_TILE = (4096, 4096)                    # a 4096^2 map tile
 SEG_CHECK = (256, 4352)                    # tall, yet small enough for the plain walk
@@ -2419,16 +2456,23 @@ SEG_GRID, SEG_DEM = 256, 512               # phase 2e's spike grid and DEM
 real_use_segment_route = pipeline.use_segment_route
 
 
+def spike_fields(spike, dev, views=None, projs=None):
+    """The post-VS fields on ``dev`` of a TerrainSpike's frame (its camera,
+    or the given ones)."""
+    g = spike._globals
+    if views is None:
+        views, projs = spike._view[None], spike._proj[None]
+    return vtx.vs_fields(tensor(spike._xyuv, dev), tensor(spike._heights, dev),
+                         tensor(views, dev), tensor(projs, dev), tensor(g.spacing, dev),
+                         tensor(g.exaggeration, dev), spike.width, spike.height)
+
+
 def tall_spike_frame(spike, dev, views=None, projs=None, walk=None):
     """(fields, segment-walk inputs) on ``dev`` of a TerrainSpike's frame
     (its camera, or the given ones): pipeline.segment_frame on the vtx
     route's fields, or ``walk`` "rows" or "columns" forced."""
-    w, h, g = spike.width, spike.height, spike._globals
-    if views is None:
-        views, projs = spike._view[None], spike._proj[None]
-    fields = vtx.vs_fields(tensor(spike._xyuv, dev), tensor(spike._heights, dev),
-                           tensor(views, dev), tensor(projs, dev), tensor(g.spacing, dev),
-                           tensor(g.exaggeration, dev), w, h)
+    w, h = spike.width, spike.height
+    fields = spike_fields(spike, dev, views, projs)
     if walk is None:
         frame = pipeline.segment_frame(fields, spike._indices, spike.grid, w, h)
     else:
@@ -2672,6 +2716,14 @@ def phase2e_seg_kernels(dev):
     return errs
 
 
+def seg_setup_launches(n_tris, row_size, valid):
+    """kernels.seg_setup's launches for one frame: the bbox pass, per walk
+    axis (segments.walk_streams) the init and the prefix and four more
+    over a non-empty stream, the compaction where a triangle is valid."""
+    walks = segments.walk_streams(n_tris, row_size)
+    return (n_tris > 0) + sum(2 + 4 * (w.length > 0) for w in walks) + (valid > 0)
+
+
 def poster_frames(dev, size=POSTER, dems=(DEM_MAIN, SRTM)):
     """The slice-5 frames at ``size``: make_terrain(g1024) and a Renderer
     per DEM size, each returning its frame through the public API."""
@@ -2686,23 +2738,27 @@ def poster_frames(dev, size=POSTER, dems=(DEM_MAIN, SRTM)):
 def phase3e_seg_main_path(dev):
     """Slice 5's main path: at 7680x4320 make_terrain(g1024).render_rgba()
     and Renderer.render_rgba() at DEM-2048 and DEM-3601 (T > 2^24) on the
-    card. Only the segment kernels may launch; each frame's g-buffer is
-    held bit for bit to the vtx or indexed route's on the same frame, and
-    its image to that route's under the FS policy; each frame's kernels are
-    held to their plain version on a band of its tile rows (``band_check``).
-    Returns the launch counts and each frame's ``band_check``."""
+    card. Only the segment kernels and the set-up's may launch, the
+    set-up's exactly as often as ``seg_setup_launches`` says for each
+    frame; each frame's g-buffer is held bit for bit to the vtx or indexed
+    route's on the same frame, and its image to that route's under the FS
+    policy; each frame's kernels are held to their plain version on a band
+    of its tile rows (``band_check``). Returns the launch counts and each
+    frame's ``band_check``."""
     w, h = POSTER
     frames = poster_frames(dev)
-    every = (SEG_KERNELS + RECORD_KERNELS + HW_KERNELS + VTX_KERNELS + PACKED_KERNELS
-             + VS_KERNELS)
-    out, peak, band = {}, {}, {}
+    every = (SEG_KERNELS + SEG_SETUP_KERNELS + RECORD_KERNELS + HW_KERNELS + VTX_KERNELS
+             + PACKED_KERNELS + VS_KERNELS)
+    out, peak, band, setup_launches = {}, {}, {}, {}
     for _, fn in every:
         fn.launches = 0
     for label, (_, render) in frames.items():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        n = kernels.seg_setup.launches
         out[label] = render()
         sync()
+        setup_launches[label] = kernels.seg_setup.launches - n
         peak[label] = int(torch.cuda.max_memory_allocated())
     launches = {name: fn.launches for name, fn in every}
     for name, _ in SEG_KERNELS:
@@ -2728,12 +2784,18 @@ def phase3e_seg_main_path(dev):
             got = kernels.seg_gbuffer(*frame, 1, w, h)
             want = vtx.render_gbuffer_vtx_batch(fields, VGRID, w, h)
             old = vtx.render_image_vtx_batch(fields, *spike_shading(dev), VGRID, w, h)
+            n_tris, row_size = vtx.n_triangles(VGRID), 2 * (VGRID - 1)
         else:
             fields, tris, frame = tall_renderer_frame(obj)
             got = kernels.seg_gbuffer(*frame, 1, w, h)
             want = packed.render_gbuffer_packed_batch(fields, tris, w, h)
             old = fragment.terrain_fs_extended(*want, *renderer_shading(obj))
+            n_tris, row_size = tris.shape[0], 2 * (obj._terrain.width - 1)
         sync()
+        expected = seg_setup_launches(n_tris, row_size, frame[0].shape[0])
+        if setup_launches[label] != expected:
+            raise AssertionError(f"{label}: vf_seg_setup launched {setup_launches[label]} "
+                                 f"times, expected {expected}")
         bit_equal = all(torch.equal(a, b) for a, b in zip(got, want))
         if not bit_equal:
             raise AssertionError(f"{label}: the segment g-buffer is not the old route's")
@@ -2746,6 +2808,7 @@ def phase3e_seg_main_path(dev):
         checks[label] = {"covered_share": covered, "gbuffer_bit_equal": bit_equal,
                          "image_max_byte_delta": d, "image_frac_bytes_differ": frac,
                          "records": frame[0].shape[0], "walk_rows": frame[3].seg_lo.shape[-1],
+                         "setup_launches": setup_launches[label],
                          "walked_pairs": walked_pairs(frame[3]), "overlap_pairs": pairs,
                          "peak_bytes": peak[label], "against_plain": band[label]}
         del fields, frame
@@ -2761,8 +2824,8 @@ def phase3e_seg_main_path(dev):
 
 def seg_stages(obj, dev, reps=REPS):
     """CUDA events around each stage of one segment-route frame (median of
-    ``reps`` after a warm-up): vertex stage, setup, walk order (segment_bin
-    with the axis estimate), compaction, kernel, shader, readback."""
+    ``reps`` after a warm-up): vertex stage, set-up (kernels.seg_setup:
+    records, walk order, compaction), kernel, shader, readback."""
     w, h = obj.width, obj.height
     spike = isinstance(obj, vt.TerrainSpike)
     if spike:
@@ -2780,7 +2843,7 @@ def seg_stages(obj, dev, reps=REPS):
         view, proj = obj._default_terrain_camera(terr)
         grid, fs_mode, rs = None, "extended", 2 * (terr.width - 1)
         shade = renderer_shading(obj)
-    names = ("vertex_stage", "setup", "walk_order", "compaction", "kernel", "shader", "readback")
+    names = ("vertex_stage", "setup", "kernel", "shader", "readback")
     rows = []
     for _ in range(reps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
@@ -2788,33 +2851,26 @@ def seg_stages(obj, dev, reps=REPS):
         fields = vtx.vs_fields(mesh[0], mesh[1], tensor(view[None], dev),
                                tensor(proj[None], dev), mesh[2], mesh[3], w, h, fs_mode)
         ev[1].record()
-        f = [fields[:, k] for k in range(vtx.FIELDS)]
-        corners = (setup.grid_corners(f, grid) if spike else setup.indexed_corners(f, tris))
-        records, bbox = setup.corner_records(*corners, w, h)
-        del corners, f
+        *frame, columns = kernels.seg_setup(fields, None if spike else tris,
+                                            grid if spike else None, w, h, rs)
+        frame = segments.stack_frames([frame])
         ev[2].record()
-        perm, binning = segments.walk_order(bbox[0], w, h, rs)
-        ev[3].record()
-        frame = segments.stack_frames([(*segments.compact_valid(
-            records[0], bbox[0] if perm is None else bbox[0][perm], perm), binning)])
-        del records, bbox
-        ev[4].record()
         if spike:
             img = kernels.seg_shade_shipped(*frame, 1, w, h, *shade)
-            ev[5].record()
-            ev[6].record()
+            ev[3].record()
+            ev[4].record()
         else:
             gbuf = kernels.seg_gbuffer(*frame, 1, w, h)
-            ev[5].record()
+            ev[3].record()
             img = fragment.terrain_fs_extended(*gbuf, *shade)
-            ev[6].record()
+            ev[4].record()
         _formats.u32_image_to_rgba_u8(img[0]).cpu().numpy()
-        ev[7].record()
+        ev[5].record()
         sync()
         rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))])
         del fields, frame, img
     return ({n: statistics.median(r[i] for r in rows[1:]) for i, n in enumerate(names)},
-            "column-major" if perm is not None else "row-major")
+            "column-major" if columns else "row-major")
 
 
 def phase4e_seg_timing(smi, dev, band):
@@ -2907,6 +2963,133 @@ def phase4e_seg_timing(smi, dev, band):
     return rec
 
 
+
+
+# The set-up's kernels (csrc/segments.cu), as the profiler names them.
+SETUP_NAMES = ("seg_bbox_kernel", "seg_init_kernel", "seg_count_kernel", "seg_scan_kernel",
+               "seg_bin_kernel", "seg_tables_kernel", "seg_prefix_kernel", "seg_compact_kernel")
+
+
+def setup_bound(n_tris, n_vertices, valid):
+    """The set-up's least time: its inputs read once (the fields' 7 planes,
+    the index buffer) and its outputs written once (the compacted records,
+    ids and bboxes; the tables are ~0.1% of it), at HBM's rate; and the
+    bytes its chain moves (``design_bytes``): fields and indices read twice,
+    the bbox written once and read about three times, the outputs."""
+    inputs = vtx.FIELDS * 4 * n_vertices + 12 * n_tris
+    outputs = valid * (setup.REC_WIDTH * 4 + 4 + 16)
+    return {**bound_of(inputs + outputs, 0),
+            "design_bytes": 2 * inputs + 4 * 16 * n_tris + outputs}
+
+
+def setup_against_plain(args, label):
+    """kernels.seg_setup(*args) held byte for byte to
+    segments.setup_frame_plain(*args) on the same card tensors (records'
+    bits, ids, bboxes, the seven tables, the walk axis) and its launches to
+    ``seg_setup_launches``. Returns (valid records, column-major walk,
+    launches)."""
+    fields, indices, grid_n, w, h, row_size = args
+    n = kernels.seg_setup.launches
+    got = kernels.seg_setup(*args)
+    sync()
+    launches = kernels.seg_setup.launches - n
+    want = segments.setup_frame_plain(*args)
+    sync()
+    names = ("records", "ids", "bbox") + segments.SegmentBinning._fields
+    pairs = list(zip(got[:3], want[:3])) + list(zip(got[3], want[3]))
+    equal = {name: a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        *(x.view(torch.int32) if x.dtype == torch.float32 else x for x in (a, b)))
+        for name, (a, b) in zip(names, pairs)}
+    equal["columns"] = got[4] == want[4]
+    if not all(equal.values()):
+        raise AssertionError(f"{label}: the set-up kernels differ from the plain version: "
+                             f"{equal}")
+    n_tris = vtx.n_triangles(grid_n) if indices is None else indices.shape[0]
+    expected = seg_setup_launches(n_tris, row_size, got[0].shape[0])
+    if launches != expected:
+        raise AssertionError(f"{label}: vf_seg_setup launched {launches} times, "
+                             f"expected {expected}")
+    out = got[0].shape[0], got[4], launches
+    del got, want, pairs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase4g_seg_setup(smi, dev):
+    """The segment walk's set-up at the poster's shape: held to its plain
+    version through the index buffer (a Renderer DEM-3601, the poster
+    cell's frame) and on the grid (make_terrain g1024); its kernels' and
+    its chain's time on the Renderer's frame against its bound and the
+    plain version's; the frame on the segment route against the indexed
+    route. Returns the kernels line's record."""
+    w, h = POSTER
+    spike = vt.make_terrain(w, h, VGRID, device=dev)
+    fields = spike_fields(spike, dev)
+    cases = {f"spike g{VGRID}": setup_against_plain(
+        (fields, None, VGRID, w, h, 2 * (VGRID - 1)), f"spike g{VGRID}")}
+    del spike, fields
+    r = make_renderer(SRTM, dev, seed=1, size=POSTER)
+    terr = r._terrain
+    xyuv, tris = _renderer.grid_mesh(terr.width, terr.height, *terr.spacing, dev)
+    view, proj = r._default_terrain_camera(terr)
+    one = tensor(1.0, dev)
+    fields = vtx.vs_fields(xyuv, r._height_tex, tensor(view[None], dev),
+                           tensor(proj[None], dev), one, one, w, h, "extended")
+    args = (fields, tris, None, w, h, 2 * (terr.width - 1))
+    label = f"Renderer DEM-{SRTM}"
+    cases[label] = setup_against_plain(args, label)
+    valid = cases[label][0]
+
+    from torch.profiler import ProfilerActivity, profile
+    calls = 5
+    kernels.seg_setup(*args)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernels.seg_setup(*args)
+        sync()
+    total = {k: 0.0 for k in SETUP_NAMES}
+    seen = {k: 0 for k in SETUP_NAMES}
+    for a in prof.key_averages():
+        for k in SETUP_NAMES:
+            if k in a.key:
+                total[k] += a.self_device_time_total / 1e3
+                seen[k] += a.count
+    # Per call over the calls the trace kept (one bbox pass a call): the
+    # profiler may drop one of the window's calls.
+    kept = seen["seg_bbox_kernel"]
+    per = {k: t / kept for k, t in total.items()} if kept else {}
+    chain_ms = cuda_ms(lambda: kernels.seg_setup(*args), reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: segments.setup_frame_plain(*args), reps=3, warmup=1)
+    bound = setup_bound(tris.shape[0], fields.shape[2], valid)
+    del fields, xyuv, tris, args
+    torch.cuda.empty_cache()
+
+    times = {"segment": [], "indexed": []}
+    for route in ("segment", "indexed", "indexed", "segment"):
+        pipeline.use_segment_route = (real_use_segment_route if route == "segment"
+                                      else lambda *a: False)
+        try:
+            r.render_rgba()
+            sync()
+            times[route] += host_ms(r.render_rgba, [()] * 5)
+        finally:
+            pipeline.use_segment_route = real_use_segment_route
+    device_ms = sum(per.values())
+    rec = {"ms": chain_ms, "device_ms": device_ms, "plain_ms": plain_ms, **bound,
+           "bound_share": bound["bound_ms"] / device_ms if device_ms else None,
+           "at": f"Renderer({w},{h}) DEM-{SRTM}, default camera, row_size {2 * (terr.width - 1)}"}
+    say("seg_setup", card=smi, config=rec["at"], cases={
+        k: {"equal": True, "valid": v, "walk": "column-major" if c else "row-major",
+            "launches": n} for k, (v, c, n) in cases.items()},
+        kernel_device_ms=per, kernel_launches_seen=seen, calls=calls, calls_kept=kept, **rec,
+        routes={route: {"median_ms": float(np.percentile(t, 50)), "n": len(t), "all_ms": t}
+                for route, t in times.items()},
+        routes_config="render_rgba with readback, in turns (segment, indexed, indexed, "
+        "segment; 5 calls each after a warm-up)")
+    del r
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------- the vertex stage (vf_vs_fields) ----------------
@@ -4377,7 +4560,7 @@ def main() -> int:
     launches.update({name: hw_launches[name] for name, _ in HW_KERNELS})
     sync()
     seg_launches, seg_band = phase3e_seg_main_path(dev)
-    launches.update({name: seg_launches[name] for name, _ in SEG_KERNELS})
+    launches.update({name: seg_launches[name] for name, _ in SEG_KERNELS + SEG_SETUP_KERNELS})
     # The vertex stage runs on every main path but the record route's.
     launches["vf_vs_fields"] = vs_launches + sum(
         d["vf_vs_fields"] for d in (vtx_launches, packed_launches, hw_launches, seg_launches))
@@ -4396,6 +4579,8 @@ def main() -> int:
     hw_rec = phase4d_hw_timing(smi, dev)
     sync()
     seg_rec = phase4e_seg_timing(smi, dev, seg_band)
+    sync()
+    setup_rec = phase4g_seg_setup(smi, dev)
     sync()
     vs_rec = phase4f_vs_timing(smi, dev)
     sync()
@@ -4463,6 +4648,16 @@ def main() -> int:
                      "launches": launches[name], "max_abs_err": seg_err[name],
                      **{k: seg_rec[name][k] for k in keys + ("plain_at", "ms_band")},
                      "library_ms": None})
+    # The segment walk's set-up: the JAX pipeline's valid count, walk
+    # estimates and compaction around its segment kernel (host and XLA
+    # work, no pallas_call); byte-equal to the plain version (4g); the
+    # launches are 3e's, the times at the poster cell's frame (4g).
+    line.append({"name": "vf_seg_setup", "route": "cuda",
+                 "source": "vulkan_forge_torch/csrc/segments.cu",
+                 "replaces": "vulkan_forge/_raster/pipeline.py:709-719",
+                 "launches": launches["vf_seg_setup"], "max_abs_err": 0,
+                 **{k: setup_rec[k] for k in keys + ("device_ms", "bound_share", "at")},
+                 "library_ms": None})
     # The vertex stage: the JAX pipeline's vs_fields (terrain_vs or its
     # extended body, then clip_to_fb, stacked), which XLA fuses on the TPU;
     # the times at the relight frame, extended, every shape under "cases".

@@ -49,7 +49,14 @@ which replace ``segments._seg_kernel`` (K8, segments.py:159):
 
   - ``seg_gbuffer`` -> ``vf_seg_gbuffer``: the segment walk's g-buffer;
   - ``seg_shade_shipped`` -> ``vf_seg_shade_shipped``: the same with the
-    shipped fragment shader fused.
+    shipped fragment shader fused;
+
+and the chain that builds what they read from a frame's post-VS fields,
+``seg_setup`` -> ``vf_seg_setup_*`` (eight kernels: bbox, then per walk
+axis the tables' init, count, scan, binning, tables and prefix, then the
+compaction), which replaces the route's torch set-up
+(``segments.setup_frame_plain``; no pallas_call: the JAX package's set-up
+is host and XLA work). ``pipeline.segment_frame`` calls it.
 
 The sources (and the header they share, ``csrc/raster_common.cuh``) are
 compiled on first use with ``nvcc``, one process per source started
@@ -120,6 +127,17 @@ _SIGNATURES = {
                              _P, _P, _P, _P, _P],
     "vf_seg_tile_h": [],
     "vf_seg_tile_w": [],
+    "vf_seg_scan_block": [],
+    "vf_seg_rec_width": [],
+    "vf_seg_setup_bbox": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    "vf_seg_setup_init": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "vf_seg_setup_count": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "vf_seg_setup_scan": [_P, _I, _P, _P, _P],
+    "vf_seg_setup_bin": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "vf_seg_setup_tables": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "vf_seg_setup_prefix": [_I, _I, _P, _P, _P, _P, _P],
+    "vf_seg_setup_compact": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                             _P],
 }
 
 _lib = None
@@ -224,6 +242,11 @@ def load():
                 raise RuntimeError(f"csrc/segments.cu walks {lib.vf_seg_tile_h()}x"
                                    f"{lib.vf_seg_tile_w()} tiles but segments.py bins "
                                    f"{segments.TILE_H}x{segments.TILE_W}")
+            setup = (lib.vf_seg_scan_block(), lib.vf_seg_rec_width())
+            if setup != (SEG_SCAN_BLOCK, REC_WIDTH):
+                raise RuntimeError(f"csrc/segments.cu scans {setup[0]}-position blocks and "
+                                   f"writes {setup[1]}-column records but kernels.py sizes "
+                                   f"{SEG_SCAN_BLOCK} and {REC_WIDTH}")
             _lib = lib
     return _lib
 
@@ -930,3 +953,121 @@ def seg_shade_shipped(records: torch.Tensor, ids: torch.Tensor, bbox: torch.Tens
 
 
 seg_shade_shipped.launches = 0
+
+
+# ---------------- the segment walk's set-up (csrc/segments.cu) ----------------
+
+# Stream positions of one block of the set-up's scan: kScanBlock in
+# csrc/segments.cu (kernels.load() checks).
+SEG_SCAN_BLOCK = 1024
+
+
+def _check_seg_setup(fields: torch.Tensor, indices, grid_n, width: int, height: int,
+                     row_size: int) -> int:
+    """Check ``seg_setup``'s inputs as the vtx and indexed kernels' are
+    checked; returns the triangle count."""
+    if (indices is None) == (grid_n is None):
+        raise ValueError("give exactly one of indices and grid_n")
+    if indices is None:
+        _check_fields(fields, int(grid_n))
+        n_tris = vtx.n_triangles(int(grid_n))
+    else:
+        _check_indexed(fields, indices)
+        n_tris = indices.shape[0]
+    if fields.shape[0] != 1:
+        raise ValueError(f"fields must hold one frame, got {fields.shape[0]}")
+    _check_frame(width, height)
+    if int(row_size) < 1:
+        raise ValueError(f"row_size must be >= 1, got {row_size}")
+    return n_tris
+
+
+def seg_setup(fields: torch.Tensor, indices, grid_n, width: int, height: int,
+              row_size: int):
+    """One frame's segment-walk inputs from its post-VS fields (1, 7, N):
+    the triangles' corners through ``indices`` ((T, 3) int32, every index
+    in [0, N)) or, with ``grid_n`` instead, on ``build_grid_xyuv(grid_n)``'s
+    grid; mesh rows of ``row_size`` triangles. Returns (records (M,
+    REC_WIDTH) f32, ids (M,) int32, bbox (M, 4) int32, SegmentBinning,
+    columns), M the valid triangles, in the walk ``walk_order`` picks
+    (``columns``: the column-major one).
+
+    CPU tensors: segments.setup_frame_plain. CUDA tensors: the
+    ``vf_seg_setup_*`` chain of csrc/segments.cu, up to 14 launches and one
+    read of the valid count and the axes' estimates; the same bytes.
+    """
+    n_tris = _check_seg_setup(fields, indices, grid_n, width, height, row_size)
+    row_size = int(row_size)
+    if fields.device.type == "cpu":
+        return segments.setup_frame_plain(fields, indices, grid_n, width, height, row_size)
+    dev = fields.device
+    nv = fields.shape[2]
+    n = 0 if grid_n is None else int(grid_n)
+    idx = None if indices is None else indices.data_ptr()
+    ntx, nty = segments.seg_grid(width, height)
+    i32 = dict(dtype=torch.int32, device=dev)
+    lib = load()
+    stream = _stream(dev)
+
+    def launch(fn, *args):
+        _raise_on(fn(*args, stream), fn.__name__)
+        seg_setup.launches += 1
+
+    walks = segments.walk_streams(n_tris, row_size)
+    info = torch.zeros(4, dtype=torch.int64, device=dev)   # valid counts, estimates
+    with torch.cuda.device(dev):
+        bbox = torch.empty((n_tris, 4), **i32)
+        if n_tris:
+            launch(lib.vf_seg_setup_bbox, fields.data_ptr(), nv, idx, n, n_tris, width,
+                   height, bbox.data_ptr())
+        tables = []
+        for a, walk in enumerate(walks):
+            length, rs = walk.length, walk.row_size
+            rows = -(-length // rs)
+            # seg_lo, seg_hi, row_base, r_bounds, counts_est, seg_y, tile_order
+            t = segments.SegmentBinning(*(torch.empty(shape, **i32) for shape in (
+                (ntx, rows), (ntx, rows), rows, (2, nty), nty * ntx, (ntx, rows, 2), nty * ntx)))
+            row_ty = torch.empty((rows, 2), **i32)
+            diffs = torch.empty((2, ntx, nty + 1), **i32)
+            n_blocks = -(-length // SEG_SCAN_BLOCK)
+            offset = torch.empty(n_blocks + 1, **i32)
+            launch(lib.vf_seg_setup_init, ntx, rows, nty, t.seg_lo.data_ptr(),
+                   t.seg_hi.data_ptr(), t.seg_y.data_ptr(), row_ty.data_ptr(),
+                   t.r_bounds.data_ptr(), diffs.data_ptr())
+            if length:
+                stream_args = (length, rs, walk.cells_rows, walk.cells_cols, int(walk.columns))
+                counts = torch.empty(n_blocks, **i32)
+                launch(lib.vf_seg_setup_count, bbox.data_ptr(), *stream_args,
+                       counts.data_ptr())
+                launch(lib.vf_seg_setup_scan, counts.data_ptr(), n_blocks, offset.data_ptr(),
+                       info[a:].data_ptr())
+                launch(lib.vf_seg_setup_bin, bbox.data_ptr(), *stream_args, ntx, rows,
+                       offset.data_ptr(), t.seg_lo.data_ptr(), t.seg_hi.data_ptr(),
+                       t.seg_y.data_ptr(), row_ty.data_ptr(), t.row_base.data_ptr())
+                launch(lib.vf_seg_setup_tables, ntx, rows, nty, t.row_base.data_ptr(),
+                       row_ty.data_ptr(), t.seg_lo.data_ptr(), t.seg_hi.data_ptr(),
+                       t.seg_y.data_ptr(), diffs.data_ptr(), t.r_bounds.data_ptr())
+            # The per-tile counts that order the tiles go where tile_order
+            # will be; counts_est and the estimate beside them.
+            launch(lib.vf_seg_setup_prefix, ntx, nty, diffs.data_ptr(),
+                   t.counts_est.data_ptr(), t.tile_order.data_ptr(), info[2 + a:].data_ptr())
+            tables.append((t, offset))
+        del diffs, row_ty
+        # The one read: valid counts and estimates, both axes.
+        got = _trace.d2h(info).cpu().tolist()
+        a = segments.cheaper_walk(got[2:2 + len(walks)])
+        valid, walk = got[a], walks[a]
+        t, offset = tables[a]
+        records = torch.empty((valid, REC_WIDTH), dtype=torch.float32, device=dev)
+        ids = torch.empty(valid, **i32)
+        cbbox = torch.empty((valid, 4), **i32)
+        if valid:
+            launch(lib.vf_seg_setup_compact, fields.data_ptr(), nv, idx, n, bbox.data_ptr(),
+                   walk.length, walk.row_size, walk.cells_rows, walk.cells_cols,
+                   int(walk.columns), width, height, offset.data_ptr(), records.data_ptr(),
+                   ids.data_ptr(), cbbox.data_ptr())
+    order = torch.argsort(t.tile_order, descending=True, stable=True).to(torch.int32)
+    return records, ids, cbbox, t._replace(tile_order=order), walk.columns
+
+
+seg_setup.launches = 0

@@ -60,7 +60,7 @@ from .. import _formats, _trace
 from .._device import resolve_device
 from . import fragment, kernels, packed, segments, transform, vtx
 from .setup import (FILL_RULES, REC_WIDTH, bin_tiles, check_fill_rule, clip_to_fb,
-                    corner_records, grid_corners, indexed_corners, triangle_setup)
+                    triangle_setup)
 
 # Fixed geometry (src/lib.rs:73-78): CCW, u16 indices [0,1,2].
 _TRI_POS = np.array([[-0.8, -0.8], [0.8, -0.8], [0.0, 0.8]], dtype=np.float32)
@@ -304,26 +304,21 @@ def render_terrain_u8(xyuv, indices, heights, view, proj, *, spacing,
 
 
 def segment_frame(fields, indices, grid_n, width: int, height: int, row_size=None):
-    """One frame's segment-walk inputs from its post-VS fields (1, 7, N):
-    inclusive records, built from grid corners when ``grid_n`` names the
-    mesh (its indices are not read) and through the index buffer
-    otherwise; the walk order (``segments.walk_order``, with ``row_size``
-    as ``render_terrain_u8`` defaults it); the compacted stream. Returns
-    (records, ids, bbox, binning) for ``segments.stack_frames``."""
-    f = [fields[:, k] for k in range(vtx.FIELDS)]
+    """One frame's segment-walk inputs from its post-VS fields (1, 7, N)
+    (``kernels.seg_setup``): inclusive records, built from grid corners
+    when ``grid_n`` names the mesh (its indices are not read) and through
+    the index buffer otherwise; the walk order (``segments.walk_order``,
+    with ``row_size`` as ``render_terrain_u8`` defaults it); the compacted
+    stream. Returns (records, ids, bbox, binning) for
+    ``segments.stack_frames``."""
     n_tris = int(np.prod(np.shape(indices))) // 3
     if use_vtx_route(grid_n, fields.shape[2], n_tris):
-        corners = grid_corners(f, int(grid_n))
+        idx, grid = None, int(grid_n)
     else:
-        corners = indexed_corners(f, _tri_indices_i32(indices, fields.shape[2], fields.device))
-    records, bbox = corner_records(*corners, width, height)
-    del corners
-    records, bbox = records[0], bbox[0]
+        idx, grid = _tri_indices_i32(indices, fields.shape[2], fields.device), None
     if not row_size:
         row_size = 2 * (int(grid_n) - 1) if grid_n else n_tris
-    perm, binning = segments.walk_order(bbox, width, height, int(row_size))
-    return (*segments.compact_valid(records, bbox if perm is None else bbox[perm], perm),
-            binning)
+    return kernels.seg_setup(fields, idx, grid, width, height, int(row_size))[:4]
 
 
 def _walk_counters(frame, width: int, height: int, device):
@@ -369,6 +364,7 @@ def render_terrain_segments_u32(xyuv, indices, heights, view, proj, *, spacing,
                                                         h_max - h_min, exposure, sun_dir,
                                                         evaluated)[0]
         gbuf = segments.render_gbuffer_segments_batch(*frame, 1, width, height, evaluated)
+        del frame                    # free the records before the shader allocates
     with _trace.span("vf.shade", dev):
         nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
         return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,

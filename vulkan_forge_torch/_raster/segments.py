@@ -14,7 +14,10 @@ framebuffer tile column form one contiguous id interval. The route
   2. builds per-(mesh-row, tile-column) intervals in compacted coordinates
      and each tile row's active mesh-row range (``segment_bin``), walking
      the mesh row by row or column by column, whichever its work estimate
-     says is cheaper (``walk_order``);
+     says is cheaper (``walk_order``). Steps 1 and 2, from the frame's
+     fields, are ``kernels.seg_setup``: the ``vf_seg_setup_*`` kernels of
+     ``csrc/segments.cu`` for CUDA tensors, ``setup_frame_plain`` (the
+     functions named here) for CPU tensors;
   3. walks each 8x128 tile's intervals and keeps, per pixel, the covering
      record with the largest original id: ``kernels.seg_gbuffer`` and
      ``kernels.seg_shade_shipped`` (``csrc/segments.cu``), the counterparts
@@ -37,10 +40,10 @@ thresholds (setup.py), and an int32 id is exact at any T below 2**31, so
 the reference's (id >> 12, id & 4095) split compare for T >= 2**24
 (``exact_ids``) has no counterpart. The winner is the largest id, never
 the walk order, so a permuted (column-major) stream paints the same image
-(segments.py:269-271). The stream has the exact valid count (one host
-read in ``torch.nonzero``); the reference's pow2 capacity exists for XLA's
-static shapes, and its 8-row DMA alignment and double buffering are TPU
-layout.
+(segments.py:269-271). The stream has the exact valid count (a host read:
+``torch.nonzero`` here, on the card read with the axes' estimates in one);
+the reference's pow2 capacity exists for XLA's static shapes, and its
+8-row DMA alignment and double buffering are TPU layout.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ import torch
 
 from .. import _trace
 from . import fragment, kernels
+from .setup import corner_records, grid_corners, indexed_corners
 from .tiles import eval_records
 
 # The reference's raster tile (vulkan_forge/_raster/setup.py:86-87). Must
@@ -205,28 +209,75 @@ def segment_axis_estimate(binning: SegmentBinning) -> int:
     return int(_trace.d2h(binning.counts_est.sum(dtype=torch.int64)))
 
 
+class WalkStream(NamedTuple):
+    """One walk of a frame's T triangles: ``length`` stream positions in
+    rows of ``row_size``; a column-major walk (``columns``) takes the
+    positions of ``column_major_perm(cells_rows, cells_cols)``, a
+    row-major one (cells_rows = cells_cols = 0) the ids in order."""
+    length: int
+    row_size: int
+    cells_rows: int
+    cells_cols: int
+    columns: bool
+
+
+def walk_streams(n_tris: int, row_size: int) -> list:
+    """The walks the reference weighs (pipeline.py:709-719): the row-major
+    one, and the column-major one when ``row_size`` splits the T triangles
+    into whole grid rows (0 < row_size < T, T % row_size == 0)."""
+    walks = [WalkStream(n_tris, row_size, 0, 0, False)]
+    if 0 < row_size < n_tris and n_tris % row_size == 0:
+        cells_rows, cells_cols = n_tris // row_size, row_size // 2
+        walks.append(WalkStream(cells_rows * cells_cols * 2, 2 * cells_rows, cells_rows,
+                                cells_cols, True))
+    return walks
+
+
+def cheaper_walk(estimates) -> int:
+    """The walk with the lowest work estimate; the row-major one on a tie."""
+    return min(range(len(estimates)), key=lambda a: estimates[a])
+
+
 def walk_order(bbox: torch.Tensor, width: int, height: int, row_size: int):
-    """The reference's axis choice (pipeline.py:709-719): the column-major
-    walk when ``row_size`` splits the T triangles into whole grid rows
-    (0 < row_size < T, T % row_size == 0) and its estimate is lower.
-    Returns (perm or None, the chosen walk's SegmentBinning)."""
-    T = bbox.shape[0]
-    binning = segment_bin(bbox, width, height, row_size)
-    if not (0 < row_size < T and T % row_size == 0):
-        return None, binning
-    cells_rows = T // row_size
-    perm = column_major_perm(cells_rows, row_size // 2, bbox.device)
-    binning_c = segment_bin(bbox[perm], width, height, 2 * cells_rows)
-    if segment_axis_estimate(binning_c) < segment_axis_estimate(binning):
-        return perm, binning_c
-    return None, binning
+    """The reference's axis choice among ``walk_streams``: the column-major
+    walk where there is one and its estimate is lower. Returns (perm or
+    None, the chosen walk's SegmentBinning)."""
+    walks = walk_streams(bbox.shape[0], row_size)
+    perms = [None] + [column_major_perm(w.cells_rows, w.cells_cols, bbox.device)
+                      for w in walks[1:]]
+    binnings = [segment_bin(bbox if p is None else bbox[p], width, height, w.row_size)
+                for w, p in zip(walks, perms)]
+    if len(walks) == 1:
+        return None, binnings[0]
+    a = cheaper_walk([segment_axis_estimate(b) for b in binnings])
+    return perms[a], binnings[a]
+
+
+def setup_frame_plain(fields: torch.Tensor, indices, grid_n, width: int, height: int,
+                      row_size: int):
+    """Plain version of the ``vf_seg_setup_*`` chain (``kernels.seg_setup``,
+    which says what the arguments are): every triangle's inclusive record
+    and bbox from its corners (``grid_corners`` when ``grid_n`` names the
+    mesh, else ``indexed_corners``), ``walk_order`` and ``compact_valid``.
+    Returns (records, ids, bbox, SegmentBinning, columns)."""
+    f = [fields[:, k] for k in range(fields.shape[1])]
+    corners = grid_corners(f, int(grid_n)) if indices is None else indexed_corners(f, indices)
+    records, bbox = corner_records(*corners, width, height)
+    del corners
+    records, bbox = records[0], bbox[0]
+    perm, binning = walk_order(bbox, width, height, row_size)
+    return (*compact_valid(records, bbox if perm is None else bbox[perm], perm), binning,
+            perm is not None)
 
 
 def stack_frames(frames):
     """B single frames [(compacted records, ids, bbox, SegmentBinning)] ->
     one stream: (records, ids, bbox, binning with a leading frame axis),
     each frame's row_base offset by its start in the stacked records and
-    its tables padded with empty rows to the longest walk's ROWS."""
+    its tables padded with empty rows to the longest walk's ROWS. One
+    frame is its tables with the axis added, nothing copied."""
+    if len(frames) == 1:
+        return (*frames[0][:3], SegmentBinning(*(t[None] for t in frames[0][3])))
     rows = max(f[3].seg_lo.shape[1] for f in frames)
     starts = [0]
     for rec, *_ in frames[:-1]:
