@@ -319,7 +319,7 @@ import torch
 
 import vulkan_forge_torch as vt
 from vulkan_forge_torch import bench
-from vulkan_forge_torch import (_camera, _colormap, _device, _formats, _io, _mesh,
+from vulkan_forge_torch import (_build, _camera, _colormap, _device, _formats, _io, _mesh,
                                 _native, _renderer)
 from vulkan_forge_torch._parity import (FS_MAX_FRACTION, VARYING_RTOL,
                                         assert_fs_policy, assert_gbuffer_close)
@@ -525,7 +525,7 @@ def phase0_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    nvcc = subprocess.run([kernels._nvcc(), "--version"], check=True,
+    nvcc = subprocess.run([_build.nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout.strip().splitlines()[-1]
     print(smi, flush=True)
     say("card", nvidia_smi=smi, **info, nvcc=nvcc,
@@ -4041,9 +4041,9 @@ def stamp_medians(parts, calls, warmup=50):
 
 
 def lab_launch_split(dev):
-    """One vf_lab_slab_transpose call at (8, 128) cut into the parts of
-    lab/_kernels.py's launch path, with no synchronize between calls: the
-    checks, the output's new_empty, the current-device test, the raw stream
+    """One vf_lab_slab_transpose call at (8, 128) cut into the parts of the
+    port's launch path (_build.launch), with no synchronize between calls:
+    the checks, the output's new_empty, the current-device test, the raw stream
     handle and the ctypes call (the launch and cudaGetLastError); beside
     them the wrapper's whole call, a ctypes call of vf_lab_ops (no CUDA
     call) and the function's call with 0 rows (cudaGetLastError, no
@@ -4051,7 +4051,8 @@ def lab_launch_split(dev):
     ns = time.perf_counter_ns
     src = torch.rand(8, 128, device=dev)
     rows, cols = src.shape
-    fns = lab_kernels._fns
+    lib = lab_kernels.load()
+    fns = {name: getattr(lib, name) for name in lab_kernels._SIGNATURES}
 
     def parts():
         t0 = ns()
@@ -4104,7 +4105,7 @@ def lab_step_split(dev):
                           device=dev)
     index = lab_kernels.BODIES.index(body)
     iters = nstep // lab_bodies.BY_NAME[body].unroll
-    step = lab_kernels._fns["vf_lab_step_loop"]
+    step = lab_kernels.load().vf_lab_step_loop
 
     def call():
         return lab_kernels.step_loop(body, big, nstep, scratch)
@@ -4248,7 +4249,7 @@ def sass_loops(path):
     kernel's instructions and its longest backward branch's span (the step
     loop's body with the loops inside it): where nvcc hoisted a body's
     work out of the step loop, that span is short."""
-    exe = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    exe = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     text = subprocess.run([exe, "-sass", str(path)], check=True, capture_output=True,
                           text=True, timeout=300).stdout
     funcs, cur = {}, None

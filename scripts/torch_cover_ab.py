@@ -155,7 +155,9 @@ RESOLVE_ENTRIES = (("vtx_resolve_kernelILb0", "vf_vtx_resolve_gbuffer"),
 def sass_loads(cs, path: str) -> dict:
     """Global-memory load instructions (LDG) in the SASS of each resolve
     kernel of the library at ``path`` (cuobjdump -sass)."""
-    cuobjdump = os.path.join(os.path.dirname(cs.kernels._nvcc()), "cuobjdump")
+    # nvcc as the checkout's package finds it (in kernels.py before _build.py).
+    find = cs._build.nvcc if hasattr(cs, "_build") else cs.kernels._nvcc
+    cuobjdump = os.path.join(os.path.dirname(find()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", path], check=True, capture_output=True,
                           text=True).stdout
     out, cur = {}, None

@@ -18,13 +18,14 @@ import os
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
 import torch
 
-from vulkan_forge_torch import _colormap
-from vulkan_forge_torch._raster import fragment
+from vulkan_forge_torch import _build, _colormap
+from vulkan_forge_torch._raster import fragment, kernels
 from vulkan_forge_torch.lab import _kernels, fs_chain, fs_ops, slab_copy, slab_transpose
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -188,7 +189,7 @@ def test_fs_chain_plain_equals_terrain_fs():
     lut = torch.from_numpy(np.asarray(_colormap.build_lut("viridis")[0], np.float32))
     h_range, exposure = torch.tensor(0.8), torch.tensor(1.3)
     sun = torch.tensor([-0.3, 0.8, 0.5])
-    par = _kernels.chain_params(h_range, exposure, sun)
+    par = kernels.shading_params(h_range, exposure, sun)
     t = [torch.from_numpy(a) for a in (hh, xx, zz, ch)]
     chain = _kernels.fs_chain(*t, lut[:, :3].contiguous(), par).numpy()
     words = fragment.terrain_fs(t[0], t[1], t[2], torch.ones(P, dtype=torch.bool), lut,
@@ -267,7 +268,8 @@ def test_slab_loop_plain(transpose):
 
 # ---------------- the launch path ----------------
 
-def test_bound_table_covers_every_signature():
+@pytest.mark.parametrize("module", [kernels, _kernels], ids=["raster", "lab"])
+def test_bound_table_covers_every_signature(module):
     class Fn:
         argtypes = restype = None
 
@@ -282,58 +284,84 @@ def test_bound_table_covers_every_signature():
             return fn
 
     lib = Lib()
-    fns = _kernels.bind(lib)
-    assert sorted(fns) == sorted(_kernels._SIGNATURES) == sorted(lib.looked_up)
-    for name, fn in fns.items():
-        assert fn is getattr(lib, name)
-        assert fn.argtypes == _kernels._SIGNATURES[name] and fn.restype is ctypes.c_int
-    # Every function the wrappers launch and every C entry of lab.cu is bound.
-    src = open(_kernels.__file__).read()
-    launched = set(re.findall(r'_launch\(\w+, "(vf_lab_\w+)"', src))
-    entries = set(re.findall(r"^int (vf_lab_\w+)\(", _kernels._SOURCE.read_text(), re.M))
-    assert len(launched) == len(_kernels.LAUNCHED)
-    assert launched <= entries == set(_kernels._SIGNATURES)
+    assert _build.bind(lib, module._SIGNATURES) is lib
+    assert sorted(lib.looked_up) == sorted(module._SIGNATURES)
+    for name, argtypes in module._SIGNATURES.items():
+        fn = getattr(lib, name)
+        assert fn.argtypes == argtypes and fn.restype is ctypes.c_int
+    # Every function the module calls is in its table, every entry of the
+    # table is called or checked at load, and every C entry of its sources
+    # is bound.
+    called = set(re.findall(r'[."](vf_\w+)\b', open(module.__file__).read()))
+    checked = {row[0] for row in module._contract()}
+    sources = module._SOURCES if module is kernels else (module._SOURCE,)
+    entries = {name for src in sources
+               for name in re.findall(r"^int (vf_\w+)\(", src.read_text(), re.M)}
+    assert called <= set(module._SIGNATURES) == called | checked == entries
+    if module is _kernels:
+        launched = set(re.findall(r"_build\.launch\(\w+, load\(\)\.(vf_lab_\w+)",
+                                  open(module.__file__).read()))
+        assert len(launched) == len(_kernels.LAUNCHED)
 
 
-def _fake_library(monkeypatch, prepare_error=0):
-    """The launch path over a stand-in library whose functions record their
-    calls, on a current device 0 whose raw stream handle is 100."""
+def _fn(calls, name, err=0):
+    """A stand-in for the library function ``name`` that records its calls
+    and returns ``err``."""
+    def call(*args):
+        calls.append((name, args))
+        return err
+    call.__name__ = name
+    return call
+
+
+class _OnDevice0:
+    def get_device(self):
+        return 0
+
+
+# A launch of each library's path: (the wrapper counted, the function
+# launched; the lab's per-device step in front of it).
+FAKE_LAUNCHES = {"lab": (_kernels.lane_ops, "vf_lab_ops", _kernels._prepare),
+                 "raster": (kernels.vs_fields, "vf_vs_fields", None)}
+
+
+def _fake_launch(monkeypatch, library, prepare_error=0, error=0):
+    """The launch path over stand-in functions that record their calls, on
+    a current device 0 whose raw stream handle is 100: (calls, launch())."""
+    wrapper, name, prepare = FAKE_LAUNCHES[library]
     calls = []
-
-    def fn(name, err=0):
-        def call(*args):
-            calls.append((name, args))
-            return err
-        return call
-
-    class OnDevice0:
-        def get_device(self):
-            return 0
-
-    monkeypatch.setattr(_kernels, "_lib", object())
-    monkeypatch.setattr(_kernels, "_fns", {"vf_lab_prepare": fn("prepare", prepare_error),
-                                           "vf_lab_ops": fn("ops")})
+    monkeypatch.setattr(_kernels, "_lib",
+                        types.SimpleNamespace(vf_lab_prepare=_fn(calls, "prepare", prepare_error)))
     monkeypatch.setattr(_kernels, "_prepared", set())
-    monkeypatch.setattr(_kernels, "_current_device", lambda: 0)
-    monkeypatch.setattr(_kernels, "_raw_stream", lambda index: 100 + index)
-    monkeypatch.setattr(_kernels.lane_ops, "launches", 0)
-    return calls, OnDevice0()
+    monkeypatch.setattr(_build, "_current_device", lambda: 0)
+    monkeypatch.setattr(_build, "_raw_stream", lambda index: 100 + index)
+    monkeypatch.setattr(wrapper, "launches", 0)
+    fn = _fn(calls, name, error)
+    return calls, lambda: _build.launch(wrapper, fn, _OnDevice0(), 7, prepare=prepare)
 
 
-def test_launch_prepares_each_device_once(monkeypatch):
-    calls, t = _fake_library(monkeypatch)
+@pytest.mark.parametrize("library", sorted(FAKE_LAUNCHES))
+def test_launch_prepares_each_device_once(monkeypatch, library):
+    calls, launch = _fake_launch(monkeypatch, library)
     for _ in range(3):
-        _kernels._launch(_kernels.lane_ops, "vf_lab_ops", t, 7)
-    assert calls == [("prepare", ())] + [("ops", (7, 100))] * 3
-    assert _kernels.lane_ops.launches == 3 and _kernels._prepared == {0}
+        launch()
+    wrapper, name, prepare = FAKE_LAUNCHES[library]
+    assert calls == [("prepare", ())] * (prepare is not None) + [(name, (7, 100))] * 3
+    assert wrapper.launches == 3
+    assert _kernels._prepared == ({0} if prepare else set())
 
 
-def test_launch_raises_when_prepare_fails(monkeypatch):
-    calls, t = _fake_library(monkeypatch, prepare_error=1)
-    with pytest.raises(RuntimeError, match="vf_lab_ops launch failed with CUDA error 1"):
-        _kernels._launch(_kernels.lane_ops, "vf_lab_ops", t, 7)
-    assert calls == [("prepare", ())]
-    assert _kernels.lane_ops.launches == 0 and not _kernels._prepared
+@pytest.mark.parametrize("library", sorted(FAKE_LAUNCHES))
+def test_launch_raises_when_prepare_fails(monkeypatch, library):
+    """A failing step in front of the launch (the lab's), or a failing
+    launch (a render wrapper's), raises with the function's name and counts
+    nothing."""
+    wrapper, name, prepare = FAKE_LAUNCHES[library]
+    calls, launch = _fake_launch(monkeypatch, library, prepare_error=1, error=int(not prepare))
+    with pytest.raises(RuntimeError, match=f"{name} launch failed with CUDA error 1"):
+        launch()
+    assert calls == ([("prepare", ())] if prepare else [(name, (7, 100))])
+    assert wrapper.launches == 0 and not _kernels._prepared
 
 
 def _meta(*shape):
@@ -413,35 +441,57 @@ def test_wrappers_refuse_as_before(case):
     assert str(err.value) == message
 
 
+def _vertex_stage(xyuv):
+    """``kernels.vs_fields`` of the vertices xyuv (N, 4) over a 4x4 height
+    field, seen through identity matrices."""
+    dev = xyuv.device
+    eye, one = torch.eye(4, device=dev)[None], torch.ones((), device=dev)
+    heights = torch.arange(16.0, device=dev).view(4, 4)
+    return kernels.vs_fields(xyuv, heights, eye, eye, one, one, 16, 16)
+
+
+# A launch of each library's wrappers on the card: (the wrapper counted, its
+# call on x, x's shape).
+CARD_LAUNCHES = {"lab": (_kernels.lane_ops, lambda x: _kernels.lane_ops(x, "exponent"), (8, 128)),
+                 "raster": (kernels.vs_fields, _vertex_stage, (8, 4))}
+
+
 @pytest.mark.gpu
-def test_launch_lands_on_the_current_stream(cuda):
+@pytest.mark.parametrize("library", sorted(CARD_LAUNCHES))
+def test_launch_lands_on_the_current_stream(cuda, library):
     # The kernel reads x after a fill queued on s behind a ~30 ms spin: on
-    # any other stream it would read the zeros (exponent -127).
-    x = torch.zeros(8, 128, device=cuda)
-    _kernels.lane_ops(x, "exponent")      # builds and loads the library first
+    # any other stream it would read the zeros.
+    wrapper, call, shape = CARD_LAUNCHES[library]
+    x = torch.zeros(shape, device=cuda)
+    stale = call(x)                       # builds and loads the library first
+    want = call(torch.ones(shape, device=cuda))
     torch.cuda.synchronize()
+    assert not torch.equal(stale, want)
     s = torch.cuda.Stream()
-    n = _kernels.lane_ops.launches
+    n = wrapper.launches
     with torch.cuda.stream(s):
         torch.cuda._sleep(50_000_000)
         x.fill_(1.0)
-        out = _kernels.lane_ops(x, "exponent")
+        out = call(x)
         assert not s.query()
     s.synchronize()
-    assert _kernels.lane_ops.launches == n + 1
-    assert torch.equal(out, torch.zeros_like(out))
+    assert wrapper.launches == n + 1
+    assert torch.equal(out, want)
 
 
 @pytest.mark.gpu
-def test_launch_lands_on_the_tensors_device(cuda):
+@pytest.mark.parametrize("library", sorted(CARD_LAUNCHES))
+def test_launch_lands_on_the_tensors_device(cuda, library):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
-    x = torch.rand(8, 128, device="cuda:1")
+    _, call, shape = CARD_LAUNCHES[library]
+    x = torch.rand(shape, device="cuda:1")
+    want = call(x.to("cuda:0"))
     with torch.cuda.device(0):
-        out = _kernels.lane_ops(x, "roll", 5)
+        out = call(x)
         assert torch.cuda.current_device() == 0
     assert out.device == x.device
-    assert torch.equal(out, torch.roll(x, 5, 1))
+    assert torch.equal(out.cpu(), want.cpu())
 
 
 # ---------------- the CLIs ----------------

@@ -39,7 +39,7 @@ from vulkan_forge import _mesh as jmesh
 from vulkan_forge import _native as jnative
 
 import vulkan_forge_torch as vt
-from vulkan_forge_torch import _io as tio, _mesh as tmesh, _native as tnative
+from vulkan_forge_torch import _build, _io as tio, _mesh as tmesh, _native as tnative
 
 SHAPES = [(127, 129),   # 16383 vertices: below the JAX package's threshold
           (128, 128),   # 16384: the JAX package's threshold for its core
@@ -89,7 +89,7 @@ def test_csrc_file_is_package_data(name):
 @pytest.fixture
 def fresh_build(monkeypatch, tmp_path):
     """An empty build directory and no loaded library."""
-    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(tnative, "_lib", None)
     return tmp_path / "build"
 
@@ -124,7 +124,7 @@ def test_failed_load_raises(fresh_build):
 def test_build_flags_and_library_name(monkeypatch):
     assert "-ffp-contract=off" in tnative.CXX_FLAGS
     assert not any(f.startswith("-march") for f in tnative.CXX_FLAGS)
-    assert tnative.BUILD_DIR.parts[-2:] == ("build", "vulkan_forge_torch")
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "vulkan_forge_torch")
     name = tnative.library_path().name
     assert name.startswith("libvf_host_") and name.endswith(".so")
     # The name follows the flags, so a library built otherwise is never loaded.
@@ -141,8 +141,8 @@ def test_build_flags_and_library_name(monkeypatch):
 _BUILD_ONE = """
 import sys
 sys.path.insert(0, sys.argv[1])
-from vulkan_forge_torch import _native as native
-native.BUILD_DIR = native.Path(sys.argv[2])
+from vulkan_forge_torch import _build, _native as native
+_build.BUILD_DIR = native.Path(sys.argv[2])
 xy, uv, idx = native.grid_generate_native(200, 100, 0.1, 1 / 3)
 print(native.build().name, float(xy[-1, 0]), int(idx[-1]))
 """

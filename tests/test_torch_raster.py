@@ -17,6 +17,7 @@ SAME records the port rasterizes. Tolerances:
 """
 import functools
 from fractions import Fraction
+import hashlib
 import math
 import os
 import subprocess
@@ -34,9 +35,11 @@ from vulkan_forge._raster import fragment as jfrag, packed as jpacked
 from vulkan_forge._raster import pipeline as jpipe, setup as jsetup
 from vulkan_forge._raster import tiles as jtiles, transform as jtrans
 
+from vulkan_forge_torch import _build
 from vulkan_forge_torch._parity import assert_fs_policy, assert_gbuffer_close
 from vulkan_forge_torch._raster import fragment as tfrag, kernels
 from vulkan_forge_torch._raster import setup as tsetup, tiles as ttiles
+from vulkan_forge_torch.lab import _kernels as lab_kernels
 
 # The plain raster is a loop of small eager ops: one intra-op thread is the
 # fastest setting on the CPU and keeps parallel test workers from
@@ -270,13 +273,22 @@ def test_wrappers_reject_bad_inputs(packed_case):
         kernels.raster_shade_shipped(records, binning, 2, W, H, lut[:, :3], hr, ex, sun)
 
 
-def test_build_needs_nvcc(monkeypatch, tmp_path):
-    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+# Each CUDA library: its module, its name and the files its hash covers.
+CUDA_LIBRARIES = {"raster": (kernels, kernels._SOURCES + kernels._HEADERS),
+                  "lab": (lab_kernels, (lab_kernels._SOURCE,) + lab_kernels._HEADERS)}
+
+
+@pytest.mark.parametrize("name", sorted(CUDA_LIBRARIES))
+def test_build_needs_nvcc(monkeypatch, tmp_path, name):
+    module, files = CUDA_LIBRARIES[name]
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
-    assert kernels.library_path().name == f"libvf_raster_{kernels.source_hash()}.so"
+    h = hashlib.sha256(b"".join(f.read_bytes() for f in files))
+    h.update(" ".join(kernels.NVCC_FLAGS).encode())
+    assert module.library_path() == tmp_path / "build" / f"libvf_{name}_{h.hexdigest()[:16]}.so"
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        kernels.build()
+        module.build()
     assert not any((tmp_path / "build").iterdir())
 
 

@@ -9,27 +9,21 @@ no multiply-add is fused where numpy rounds twice, and without
 by memory.
 
 The library is compiled with the host's ``g++`` on first use into
-``build/vulkan_forge_torch/`` at the root of the checkout, named by a hash
-of the source and the flags, and loaded with ctypes. Several processes may
-build at once: each compiles into a directory of its own and moves the
-result into place. A missing compiler, a failed build or a failed load
-raises ``RuntimeError``; nothing falls back to numpy.
+``build/vulkan_forge_torch/libvf_host_<hash>.so``, named by a hash of the
+source and the flags, and loaded with ctypes (``_build.py``). A missing
+compiler, a failed build or a failed load raises ``RuntimeError``; nothing
+falls back to numpy.
 
 ``grid_generate_native.calls`` counts the calls that ran the core.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
 
-from ._build import BUILD_DIR
+from . import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "host.cpp"
 CXX = "g++"
@@ -37,54 +31,26 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 
 _F32P = ctypes.POINTER(ctypes.c_float)
 _U32P = ctypes.POINTER(ctypes.c_uint32)
+_SIGNATURES = {"vf_grid_generate": [ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+                                    ctypes.c_float, _F32P, _F32P, _U32P]}
 
 _lib = None
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libvf_host_{h.hexdigest()[:16]}.so"
+    return _build.library_path("host", (SOURCE,), CXX_FLAGS)
 
 
 def build() -> Path:
     """Compile ``csrc/host.cpp`` into the shared library unless it is built."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
-    try:
-        lib = os.path.join(tmp, out.name)
-        cmd = [CXX, *CXX_FLAGS, "-o", lib, str(SOURCE)]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-        except (OSError, subprocess.TimeoutExpired) as e:
-            raise RuntimeError(f"the host core is built with a C++ compiler on first "
-                               f"use, and {' '.join(cmd)} did not run: {e}") from e
-        if proc.returncode != 0:
-            raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(lib, out)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return out
+    return _build.build(library_path(), (SOURCE,), CXX_FLAGS, CXX, "the host core")
 
 
 def load():
     """Build (if needed) and load the host core; returns the CDLL."""
     global _lib
     if _lib is None:
-        path = build()
-        try:
-            lib = ctypes.CDLL(str(path))
-            fn = lib.vf_grid_generate
-        except (OSError, AttributeError) as e:
-            raise RuntimeError(f"could not load the host core {path}: {e}") from e
-        fn.restype = None
-        fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
-                       _F32P, _F32P, _U32P]
-        _lib = lib
+        _lib = _build.load(build(), _SIGNATURES, "the host core", restype=None)
     return _lib
 
 

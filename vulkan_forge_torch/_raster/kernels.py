@@ -61,9 +61,9 @@ is host and XLA work). ``pipeline.segment_frame`` calls it.
 The sources (and the header they share, ``csrc/raster_common.cuh``) are
 compiled on first use with ``nvcc``, one process per source started
 together, and linked into one shared library with a plain C interface,
-keyed by a hash of the sources and flags, under ``build/vulkan_forge_torch/``
-at the root of the checkout, and loaded with ctypes. Kernels launch on
-torch's current stream and never synchronise.
+``libvf_raster_<hash>.so``, which ``_build.py`` builds, loads and binds
+(see there). Kernels launch on torch's current stream through
+``_build.launch`` and never synchronise.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version (tiles.py,
 fragment.py, vtx.py, packed.py, segments.py) and launches the kernel for a
@@ -73,17 +73,11 @@ CUDA tensor, or raises; it counts its kernel launches in
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-from .. import _trace
-from .._build import BUILD_DIR
+from .. import _build, _trace
 from . import fragment, packed, segments, tiles, vtx
 from .setup import REC_WIDTH, TILE, Binning, tile_grid
 
@@ -140,75 +134,37 @@ _SIGNATURES = {
                              _P],
 }
 
+# Stream positions of one block of the set-up's scan: kScanBlock in
+# csrc/segments.cu.
+SEG_SCAN_BLOCK = 1024
+
+
+def _contract():
+    """What load() holds the built library to: (C getter, its source under
+    csrc/, the Python constant it must equal, that constant's value)."""
+    return (("vf_tile", "raster.cu", "setup.TILE", TILE),
+            ("vf_vtx_big_pixels", "vtx.cu", "vtx.BIG_PIXELS", vtx.BIG_PIXELS),
+            ("vf_packed_big_pixels", "packed.cu", "vtx.BIG_PIXELS", vtx.BIG_PIXELS),
+            ("vf_big_tile", "raster_common.cuh", "vtx.BIG_TILE", vtx.BIG_TILE),
+            ("vf_resolve_tile_w", "raster_common.cuh", "vtx.RESOLVE_TILE_W", vtx.RESOLVE_TILE_W),
+            ("vf_resolve_warp_w", "raster_common.cuh", "vtx.RESOLVE_WARP_W", vtx.RESOLVE_WARP_W),
+            ("vf_seg_tile_h", "segments.cu", "segments.TILE_H", segments.TILE_H),
+            ("vf_seg_tile_w", "segments.cu", "segments.TILE_W", segments.TILE_W),
+            ("vf_seg_scan_block", "segments.cu", "kernels.SEG_SCAN_BLOCK", SEG_SCAN_BLOCK),
+            ("vf_seg_rec_width", "segments.cu", "setup.REC_WIDTH", REC_WIDTH))
+
+
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on first "
-                           "use and need the CUDA toolkit")
-    return path
-
-
-def source_hash() -> str:
-    h = hashlib.sha256()
-    for src in _SOURCES + _HEADERS:
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
 def library_path() -> Path:
-    return BUILD_DIR / f"libvf_raster_{source_hash()}.so"
-
-
-def _run(procs, what: str) -> str:
-    """Wait for every process; raise with their output if one failed."""
-    logs, failed = [], []
-    for p in procs:
-        out, err = p.communicate()
-        logs.append(out + err)
-        if p.returncode != 0:
-            failed.append(f"{what} failed ({p.returncode}):\n{out}\n{err}")
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return "".join(logs)
+    return _build.library_path("raster", _SOURCES + _HEADERS, NVCC_FLAGS)
 
 
 def build() -> Path:
-    """Compile csrc/ into the shared library unless it is already built.
-
-    Each source compiles in its own ``nvcc`` process, all started
-    together; the objects are then linked. The compiler's ``-Xptxas -v``
-    report (registers, shared memory, spills) is kept beside the library as
-    ``<library>.log``.
-    """
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
-    try:
-        objs = [os.path.join(tmp, src.stem + ".o") for src in _SOURCES]
-        log = _run([subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
-                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                     text=True)
-                    for src, obj in zip(_SOURCES, objs)], "nvcc")
-        lib = os.path.join(tmp, out.name)
-        _run([subprocess.Popen([nvcc, "-shared", "-o", lib, *objs],
-                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                               text=True)], "nvcc link")
-        Path(str(out) + ".log").write_text(log)
-        os.replace(lib, out)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return out
+    """Compile csrc/ into the shared library unless it is already built;
+    the ``-Xptxas -v`` report is kept as ``<library>.log``."""
+    return _build.build(library_path(), _SOURCES, NVCC_FLAGS)
 
 
 def load():
@@ -216,38 +172,7 @@ def load():
     global _lib
     if _lib is None:
         with _trace.setup("vf.setup.load"):
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            if lib.vf_tile() != TILE:
-                raise RuntimeError(f"csrc/raster.cu rasterizes {lib.vf_tile()}-pixel "
-                                   f"tiles but setup.TILE is {TILE}")
-            for src, fn in (("vtx.cu", lib.vf_vtx_big_pixels),
-                            ("packed.cu", lib.vf_packed_big_pixels)):
-                if fn() != vtx.BIG_PIXELS:
-                    raise RuntimeError(f"csrc/{src} lists triangles above {fn()} "
-                                       f"pixels but vtx.BIG_PIXELS is {vtx.BIG_PIXELS}")
-            if lib.vf_big_tile() != vtx.BIG_TILE:
-                raise RuntimeError(f"csrc/raster_common.cuh walks {lib.vf_big_tile()}-pixel "
-                                   f"big tiles but vtx.BIG_TILE is {vtx.BIG_TILE}")
-            resolve = (lib.vf_resolve_tile_w(), lib.vf_resolve_warp_w())
-            if resolve != (vtx.RESOLVE_TILE_W, vtx.RESOLVE_WARP_W):
-                raise RuntimeError(f"csrc/raster_common.cuh resolves {resolve[0]}-pixel-wide "
-                                   f"tiles in {resolve[1]}-pixel-wide warp patches but vtx.py "
-                                   f"mirrors {vtx.RESOLVE_TILE_W} and {vtx.RESOLVE_WARP_W}")
-            if (lib.vf_seg_tile_h(), lib.vf_seg_tile_w()) != (segments.TILE_H,
-                                                              segments.TILE_W):
-                raise RuntimeError(f"csrc/segments.cu walks {lib.vf_seg_tile_h()}x"
-                                   f"{lib.vf_seg_tile_w()} tiles but segments.py bins "
-                                   f"{segments.TILE_H}x{segments.TILE_W}")
-            setup = (lib.vf_seg_scan_block(), lib.vf_seg_rec_width())
-            if setup != (SEG_SCAN_BLOCK, REC_WIDTH):
-                raise RuntimeError(f"csrc/segments.cu scans {setup[0]}-position blocks and "
-                                   f"writes {setup[1]}-column records but kernels.py sizes "
-                                   f"{SEG_SCAN_BLOCK} and {REC_WIDTH}")
-            _lib = lib
+            _lib = _build.load(build(), _SIGNATURES, "the raster kernels", _contract())
     return _lib
 
 
@@ -301,15 +226,6 @@ def _plain_work(evaluated, binning) -> None:
         evaluated.copy_(tiles.tile_work(binning).view(evaluated.shape))
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-
-
 def _gbuffer(wrapper, symbol: str, records, binning, n_frames: int, width: int,
              height: int, evaluated):
     """The g-buffer kernel ``symbol`` (or its plain version for CPU
@@ -322,14 +238,10 @@ def _gbuffer(wrapper, symbol: str, records, binning, n_frames: int, width: int,
     opts = dict(dtype=torch.float32, device=records.device)
     v0, v1, v2 = (torch.empty(shape, **opts) for _ in range(3))
     mask = torch.empty(shape, dtype=torch.bool, device=records.device)
-    lib = load()
-    with torch.cuda.device(records.device):
-        err = getattr(lib, symbol)(
-            *_launch_args(records, binning, n_frames, width, height),
-            v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
-            None if evaluated is None else evaluated.data_ptr(), _stream(records.device))
-    _raise_on(err, symbol)
-    wrapper.launches += 1
+    _build.launch(wrapper, getattr(load(), symbol), records,
+                  *_launch_args(records, binning, n_frames, width, height),
+                  v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
+                  None if evaluated is None else evaluated.data_ptr())
     return v0, v1, v2, mask
 
 
@@ -372,17 +284,13 @@ def _shade(wrapper, symbol: str, records, binning, n_frames: int, width: int,
         v0, v1, v2, mask = tiles.render_gbuffer(records, binning, n_frames, width, height)
         return fragment.terrain_fs(v0, v1, v2, mask, lut, h_range, exposure,
                                    sun_dir)
-    lut_rgb, par = _shading_params(lut, h_range, exposure, sun_dir)
+    par, lut_rgb = shading_params(h_range, exposure, sun_dir), lut[:, :3].contiguous()
     image = torch.empty((n_frames, height, width), dtype=torch.int32,
                         device=records.device)
-    lib = load()
-    with torch.cuda.device(records.device):
-        err = getattr(lib, symbol)(
-            *_launch_args(records, binning, n_frames, width, height),
-            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(),
-            None if evaluated is None else evaluated.data_ptr(), _stream(records.device))
-    _raise_on(err, symbol)
-    wrapper.launches += 1
+    _build.launch(wrapper, getattr(load(), symbol), records,
+                  *_launch_args(records, binning, n_frames, width, height),
+                  lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(),
+                  None if evaluated is None else evaluated.data_ptr())
     return image.view(torch.uint32)
 
 
@@ -474,15 +382,10 @@ def vs_fields(xyuv: torch.Tensor, heights: torch.Tensor, views: torch.Tensor,
     if xyuv.data_ptr() % 16:
         raise ValueError("xyuv must start on a 16-byte boundary")
     fields = torch.empty((B, vtx.FIELDS, N), dtype=torch.float32, device=xyuv.device)
-    lib = load()
-    with torch.cuda.device(xyuv.device):
-        err = lib.vf_vs_fields(xyuv.data_ptr(), N, heights.data_ptr(), heights.shape[0],
-                               heights.shape[1], views.data_ptr(), projs.data_ptr(), B,
-                               spacing.data_ptr(), exaggeration.data_ptr(), width, height,
-                               int(fs_mode == "shipped"), fields.data_ptr(),
-                               _stream(xyuv.device))
-    _raise_on(err, "vf_vs_fields")
-    vs_fields.launches += 1
+    _build.launch(vs_fields, load().vf_vs_fields, xyuv, xyuv.data_ptr(), N,
+                  heights.data_ptr(), heights.shape[0], heights.shape[1], views.data_ptr(),
+                  projs.data_ptr(), B, spacing.data_ptr(), exaggeration.data_ptr(), width,
+                  height, int(fs_mode == "shipped"), fields.data_ptr())
     return fields
 
 
@@ -563,13 +466,9 @@ def vtx_cover(fields: torch.Tensor, grid_n: int, width: int, height: int, surviv
     count = torch.zeros(1, dtype=torch.int32, device=fields.device)
     lib = load()
     per = _block_counts(survivors, B * lib.vf_vtx_cover_patches(grid_n), fields.device)
-    with torch.cuda.device(fields.device):
-        err = lib.vf_vtx_cover(fields.data_ptr(), B, grid_n, width, height,
-                               winner.data_ptr(), big.data_ptr(), count.data_ptr(),
-                               None if per is None else per.data_ptr(),
-                               _stream(fields.device))
-    _raise_on(err, "vf_vtx_cover")
-    vtx_cover.launches += 1
+    _build.launch(vtx_cover, lib.vf_vtx_cover, fields, fields.data_ptr(), B, grid_n, width,
+                  height, winner.data_ptr(), big.data_ptr(), count.data_ptr(),
+                  None if per is None else per.data_ptr())
     if per is not None:
         survivors.copy_(per.view(B, -1).sum(dim=1))
     return winner, big, count
@@ -612,14 +511,9 @@ def vtx_cover_big(fields: torch.Tensor, grid_n: int, winner: torch.Tensor,
             walked[:int(count[0])] = vtx.big_walk_counts(fields, grid_n, big, count,
                                                          width, height)
         return vtx.cover_big_plain(fields, grid_n, winner, big, count)
-    lib = load()
-    with torch.cuda.device(fields.device):
-        err = lib.vf_vtx_cover_big(fields.data_ptr(), grid_n, width, height,
-                                   big.data_ptr(), count.data_ptr(), winner.data_ptr(),
-                                   None if walked is None else walked.data_ptr(),
-                                   _stream(fields.device))
-    _raise_on(err, "vf_vtx_cover_big")
-    vtx_cover_big.launches += 1
+    _build.launch(vtx_cover_big, load().vf_vtx_cover_big, fields, fields.data_ptr(), grid_n,
+                  width, height, big.data_ptr(), count.data_ptr(), winner.data_ptr(),
+                  None if walked is None else walked.data_ptr())
     return winner
 
 
@@ -639,14 +533,9 @@ def vtx_resolve_gbuffer(fields: torch.Tensor, grid_n: int, winner: torch.Tensor)
     B, height, width = winner.shape
     v0, v1, v2 = (torch.empty_like(winner, dtype=torch.float32) for _ in range(3))
     mask = torch.empty_like(winner, dtype=torch.bool)
-    lib = load()
-    with torch.cuda.device(fields.device):
-        err = lib.vf_vtx_resolve_gbuffer(
-            fields.data_ptr(), B, grid_n, width, height, winner.data_ptr(),
-            v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
-            _stream(fields.device))
-    _raise_on(err, "vf_vtx_resolve_gbuffer")
-    vtx_resolve_gbuffer.launches += 1
+    _build.launch(vtx_resolve_gbuffer, load().vf_vtx_resolve_gbuffer, fields,
+                  fields.data_ptr(), B, grid_n, width, height, winner.data_ptr(),
+                  v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr())
     return v0, v1, v2, mask
 
 
@@ -662,12 +551,12 @@ def _check_shading(lut, h_range, exposure, sun_dir, device) -> None:
             raise ValueError(f"{name} is on {t.device}, the frame on {device}")
 
 
-def _shading_params(lut, h_range, exposure, sun_dir):
-    """(lut_rgb (256, 3), par [hr2, exposure, l0, l1, l2]) for the fused
-    kernels, with ``fragment.fs_scalars``'s ops."""
+def shading_params(h_range: torch.Tensor, exposure: torch.Tensor, sun_dir: torch.Tensor):
+    """par = [hr2, exposure, l0, l1, l2] (5,) float32 with
+    ``fragment.fs_scalars``'s ops, on the tensors' device: what the fused
+    shading kernels and the lab's ``fs_chain`` read."""
     hr2, expo, l = fragment.fs_scalars(h_range, exposure, sun_dir)
-    par = torch.stack([hr2, expo, l[0], l[1], l[2]]).to(torch.float32).contiguous()
-    return lut[:, :3].contiguous(), par
+    return torch.stack([hr2, expo, l[0], l[1], l[2]]).to(torch.float32).contiguous()
 
 
 def vtx_resolve_shade_shipped(fields: torch.Tensor, grid_n: int,
@@ -686,15 +575,11 @@ def vtx_resolve_shade_shipped(fields: torch.Tensor, grid_n: int,
         return vtx.resolve_shade_shipped_plain(fields, grid_n, winner, lut, h_range,
                                                exposure, sun_dir)
     B, height, width = winner.shape
-    lut_rgb, par = _shading_params(lut, h_range, exposure, sun_dir)
+    par, lut_rgb = shading_params(h_range, exposure, sun_dir), lut[:, :3].contiguous()
     image = torch.empty_like(winner)
-    lib = load()
-    with torch.cuda.device(fields.device):
-        err = lib.vf_vtx_resolve_shade_shipped(
-            fields.data_ptr(), B, grid_n, width, height, winner.data_ptr(),
-            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(), _stream(fields.device))
-    _raise_on(err, "vf_vtx_resolve_shade_shipped")
-    vtx_resolve_shade_shipped.launches += 1
+    _build.launch(vtx_resolve_shade_shipped, load().vf_vtx_resolve_shade_shipped, fields,
+                  fields.data_ptr(), B, grid_n, width, height, winner.data_ptr(),
+                  lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr())
     return image.view(torch.uint32)
 
 
@@ -746,13 +631,9 @@ def packed_cover(fields: torch.Tensor, indices: torch.Tensor, width: int, height
     count = torch.zeros(1, dtype=torch.int32, device=fields.device)
     lib = load()
     per = _block_counts(survivors, B * lib.vf_packed_cover_blocks(T), fields.device)
-    with torch.cuda.device(fields.device):
-        err = lib.vf_packed_cover(fields.data_ptr(), B, nv, indices.data_ptr(), T,
-                                  width, height, winner.data_ptr(), big.data_ptr(),
-                                  count.data_ptr(), None if per is None else per.data_ptr(),
-                                  _stream(fields.device))
-    _raise_on(err, "vf_packed_cover")
-    packed_cover.launches += 1
+    _build.launch(packed_cover, lib.vf_packed_cover, fields, fields.data_ptr(), B, nv,
+                  indices.data_ptr(), T, width, height, winner.data_ptr(), big.data_ptr(),
+                  count.data_ptr(), None if per is None else per.data_ptr())
     if per is not None:
         survivors.copy_(per.view(B, -1).sum(dim=1))
     return winner, big, count
@@ -779,15 +660,10 @@ def packed_cover_big(fields: torch.Tensor, indices: torch.Tensor, winner: torch.
             walked[:int(count[0])] = packed.big_walk_counts(fields, indices, big, count,
                                                             width, height)
         return packed.cover_big_plain(fields, indices, winner, big, count)
-    lib = load()
-    with torch.cuda.device(fields.device):
-        err = lib.vf_packed_cover_big(fields.data_ptr(), fields.shape[2], indices.data_ptr(),
-                                      indices.shape[0], width, height, big.data_ptr(),
-                                      count.data_ptr(), winner.data_ptr(),
-                                      None if walked is None else walked.data_ptr(),
-                                      _stream(fields.device))
-    _raise_on(err, "vf_packed_cover_big")
-    packed_cover_big.launches += 1
+    _build.launch(packed_cover_big, load().vf_packed_cover_big, fields, fields.data_ptr(),
+                  fields.shape[2], indices.data_ptr(), indices.shape[0], width, height,
+                  big.data_ptr(), count.data_ptr(), winner.data_ptr(),
+                  None if walked is None else walked.data_ptr())
     return winner
 
 
@@ -809,14 +685,10 @@ def packed_resolve_gbuffer(fields: torch.Tensor, indices: torch.Tensor,
     B, height, width = winner.shape
     v0, v1, v2 = (torch.empty_like(winner, dtype=torch.float32) for _ in range(3))
     mask = torch.empty_like(winner, dtype=torch.bool)
-    lib = load()
-    with torch.cuda.device(fields.device):
-        err = lib.vf_packed_resolve_gbuffer(
-            fields.data_ptr(), B, fields.shape[2], indices.data_ptr(), width, height,
-            winner.data_ptr(), v0.data_ptr(), v1.data_ptr(), v2.data_ptr(),
-            mask.data_ptr(), _stream(fields.device))
-    _raise_on(err, "vf_packed_resolve_gbuffer")
-    packed_resolve_gbuffer.launches += 1
+    _build.launch(packed_resolve_gbuffer, load().vf_packed_resolve_gbuffer, fields,
+                  fields.data_ptr(), B, fields.shape[2], indices.data_ptr(), width, height,
+                  winner.data_ptr(), v0.data_ptr(), v1.data_ptr(), v2.data_ptr(),
+                  mask.data_ptr())
     return v0, v1, v2, mask
 
 
@@ -909,14 +781,10 @@ def seg_gbuffer(records: torch.Tensor, ids: torch.Tensor, bbox: torch.Tensor, bi
     v0, v1, v2 = (torch.empty(shape, dtype=torch.float32, device=records.device)
                   for _ in range(3))
     mask = torch.empty(shape, dtype=torch.bool, device=records.device)
-    lib = load()
-    with torch.cuda.device(records.device):
-        err = lib.vf_seg_gbuffer(
-            *_seg_args(records, ids, bbox, binning, n_frames, width, height),
-            v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
-            None if evaluated is None else evaluated.data_ptr(), _stream(records.device))
-    _raise_on(err, "vf_seg_gbuffer")
-    seg_gbuffer.launches += 1
+    _build.launch(seg_gbuffer, load().vf_seg_gbuffer, records,
+                  *_seg_args(records, ids, bbox, binning, n_frames, width, height),
+                  v0.data_ptr(), v1.data_ptr(), v2.data_ptr(), mask.data_ptr(),
+                  None if evaluated is None else evaluated.data_ptr())
     return v0, v1, v2, mask
 
 
@@ -939,16 +807,12 @@ def seg_shade_shipped(records: torch.Tensor, ids: torch.Tensor, bbox: torch.Tens
         _plain_evaluated(evaluated, bbox, binning, n_frames, width, height)
         return segments.render_image_segments_plain(records, ids, binning, n_frames, width,
                                                     height, lut, h_range, exposure, sun_dir)
-    lut_rgb, par = _shading_params(lut, h_range, exposure, sun_dir)
+    par, lut_rgb = shading_params(h_range, exposure, sun_dir), lut[:, :3].contiguous()
     image = torch.empty((n_frames, height, width), dtype=torch.int32, device=records.device)
-    lib = load()
-    with torch.cuda.device(records.device):
-        err = lib.vf_seg_shade_shipped(
-            *_seg_args(records, ids, bbox, binning, n_frames, width, height),
-            lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(),
-            None if evaluated is None else evaluated.data_ptr(), _stream(records.device))
-    _raise_on(err, "vf_seg_shade_shipped")
-    seg_shade_shipped.launches += 1
+    _build.launch(seg_shade_shipped, load().vf_seg_shade_shipped, records,
+                  *_seg_args(records, ids, bbox, binning, n_frames, width, height),
+                  lut_rgb.data_ptr(), par.data_ptr(), image.data_ptr(),
+                  None if evaluated is None else evaluated.data_ptr())
     return image.view(torch.uint32)
 
 
@@ -956,11 +820,6 @@ seg_shade_shipped.launches = 0
 
 
 # ---------------- the segment walk's set-up (csrc/segments.cu) ----------------
-
-# Stream positions of one block of the set-up's scan: kScanBlock in
-# csrc/segments.cu (kernels.load() checks).
-SEG_SCAN_BLOCK = 1024
-
 
 def _check_seg_setup(fields: torch.Tensor, indices, grid_n, width: int, height: int,
                      row_size: int) -> int:
@@ -1007,65 +866,61 @@ def seg_setup(fields: torch.Tensor, indices, grid_n, width: int, height: int,
     ntx, nty = segments.seg_grid(width, height)
     i32 = dict(dtype=torch.int32, device=dev)
     lib = load()
-    stream = _stream(dev)
-
-    def launch(fn, *args):
-        _raise_on(fn(*args, stream), fn.__name__)
-        seg_setup.launches += 1
-
     walks = segments.walk_streams(n_tris, row_size)
     info = torch.zeros(4, dtype=torch.int64, device=dev)   # valid counts, estimates
-    with torch.cuda.device(dev):
-        bbox = torch.empty((n_tris, 4), **i32)
-        if n_tris:
-            launch(lib.vf_seg_setup_bbox, fields.data_ptr(), nv, idx, n, n_tris, width,
-                   height, bbox.data_ptr())
-        tables = []
-        for a, walk in enumerate(walks):
-            length, rs = walk.length, walk.row_size
-            rows = -(-length // rs)
-            # seg_lo, seg_hi, row_base, r_bounds, counts_est, seg_y, tile_order
-            t = segments.SegmentBinning(*(torch.empty(shape, **i32) for shape in (
-                (ntx, rows), (ntx, rows), rows, (2, nty), nty * ntx, (ntx, rows, 2), nty * ntx)))
-            row_ty = torch.empty((rows, 2), **i32)
-            diffs = torch.empty((2, ntx, nty + 1), **i32)
-            n_blocks = -(-length // SEG_SCAN_BLOCK)
-            offset = torch.empty(n_blocks + 1, **i32)
-            launch(lib.vf_seg_setup_init, ntx, rows, nty, t.seg_lo.data_ptr(),
-                   t.seg_hi.data_ptr(), t.seg_y.data_ptr(), row_ty.data_ptr(),
-                   t.r_bounds.data_ptr(), diffs.data_ptr())
-            if length:
-                stream_args = (length, rs, walk.cells_rows, walk.cells_cols, int(walk.columns))
-                counts = torch.empty(n_blocks, **i32)
-                launch(lib.vf_seg_setup_count, bbox.data_ptr(), *stream_args,
-                       counts.data_ptr())
-                launch(lib.vf_seg_setup_scan, counts.data_ptr(), n_blocks, offset.data_ptr(),
-                       info[a:].data_ptr())
-                launch(lib.vf_seg_setup_bin, bbox.data_ptr(), *stream_args, ntx, rows,
-                       offset.data_ptr(), t.seg_lo.data_ptr(), t.seg_hi.data_ptr(),
-                       t.seg_y.data_ptr(), row_ty.data_ptr(), t.row_base.data_ptr())
-                launch(lib.vf_seg_setup_tables, ntx, rows, nty, t.row_base.data_ptr(),
-                       row_ty.data_ptr(), t.seg_lo.data_ptr(), t.seg_hi.data_ptr(),
-                       t.seg_y.data_ptr(), diffs.data_ptr(), t.r_bounds.data_ptr())
-            # The per-tile counts that order the tiles go where tile_order
-            # will be; counts_est and the estimate beside them.
-            launch(lib.vf_seg_setup_prefix, ntx, nty, diffs.data_ptr(),
-                   t.counts_est.data_ptr(), t.tile_order.data_ptr(), info[2 + a:].data_ptr())
-            tables.append((t, offset))
-        del diffs, row_ty
-        # The one read: valid counts and estimates, both axes.
-        got = _trace.d2h(info).cpu().tolist()
-        a = segments.cheaper_walk(got[2:2 + len(walks)])
-        valid, walk = got[a], walks[a]
-        t, offset = tables[a]
-        records = torch.empty((valid, REC_WIDTH), dtype=torch.float32, device=dev)
-        ids = torch.empty(valid, **i32)
-        cbbox = torch.empty((valid, 4), **i32)
-        if valid:
-            launch(lib.vf_seg_setup_compact, fields.data_ptr(), nv, idx, n, bbox.data_ptr(),
-                   walk.length, walk.row_size, walk.cells_rows, walk.cells_cols,
-                   int(walk.columns), width, height, offset.data_ptr(), records.data_ptr(),
-                   ids.data_ptr(), cbbox.data_ptr())
+    bbox = torch.empty((n_tris, 4), **i32)
+    if n_tris:
+        _build.launch(seg_setup, lib.vf_seg_setup_bbox, fields, fields.data_ptr(), nv, idx, n,
+                      n_tris, width, height, bbox.data_ptr())
+    tables = []
+    for a, walk in enumerate(walks):
+        length, rs = walk.length, walk.row_size
+        rows = -(-length // rs)
+        # seg_lo, seg_hi, row_base, r_bounds, counts_est, seg_y, tile_order
+        t = segments.SegmentBinning(*(torch.empty(shape, **i32) for shape in (
+            (ntx, rows), (ntx, rows), rows, (2, nty), nty * ntx, (ntx, rows, 2), nty * ntx)))
+        row_ty = torch.empty((rows, 2), **i32)
+        diffs = torch.empty((2, ntx, nty + 1), **i32)
+        n_blocks = -(-length // SEG_SCAN_BLOCK)
+        offset = torch.empty(n_blocks + 1, **i32)
+        _build.launch(seg_setup, lib.vf_seg_setup_init, fields, ntx, rows, nty,
+                      t.seg_lo.data_ptr(), t.seg_hi.data_ptr(), t.seg_y.data_ptr(),
+                      row_ty.data_ptr(), t.r_bounds.data_ptr(), diffs.data_ptr())
+        if length:
+            stream_args = (length, rs, walk.cells_rows, walk.cells_cols, int(walk.columns))
+            counts = torch.empty(n_blocks, **i32)
+            _build.launch(seg_setup, lib.vf_seg_setup_count, fields, bbox.data_ptr(),
+                          *stream_args, counts.data_ptr())
+            _build.launch(seg_setup, lib.vf_seg_setup_scan, fields, counts.data_ptr(), n_blocks,
+                          offset.data_ptr(), info[a:].data_ptr())
+            _build.launch(seg_setup, lib.vf_seg_setup_bin, fields, bbox.data_ptr(), *stream_args,
+                          ntx, rows, offset.data_ptr(), t.seg_lo.data_ptr(),
+                          t.seg_hi.data_ptr(), t.seg_y.data_ptr(), row_ty.data_ptr(),
+                          t.row_base.data_ptr())
+            _build.launch(seg_setup, lib.vf_seg_setup_tables, fields, ntx, rows, nty,
+                          t.row_base.data_ptr(), row_ty.data_ptr(), t.seg_lo.data_ptr(),
+                          t.seg_hi.data_ptr(), t.seg_y.data_ptr(), diffs.data_ptr(),
+                          t.r_bounds.data_ptr())
+        # The per-tile counts that order the tiles go where tile_order
+        # will be; counts_est and the estimate beside them.
+        _build.launch(seg_setup, lib.vf_seg_setup_prefix, fields, ntx, nty, diffs.data_ptr(),
+                      t.counts_est.data_ptr(), t.tile_order.data_ptr(),
+                      info[2 + a:].data_ptr())
+        tables.append((t, offset))
+    del diffs, row_ty
+    # The one read: valid counts and estimates, both axes.
+    got = _trace.d2h(info).cpu().tolist()
+    a = segments.cheaper_walk(got[2:2 + len(walks)])
+    valid, walk = got[a], walks[a]
+    t, offset = tables[a]
+    records = torch.empty((valid, REC_WIDTH), dtype=torch.float32, device=dev)
+    ids = torch.empty(valid, **i32)
+    cbbox = torch.empty((valid, 4), **i32)
+    if valid:
+        _build.launch(seg_setup, lib.vf_seg_setup_compact, fields, fields.data_ptr(), nv, idx, n,
+                      bbox.data_ptr(), walk.length, walk.row_size, walk.cells_rows,
+                      walk.cells_cols, int(walk.columns), width, height, offset.data_ptr(),
+                      records.data_ptr(), ids.data_ptr(), cbbox.data_ptr())
     order = torch.argsort(t.tile_order, descending=True, stable=True).to(torch.int32)
     return records, ids, cbbox, t._replace(tile_order=order), walk.columns
 

@@ -21,17 +21,15 @@ that a probe in ``scripts/`` launches (see the note at the top of that file):
 The source is compiled on first use with ``nvcc`` and the raster kernels'
 flags (``kernels.NVCC_FLAGS``: ``-fmad=false``, no fast math) into a library
 of its own, ``build/vulkan_forge_torch/libvf_lab_<hash>.so``, keyed by a hash
-of ``lab.cu``, the header it includes and the flags, and loaded with ctypes;
-the raster library and its build stay as they are. A failed build raises.
+of ``lab.cu``, the header it includes and the flags; ``_build.py`` builds,
+loads and binds it. A failed build raises.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version (``*_plain``
 below) and launches the kernel for a CUDA tensor, or raises; it counts its
 kernel launches in ``<wrapper>.launches``. Every launch goes through
-``_launch``: the library's functions are bound once, at ``load()``, and a
-launch takes the tensor's device's current stream as a raw handle and
-switches the current device only when the tensor lies on another; the
-kernels that may take more than 48 KB of shared memory are opted into it
-once per device (``vf_lab_prepare``), before its first launch. So a small
+``_build.launch``, the port's one launch path; the kernels that may take
+more than 48 KB of shared memory are opted into it once per device
+(``vf_lab_prepare``, ``_prepare``), before its first launch. So a small
 kernel's call costs little more than its output's allocation and the
 launch itself. Outputs are allocated with ``torch.empty``'s variants
 that take the dtype and device from an input (``new_empty``,
@@ -40,18 +38,13 @@ that take the dtype and device from an input (``new_empty``,
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-from .._build import BUILD_DIR
+from .. import _build
 from .._formats import pack_rgba_u32, srgb_encode
-from .._raster import fragment, kernels
+from .._raster import kernels
 from . import _bodies
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -85,107 +78,48 @@ _SIGNATURES = {
     "vf_lab_prepare": [],
 }
 
+BODIES = tuple(b.name for b in _bodies.BODIES)
+
+
+def _contract():
+    """What load() holds the built library to: (C getter, its source under
+    csrc/, the Python constant it must equal, that constant's value)."""
+    return (("vf_lab_ops", "lab.cu", "len(OPS)", len(OPS)),
+            ("vf_lab_chain_rows", "lab.cu", "CHAIN_ROWS", CHAIN_ROWS),
+            ("vf_lab_bodies", "lab.cu", "len(BODIES)", len(BODIES)))
+
+
 _lib = None
-_fns = {}      # name -> the library's function, argument and result types set
 _prepared = set()   # the device indices vf_lab_prepare has run on
-# torch's C calls for the current device and a device's current stream (raw
-# handle), bound with the library: a CPU-only build of torch has neither.
-_current_device = _raw_stream = None
-
-
-def source_hash() -> str:
-    h = hashlib.sha256()
-    for src in (_SOURCE,) + _HEADERS:
-        h.update(src.read_bytes())
-    h.update(" ".join(kernels.NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
 
 
 def library_path() -> Path:
-    return BUILD_DIR / f"libvf_lab_{source_hash()}.so"
+    return _build.library_path("lab", (_SOURCE,) + _HEADERS, kernels.NVCC_FLAGS)
 
 
 def build() -> Path:
     """Compile csrc/lab.cu into its shared library unless it is already
     built; the ``-Xptxas -v`` report is kept as ``<library>.log``."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
-    try:
-        lib = os.path.join(tmp, out.name)
-        log = kernels._run([subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", lib, str(_SOURCE)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)], "nvcc")
-        Path(str(out) + ".log").write_text(log)
-        os.replace(lib, out)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return out
-
-
-def bind(lib) -> dict:
-    """{name: function} for every name of _SIGNATURES, looked up once in
-    ``lib`` with its argument types and an int result set."""
-    fns = {}
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+    return _build.build(library_path(), (_SOURCE,), kernels.NVCC_FLAGS)
 
 
 def load():
-    """Build (if needed) and load the lab library and bind its functions;
-    returns the CDLL."""
-    global _lib, _current_device, _raw_stream
+    """Build (if needed) and load the lab library; returns the CDLL."""
+    global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fns = bind(lib)
-        have = (fns["vf_lab_ops"](), fns["vf_lab_chain_rows"](), fns["vf_lab_bodies"]())
-        want = (len(OPS), CHAIN_ROWS, len(BODIES))
-        if have != want:
-            raise RuntimeError(f"csrc/lab.cu has {have} ops, chain rows and loop bodies, "
-                               f"lab/_kernels.py {want}")
-        _fns.update(fns)
-        _current_device = torch._C._cuda_getDevice
-        _raw_stream = torch._C._cuda_getCurrentRawStream
-        _lib = lib
+        _lib = _build.load(build(), _SIGNATURES, "the lab kernels", _contract())
     return _lib
 
 
-def _launch(wrapper, name: str, t: torch.Tensor, *args) -> None:
-    """Call the library's ``name`` with args and the current stream of t's
-    device, on that device (entered only if it is not the current one);
-    raise on a nonzero CUDA error, else count the launch. t is a CUDA
-    tensor, so torch's CUDA state is initialised: the current device and
-    the raw stream handle come from torch's own C calls, as its compiled
-    kernels' launchers take them."""
-    if _lib is None:
-        load()
-    index = t.get_device()
-    if _current_device() == index:
-        err = _call(name, index, args)
-    else:
-        with torch.cuda.device(index):
-            err = _call(name, index, args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    wrapper.launches += 1
-
-
-def _call(name: str, index: int, args) -> int:
-    """The library's ``name`` on the current device, ``index``, on its
-    current stream; before the device's first launch, vf_lab_prepare (the
-    shared-memory opt-ins). The first nonzero CUDA error."""
-    if index not in _prepared:
-        err = _fns["vf_lab_prepare"]()
-        if err != 0:
-            return err
+def _prepare(index: int) -> int:
+    """Before device ``index``'s first launch (the current device), the
+    kernels' shared-memory opt-ins; the CUDA error, 0 if none."""
+    if index in _prepared:
+        return 0
+    err = _lib.vf_lab_prepare()
+    if err == 0:
         _prepared.add(index)
-    return _fns[name](*args, _raw_stream(index))
+    return err
 
 
 def _check(name: str, t: torch.Tensor, dtype, dim: int, like=None) -> None:
@@ -241,8 +175,8 @@ def fs_ops(t: torch.Tensor, u: torch.Tensor, p: torch.Tensor, op: str) -> torch.
         return fs_ops_plain(t, u, p, op)
     out = torch.empty_like(t)
     if t.numel():
-        _launch(fs_ops, "vf_lab_fs_ops", t, t.data_ptr(), u.data_ptr(), p.data_ptr(),
-                t.numel(), OPS.index(op), out.data_ptr())
+        _build.launch(fs_ops, load().vf_lab_fs_ops, t, t.data_ptr(), u.data_ptr(), p.data_ptr(),
+                      t.numel(), OPS.index(op), out.data_ptr(), prepare=_prepare)
     return out
 
 
@@ -250,14 +184,6 @@ fs_ops.launches = 0
 
 
 # ---------------- fs_chain ----------------
-
-def chain_params(h_range: torch.Tensor, exposure: torch.Tensor, sun_dir: torch.Tensor):
-    """par = [hr2, exposure, l0, l1, l2] (5,) float32 with
-    ``fragment.fs_scalars``'s ops, on the tensors' device: what the shaded
-    kernels' wrappers hand their kernels."""
-    hr2, expo, l = fragment.fs_scalars(h_range, exposure, sun_dir)
-    return torch.stack([hr2, expo, l[0], l[1], l[2]]).to(torch.float32).contiguous()
-
 
 def fs_chain_plain(hh, xx, zz, channel, lut, par) -> torch.Tensor:
     """The shipped shader's chain in eager torch, in the op order and the
@@ -295,7 +221,7 @@ def fs_chain(hh: torch.Tensor, xx: torch.Tensor, zz: torch.Tensor, channel: torc
              lut: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
     """The shipped shader's intermediates at P pixels: hh, xx, zz (P,)
     float32 varyings, channel (P,) int32 in 0..2 (the LUT channel each row
-    follows), lut (256, 3) float32 linear, par (5,) from ``chain_params``.
+    follows), lut (256, 3) float32 linear, par (5,) from ``kernels.shading_params``.
     Returns (CHAIN_ROWS, P) float32: the rows of CHAIN_NAMES, then the
     pixel's packed RGBA word as its bits.
 
@@ -323,9 +249,9 @@ def fs_chain(hh: torch.Tensor, xx: torch.Tensor, zz: torch.Tensor, channel: torc
         return fs_chain_plain(hh, xx, zz, channel, lut, par)
     out = hh.new_empty((CHAIN_ROWS, hh.numel()))
     if hh.numel():
-        _launch(fs_chain, "vf_lab_fs_chain", hh, hh.data_ptr(), xx.data_ptr(),
-                zz.data_ptr(), channel.data_ptr(), hh.numel(), lut.data_ptr(), par.data_ptr(),
-                out.data_ptr())
+        _build.launch(fs_chain, load().vf_lab_fs_chain, hh, hh.data_ptr(), xx.data_ptr(),
+                      zz.data_ptr(), channel.data_ptr(), hh.numel(), lut.data_ptr(),
+                      par.data_ptr(), out.data_ptr(), prepare=_prepare)
     return out
 
 
@@ -360,8 +286,8 @@ def slab_copy(src: torch.Tensor) -> torch.Tensor:
         raise ValueError("src must start on a 16-byte boundary (cp.async copies 16 bytes)")
     out = src.new_empty((rows * cols // SLAB, SLAB))
     if out.numel():
-        _launch(slab_copy, "vf_lab_slab_copy", src, src.data_ptr(), rows, cols,
-                out.data_ptr())
+        _build.launch(slab_copy, load().vf_lab_slab_copy, src, src.data_ptr(), rows, cols,
+                      out.data_ptr(), prepare=_prepare)
     return out
 
 
@@ -412,8 +338,8 @@ def slab_transpose(src: torch.Tensor, iters: int = 0, transpose: bool = True) ->
     shape = (1, cols) if iters else (cols, rows)
     out = src.new_empty(shape)
     if src.numel():
-        _launch(slab_transpose, "vf_lab_slab_transpose", src, src.data_ptr(), rows,
-                cols, iters, 1 if transpose else 0, out.data_ptr())
+        _build.launch(slab_transpose, load().vf_lab_slab_transpose, src, src.data_ptr(), rows,
+                      cols, iters, 1 if transpose else 0, out.data_ptr(), prepare=_prepare)
     return out
 
 
@@ -421,9 +347,6 @@ slab_transpose.launches = 0
 
 
 # ---------------- step_loop ----------------
-
-BODIES = tuple(b.name for b in _bodies.BODIES)
-
 
 def _step_checks(body: str, big: torch.Tensor, nstep: int, scratch):
     if body not in _bodies.BY_NAME:
@@ -466,9 +389,9 @@ def step_loop(body: str, big: torch.Tensor, nstep: int, scratch=None):
     if not big.is_cuda:
         return _bodies.run(body, big, nstep, acc), acc
     out = big.new_empty((_bodies.TILE, _bodies.LANES))
-    _launch(step_loop, "vf_lab_step_loop", big, big.data_ptr(), acc.data_ptr(),
-            acc.shape[0], BODIES.index(body), nstep // _bodies.BY_NAME[body].unroll,
-            out.data_ptr())
+    _build.launch(step_loop, load().vf_lab_step_loop, big, big.data_ptr(), acc.data_ptr(),
+                  acc.shape[0], BODIES.index(body), nstep // _bodies.BY_NAME[body].unroll,
+                  out.data_ptr(), prepare=_prepare)
     return out, acc
 
 
@@ -537,8 +460,8 @@ def onehot_dot(a: torch.Tensor, b: torch.Tensor, mode: str = "ffma") -> torch.Te
     if not a.is_cuda:
         return onehot_dot_plain(a, b, mode)
     out = a.new_empty((m, n))
-    _launch(onehot_dot, "vf_lab_onehot_dot", a, a.data_ptr(), b.data_ptr(), m, n,
-            DOT_MODES.index(mode), out.data_ptr())
+    _build.launch(onehot_dot, load().vf_lab_onehot_dot, a, a.data_ptr(), b.data_ptr(), m, n,
+                  DOT_MODES.index(mode), out.data_ptr(), prepare=_prepare)
     return out
 
 
@@ -577,8 +500,8 @@ def lane_ops(x: torch.Tensor, op: str, shift: int = 0) -> torch.Tensor:
         return lane_ops_plain(x, op, shift)
     out = torch.empty_like(x)
     if x.numel():
-        _launch(lane_ops, "vf_lab_lane_ops", x, x.data_ptr(), rows, cols,
-                LANE_OPS.index(op), shift % cols, out.data_ptr())
+        _build.launch(lane_ops, load().vf_lab_lane_ops, x, x.data_ptr(), rows, cols,
+                      LANE_OPS.index(op), shift % cols, out.data_ptr(), prepare=_prepare)
     return out
 
 

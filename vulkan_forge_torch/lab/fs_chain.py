@@ -32,6 +32,7 @@ import collections
 import numpy as np
 import torch
 
+from .._raster import kernels
 from . import _cli, _kernels
 from ._kernels import CHAIN_NAMES
 
@@ -56,7 +57,7 @@ def script_inputs(device):
     from .. import _colormap
     lut = torch.from_numpy(np.asarray(_colormap.build_lut(COLORMAP)[0], np.float32))
     f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-    par = _kernels.chain_params(f(H_RANGE), f(EXPOSURE), f(SUN))
+    par = kernels.shading_params(f(H_RANGE), f(EXPOSURE), f(SUN))
     return lut.to(device), lut[:, :3].contiguous().to(device), par
 
 
@@ -170,7 +171,7 @@ def scene_gbuffer(obj, device):
     fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration,
                            obj.width, obj.height)
     v0, v1, v2, mask = vtx.render_gbuffer_vtx_batch(fields, obj.grid, obj.width, obj.height)
-    par = _kernels.chain_params(h_max - h_min, exposure, sun_dir)
+    par = kernels.shading_params(h_max - h_min, exposure, sun_dir)
     return (v0[0], v1[0], v2[0], mask[0]), lut[:, :3].contiguous(), par
 
 
