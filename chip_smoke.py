@@ -68,6 +68,13 @@ Phases, each printing one line, in order:
      relight frame (a Renderer's 3601^2 mesh, texture and default camera,
      800x600) and at g1024 with 4 orbit cameras: every field bit for bit,
      NaN as NaN, one launch a call.
+  2g. extended shader vs plain: vf_terrain_fs_extended (csrc/fragment.cu)
+     against fragment.terrain_fs_extended_plain on the same CUDA tensors at
+     the relight g-buffer (a Renderer's 3601^2 tile at 800x600, indexed
+     route) and the poster's (the same at 7680x4320, segment walk), the
+     normal spacing a number as render_rgba passes it: every word bit for
+     bit, one launch a call; one render_rgba of each Renderer launches the
+     port's kernels 5 and 17 times, the shader once.
   3. main path, slice 1: the public API on device="cuda"
      (make_terrain(800,600,128) render_rgba/render_png,
      Scene(160,120,32,"magma") with a height upload -- both name their grid
@@ -76,7 +83,10 @@ Phases, each printing one line, in order:
      record route, 2 cameras at g128); both record kernels' launch counters
      must advance, and vf_vs_fields' must read 3 (the vtx route's frames;
      in every main-path slice it reads one launch per frame batch on the
-     vtx, indexed and segment routes, and none on the record route); each image is held to the same call on device="cpu"
+     vtx, indexed and segment routes, and none on the record route;
+     vf_terrain_fs_extended's reads one launch per extended frame batch
+     on every route: 0 here, 1 in 3b, 3 in 3c, 1 in 3d, 2 in 3e); each
+     image is held to the same call on device="cpu"
      under the FS policy; after the counts are read, the triangle and the
      batch records again with evaluated items equal to the mirror's.
   3b. main path, slice 2: make_terrain(800,600,1024).render_rgba(), the
@@ -215,6 +225,10 @@ Phases, each printing one line, in order:
      shaders: per call over 20 back-to-back launches (CUDA events), device
      time per launch (torch.profiler), vtx.vs_fields_plain's time, and the
      bound (bytes: xyuv, the distinct texels, the fields written).
+  4h. timing of the extended shader: vf_terrain_fs_extended at 2g's
+     g-buffers, as 4f times the vertex stage; the bound: 13 bytes of
+     g-buffer and a 4-byte word a pixel, the LUT, the distinct texels the
+     covered pixels read; 126 f32 operations a covered pixel.
   5. profile, only with --profile: torch.profiler over 3 batches of each
      headline path (32 cameras g128 on the record route, 4 cameras g1024 on
      the vtx route); the device's busy share and the ops with the most
@@ -237,7 +251,8 @@ Phases, each printing one line, in order:
      exit 0, the same printed lines (but the Renderer's timing metrics),
      PNG pixels equal, and the launches each twin makes (the triangles 2 of
      vf_raster_gbuffer, terrain 1 and terrain_normals_flip 2 of each indexed
-     kernel and of vf_vs_fields, add_terrain none) in both runs.
+     kernel, of vf_vs_fields and of vf_terrain_fs_extended, add_terrain
+     none) in both runs.
 
   7. the lab kernels (csrc/lab.cu, built into a library of its own: its
      seconds and ptxas report): the four lab twins (python -m
@@ -292,7 +307,7 @@ Phases, each printing one line, in order:
 Then a line that lists any device time whose profiler sessions all missed
 (kernel_device_ms; that time is then queued_device_ms's: CUDA events around
 launches queued behind a spin kernel), one JSON line with the per-kernel
-record (all twenty-one kernels), and last the line {"ok": true, "device":
+record (an entry a kernel wrapper), and last the line {"ok": true, "device":
 {...}}. Any failure raises and exits
 nonzero. It imports nothing of JAX and nothing of the JAX package.
 """
@@ -563,7 +578,9 @@ ENTRIES = (("raster_kernelILb0ELb0", "vf_raster_gbuffer"),
            ("seg_compact_kernelILb0ELb0", "vf_seg_setup_compact, rows, indexed"),
            ("seg_compact_kernelILb0ELb1", "vf_seg_setup_compact, rows, grid"),
            ("seg_compact_kernelILb1ELb0", "vf_seg_setup_compact, columns, indexed"),
-           ("seg_compact_kernelILb1ELb1", "vf_seg_setup_compact, columns, grid"))
+           ("seg_compact_kernelILb1ELb1", "vf_seg_setup_compact, columns, grid"),
+           ("terrain_fs_extended_kernelILb0", "vf_terrain_fs_extended, by pixel"),
+           ("terrain_fs_extended_kernelILb1", "vf_terrain_fs_extended, vectors"))
 
 
 def blocks_per_sm(registers, smem_bytes, threads=256):
@@ -903,7 +920,7 @@ def phase3_main_path():
     """The public API on the card; returns the main path's launch counts."""
     os.makedirs(OUT_DIR, exist_ok=True)
     png = os.path.join(OUT_DIR, "spike_800x600_g128.png")
-    every = RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS
+    every = RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS + FS_KERNELS
     for _, fn in every:
         fn.launches = 0
 
@@ -935,6 +952,7 @@ def phase3_main_path():
     # The vtx route's frames: the spike's render_rgba and render_png and the
     # Scene's; the triangle and the batch without grid_n take the record route.
     check_vs_launches(launches, 3, "slice 1's main path")
+    check_fs_launches(launches, 0, "slice 1's main path")    # shipped frames only
     # The record frames of this phase again, with the kernels' evaluated
     # items held to the mirror's (after the launch counts were read).
     a = batch_args("cuda")
@@ -980,6 +998,9 @@ RECORD_KERNELS = (("vf_raster_gbuffer", kernels.raster_gbuffer),
 # one launch per frame batch on each; the record route keeps the torch
 # vertex shader and never launches it.
 VS_KERNELS = (("vf_vs_fields", kernels.vs_fields),)
+# The extended fragment shader: once per extended frame batch, on every
+# route (the shipped shader is fused into each route's last kernel).
+FS_KERNELS = (("vf_terrain_fs_extended", kernels.terrain_fs_extended),)
 
 
 def dem(rows, cols, seed=0):
@@ -1010,7 +1031,7 @@ def phase3b_vtx_main_path(dev):
     ext_h = dem(257, 257, seed=1)
     ext_args = dict(batch_args(dev), fs_mode="extended", grid_n=VGRID)
     ext_args.update(h_min=float(ext_h.min()), h_max=float(ext_h.max()))
-    every = VTX_KERNELS + RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS
+    every = VTX_KERNELS + RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS + FS_KERNELS
     for _, fn in every:
         fn.launches = 0
 
@@ -1028,6 +1049,7 @@ def phase3b_vtx_main_path(dev):
         if launches[name] != 0:
             raise AssertionError(f"slice 2's main path launched the record kernel {name}")
     check_vs_launches(launches, 3, "slice 2's main path")    # frame, batch, extended frame
+    check_fs_launches(launches, 1, "slice 2's main path")    # the extended frame
 
     if batch.dtype != torch.uint32 or tuple(batch.shape) != (VBATCH, H, W):
         raise AssertionError(f"bad batch {batch.dtype} {tuple(batch.shape)}")
@@ -1727,7 +1749,8 @@ def phase3c_renderer_main_path(dev):
     png = os.path.join(OUT_DIR, f"renderer_dem{DEM_MAIN}_{W}x{H}.png")
     main = make_renderer(DEM_MAIN, dev)
     srtm = make_renderer(SRTM, dev, seed=1)
-    every = PACKED_KERNELS + VTX_KERNELS + RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS
+    every = (PACKED_KERNELS + VTX_KERNELS + RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS
+             + FS_KERNELS)
     for _, fn in every:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1749,6 +1772,7 @@ def phase3c_renderer_main_path(dev):
             raise AssertionError(f"slice 3's main path launched {name}")
     # DEM-2048's render_rgba and render_png, the SRTM tile's render_rgba.
     check_vs_launches(launches, 3, "slice 3's main path")
+    check_fs_launches(launches, 3, "slice 3's main path")
 
     if set(metrics) != {"render_ms", "readback_ms", "total_ms", "bytes", "width", "height"} \
             or not metrics["render_ms"] > 0 or metrics["bytes"] != W * H * 4:
@@ -2211,7 +2235,7 @@ def phase3d_hw_main_path(dev):
     spike = vt.make_terrain(W, H, VGRID, device=dev)
     main = make_renderer(DEM_MAIN, dev)
     every = (HW_KERNELS + RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS + VS_KERNELS
-             + SEG_SETUP_KERNELS)
+             + SEG_SETUP_KERNELS + FS_KERNELS)
     previous = os.environ.get("VF_FILL_RULE")
     os.environ["VF_FILL_RULE"] = "hw"
     try:
@@ -2241,6 +2265,7 @@ def phase3d_hw_main_path(dev):
         if launches[name] != 0:
             raise AssertionError(f"slice 4's main path launched {name}")
     check_vs_launches(launches, 0, "slice 4's main path")   # hw: the record route alone
+    check_fs_launches(launches, 1, "slice 4's main path")   # the Renderer's frame
     # The three frames' hw records again, with the kernels' evaluated items
     # held to the mirror's (after the launch counts were read).
     xyuv, tris, heights, views, projs = renderer_frame(main)
@@ -2448,7 +2473,7 @@ LAB_KERNELS = (("vf_lab_fs_ops", lab_kernels.fs_ops),
                ("vf_lab_onehot_dot", lab_kernels.onehot_dot),
                ("vf_lab_lane_ops", lab_kernels.lane_ops))
 ALL_KERNELS = (VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
-               + SEG_SETUP_KERNELS + VS_KERNELS + LAB_KERNELS)
+               + SEG_SETUP_KERNELS + VS_KERNELS + FS_KERNELS + LAB_KERNELS)
 POSTER = (7680, 4320)                      # 8K UHD: a print-size poster
 MAP_TILE = (4096, 4096)                    # a 4096^2 map tile
 SEG_CHECK = (256, 4352)                    # tall, yet small enough for the plain walk
@@ -2748,7 +2773,7 @@ def phase3e_seg_main_path(dev):
     w, h = POSTER
     frames = poster_frames(dev)
     every = (SEG_KERNELS + SEG_SETUP_KERNELS + RECORD_KERNELS + HW_KERNELS + VTX_KERNELS
-             + PACKED_KERNELS + VS_KERNELS)
+             + PACKED_KERNELS + VS_KERNELS + FS_KERNELS)
     out, peak, band, setup_launches = {}, {}, {}, {}
     for _, fn in every:
         fn.launches = 0
@@ -2768,6 +2793,8 @@ def phase3e_seg_main_path(dev):
         if launches[name] != 0:
             raise AssertionError(f"slice 5's main path launched {name}")
     check_vs_launches(launches, len(frames), "slice 5's main path")
+    check_fs_launches(launches, sum(label.startswith("Renderer") for label in frames),
+                      "slice 5's main path")
 
     clear = np.array([39, 39, 48], np.uint8)    # the terrain's clear colour in sRGB u8
     checks = {}
@@ -3198,6 +3225,141 @@ def phase4f_vs_timing(smi, dev):
     return {**cases[at], "at": at, "cases": cases}
 
 
+# ---------------- the extended shader (vf_terrain_fs_extended) ----------------
+
+# f32 operations of vf_terrain_fs_extended at one covered pixel, counted
+# from csrc/fragment.cu as vfbench/roofline.py's EXTENDED_SHADE_OPS counts
+# them: height normalisation 4, bilinear LUT 21, texel indices 10,
+# neighbours 8, steps 4, two slopes 10, normal length 6, Lambert 7, ambient
+# 2, exposure and Reinhard 12, sRGB encode 24, quantisation 18.
+FS_OPS = 126
+# Port launches of one Renderer.render_rgba call on each route: the vertex
+# stage, the indexed route's three kernels or the segment route's set-up
+# chain (14 a frame) and walk, and the extended shader.
+RENDERER_CALL_LAUNCHES = {"indexed": 1 + 3 + 1, "segment": 1 + 14 + 1 + 1}
+
+
+def check_fs_launches(launches, calls, label):
+    """vf_terrain_fs_extended launched once per extended frame batch,
+    ``calls`` of them, on whatever route drew the g-buffer."""
+    if launches["vf_terrain_fs_extended"] != calls:
+        raise AssertionError(f"{label}: vf_terrain_fs_extended launched "
+                             f"{launches['vf_terrain_fs_extended']} times, expected {calls}")
+
+
+def fs_shapes(dev):
+    """The extended shader's inputs at the two cells' shapes, one at a
+    time: (label, route, renderer, g-buffer, shading arguments with the
+    normal spacing as render_rgba passes it, a number). Relight: a
+    Renderer's 3601^2 tile at 800x600 through the indexed route; the
+    poster: the same tile at 7680x4320 through the segment walk."""
+    r = make_renderer(SRTM, dev, seed=1)
+    xyuv, tris, heights, views, projs = renderer_frame(r)
+    gbuf = packed.render_gbuffer_packed_batch(frame_fields(xyuv, heights, views, projs), tris,
+                                              W, H)
+    del xyuv, tris
+    shade = renderer_shading(r)
+    yield f"relight DEM-{SRTM} {W}x{H}", "indexed", r, gbuf, (*shade[:6], DEM_SPACING[0],
+                                                                 shade[7])
+    del r, gbuf, shade
+    torch.cuda.empty_cache()
+    w, h = POSTER
+    r = make_renderer(SRTM, dev, seed=1, size=POSTER)
+    _, _, frame = tall_renderer_frame(r)
+    gbuf = kernels.seg_gbuffer(*frame, 1, w, h)
+    del frame
+    shade = renderer_shading(r)
+    yield f"poster DEM-{SRTM} {w}x{h}", "segment", r, gbuf, (*shade[:6], DEM_SPACING[0],
+                                                               shade[7])
+    del r, gbuf, shade
+    torch.cuda.empty_cache()
+
+
+def fs_plain(gbuf, shade):
+    """terrain_fs_extended_plain on the same tensors, the numeric spacing as
+    a tensor on their device."""
+    *rest, sp, ex = shade
+    return fragment.terrain_fs_extended_plain(*gbuf, *rest, tensor(sp, gbuf[0].device), ex)
+
+
+def fs_bound(gbuf, shade):
+    """bound_of vf_terrain_fs_extended on this g-buffer: 13 bytes of
+    g-buffer read and a 4-byte word written a pixel, the LUT, the distinct
+    texels the covered pixels read (4 bytes each); FS_OPS a covered pixel."""
+    _, u, v, mask = gbuf
+    heights = shade[1]
+    ht, wt = heights.shape
+    tx = torch.clamp(torch.floor(u[mask] * wt), 0, wt - 1).long()
+    ty = torch.clamp(torch.floor(v[mask] * ht), 0, ht - 1).long()
+    seen = torch.zeros(ht * wt, dtype=torch.bool, device=u.device)
+    for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+        seen[torch.clamp(ty + dy, 0, ht - 1) * wt + torch.clamp(tx + dx, 0, wt - 1)] = True
+    covered, texels = int(mask.sum()), int(seen.sum())
+    nbytes = mask.numel() * (13 + 4) + 256 * 4 * 4 + texels * 4
+    return {**bound_of(nbytes, covered * FS_OPS), "covered": covered, "texels": texels}
+
+
+def phase2g_fs_kernel(dev):
+    """vf_terrain_fs_extended against terrain_fs_extended_plain on the same
+    CUDA tensors at relight's and the poster's g-buffers: every word bit
+    for bit, one launch a call; one render_rgba of each Renderer launches
+    the port's kernels RENDERER_CALL_LAUNCHES times, the shader once.
+    Returns its max_abs_err (0.0: any difference raises)."""
+    cases = {}
+    for label, route, r, gbuf, shade in fs_shapes(dev):
+        n = kernels.terrain_fs_extended.launches
+        got = kernels.terrain_fs_extended(*gbuf, *shade)
+        sync()
+        if kernels.terrain_fs_extended.launches != n + 1:
+            raise AssertionError(f"{label}: {kernels.terrain_fs_extended.launches - n} "
+                                 "vf_terrain_fs_extended launches in one call")
+        want = fs_plain(gbuf, shade)
+        differ = got.view(torch.int32) != want.view(torch.int32)
+        count = int(differ.sum())
+        if count:
+            b, y, x = (int(i) for i in differ.nonzero()[0])
+            raise AssertionError(
+                f"{label}: vf_terrain_fs_extended differs from terrain_fs_extended_plain in "
+                f"{count} words; first frame {b}, pixel ({x}, {y}): "
+                f"{int(got.view(torch.int32)[b, y, x]):#010x} against "
+                f"{int(want.view(torch.int32)[b, y, x]):#010x}")
+        del got, want, differ
+        before = {name: fn.launches for name, fn in ALL_KERNELS}
+        r.render_rgba()
+        sync()
+        moved = {name: fn.launches - before[name] for name, fn in ALL_KERNELS
+                 if fn.launches != before[name]}
+        if sum(moved.values()) != RENDERER_CALL_LAUNCHES[route] \
+                or moved.get("vf_terrain_fs_extended") != 1:
+            raise AssertionError(f"{label}: render_rgba launched {moved}, expected "
+                                 f"{RENDERER_CALL_LAUNCHES[route]} in all, the shader once")
+        cases[label] = {"pixels": gbuf[3].numel(), "covered": int(gbuf[3].sum()),
+                        "bit_equal": True, "render_rgba_launches": moved}
+    say("fs_kernel_vs_plain", tolerance="every word bit for bit", cases=cases)
+    return 0.0
+
+
+def phase4h_fs_timing(smi, dev):
+    """vf_terrain_fs_extended at relight's and the poster's g-buffers: per
+    call over 20 back-to-back launches (CUDA events), device time per
+    launch (torch.profiler), the plain torch shader's time and the bound
+    (fs_bound). Returns the kernels line's record: the poster (the cell
+    whose frame time it moved most), both cases under ``cases``."""
+    cases = {}
+    for label, _, _, gbuf, shade in fs_shapes(dev):
+        kern = lambda: kernels.terrain_fs_extended(*gbuf, *shade)
+        rec = {"ms": cuda_ms(kern, inner=KERNEL_INNER),
+               "device_ms": kernel_device_ms(kern, key="terrain_fs_extended_kernel"),
+               "plain_ms": cuda_ms(lambda: fs_plain(gbuf, shade)), **fs_bound(gbuf, shade)}
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        cases[label] = rec
+    at = f"poster DEM-{SRTM} {POSTER[0]}x{POSTER[1]}"
+    say("fs_timing", card=smi, config=f"kernel: 20 back-to-back launches, median of {REPS}; "
+        f"device_ms: torch.profiler per launch; plain: terrain_fs_extended_plain, median of "
+        f"{REPS} calls", kernel_ms=cases)
+    return {**cases[at], "at": at, "cases": cases}
+
+
 # ---------------- slice 11: the public surface on the card ----------------
 
 # render_spike_frames takes the vtx route's shaded path (and its vertex
@@ -3535,8 +3697,9 @@ ROUTE_KERNELS = {"vtx": ("vf_vs_fields", "vf_vtx_cover", "vf_vtx_cover_big",
                  "record": ("vf_raster_shade_shipped",)}
 # The example twins and the launches each makes (none: add_terrain renders
 # nothing; the Renderer's frames take the indexed route, one launch of each
-# of its kernels, the vertex stage's included).
-INDEXED_NAMES = ("vf_vs_fields",) + tuple(name for name, _ in PACKED_KERNELS)
+# of its kernels, the vertex stage's and the extended shader's included).
+INDEXED_NAMES = (("vf_vs_fields", "vf_terrain_fs_extended")
+                 + tuple(name for name, _ in PACKED_KERNELS))
 EXAMPLES = {"triangle": {"vf_raster_gbuffer": 2},
             "two_triangles": {"vf_raster_gbuffer": 2},
             "terrain": dict.fromkeys(INDEXED_NAMES, 1),
@@ -4548,8 +4711,11 @@ def main() -> int:
     sync()
     vs_err = phase2f_vs_kernel(dev)
     sync()
+    fs_err = phase2g_fs_kernel(dev)
+    sync()
     launches = phase3_main_path()
     vs_launches = launches["vf_vs_fields"]
+    fs_launches = launches["vf_terrain_fs_extended"]
     sync()
     vtx_launches = phase3b_vtx_main_path(dev)
     launches.update({name: vtx_launches[name] for name, _ in VTX_KERNELS})
@@ -4565,6 +4731,10 @@ def main() -> int:
     # The vertex stage runs on every main path but the record route's.
     launches["vf_vs_fields"] = vs_launches + sum(
         d["vf_vs_fields"] for d in (vtx_launches, packed_launches, hw_launches, seg_launches))
+    # The extended shader runs on every route that shades a g-buffer.
+    launches["vf_terrain_fs_extended"] = fs_launches + sum(
+        d["vf_terrain_fs_extended"]
+        for d in (vtx_launches, packed_launches, hw_launches, seg_launches))
     for b in seg_band.values():
         for name, err in b["err"].items():
             seg_err[name] = max(seg_err[name], err)
@@ -4584,6 +4754,8 @@ def main() -> int:
     setup_rec = phase4g_seg_setup(smi, dev)
     sync()
     vs_rec = phase4f_vs_timing(smi, dev)
+    sync()
+    fs_rec = phase4h_fs_timing(smi, dev)
     sync()
     if opts.profile:
         phase5_profile(dev)
@@ -4666,6 +4838,15 @@ def main() -> int:
                  "replaces": "vulkan_forge/_raster/pipeline.py:467-482",
                  "launches": launches["vf_vs_fields"], "max_abs_err": vs_err,
                  **{k: vs_rec[k] for k in keys + ("device_ms", "bound_share", "at", "cases")},
+                 "library_ms": None})
+    # The extended shader: the JAX package's terrain_fs_extended, XLA code
+    # (no pallas_call); the times at the poster's g-buffer, relight's under
+    # "cases".
+    line.append({"name": "vf_terrain_fs_extended", "route": "cuda",
+                 "source": "vulkan_forge_torch/csrc/fragment.cu",
+                 "replaces": "vulkan_forge/_raster/fragment.py:151-201",
+                 "launches": launches["vf_terrain_fs_extended"], "max_abs_err": fs_err,
+                 **{k: fs_rec[k] for k in keys + ("device_ms", "bound_share", "at", "cases")},
                  "library_ms": None})
     # The lab kernels (csrc/lab.cu): each replaces the kernel a probe script
     # launches; the times are at the twins' shapes (phase 7).

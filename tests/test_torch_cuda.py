@@ -995,3 +995,222 @@ def test_render_spike_frames_on_card(cuda):
         assert_fs_policy(img, spike["cpu"].render_rgba(), str(eye))
     two = vt.render_spike_frames(160, 120, 16, eyes[:3], devices=["cuda", "cuda:0"])
     np.testing.assert_array_equal(two, imgs[:3])
+
+
+# ---------------- the extended shader (vf_terrain_fs_extended) ----------------
+
+def _fs_inputs(B, H, W, tex, seed, *, spacing=30.0, h_range=(-0.6, 0.7), cover=0.8,
+               edges=False, lut="terrain"):
+    """A seeded g-buffer (h below h_min and above h_max, u and v about
+    [0, 1]) with ``cover`` of its pixels covered, a seeded texture, sun,
+    exposure and exaggeration: numpy arrays and numbers in the argument
+    order of fragment.terrain_fs_extended. ``edges``: h at h_min, h_max and
+    about them, u and v on texel edges, at 0 and 1 and outside them."""
+    rng = np.random.default_rng(seed)
+    lo, hi = h_range
+    span = max(hi - lo, 0.5)
+    shape = (B, H, W)
+    h = rng.uniform(lo - 0.3 * span, hi + 0.3 * span, shape)
+    u, v = (rng.uniform(-0.1, 1.1, shape) for _ in range(2))
+    if edges:
+        ht, wt = tex
+        sides = [0.0, -0.0, 1.0, 1 - 2**-24, 2**-24, -0.5, 1.5, -np.inf, np.inf, 0.5]
+        u = rng.choice(np.float32(sides + [k / wt for k in range(wt + 1)]), shape)
+        v = rng.choice(np.float32(sides + [k / ht for k in range(ht + 1)]), shape)
+        h = rng.choice(np.float32([lo, hi, lo - 1.0, hi + 1.0, 0.5 * (lo + hi)]), shape)
+    heights = rng.uniform(-50.0, 50.0, tex)
+    sun = rng.normal(size=3)
+    return (h, u, v, rng.random(shape) < cover, _colormap.build_lut(lut)[0], heights,
+            lo, hi, rng.uniform(0.6, 1.6), sun, spacing, rng.uniform(0.5, 2.0))
+
+
+# name -> _fs_inputs arguments; "numeric" cases pass the spacing as a number
+FS_CASES = {
+    "b1-odd": ((1, 37, 53, (13, 17), 1), {}),       # 1,961 pixels: a ragged last group
+    "b4-wide-tex": ((4, 24, 40, (9, 31), 2), {"lut": "magma"}),
+    "tall-tex": ((1, 30, 31, (40, 7), 3), {}),
+    "uv-edges": ((2, 17, 29, (7, 13), 4), {"edges": True}),
+    "flat-range": ((1, 20, 24, (9, 11), 5), {"h_range": (0.25, 0.25)}),
+    "numeric": ((2, 33, 45, (11, 9), 6), {}),
+    "tiny-spacing": ((1, 19, 23, (5, 6), 7), {"spacing": 1e-10}),
+    "tex-1x1": ((1, 16, 16, (1, 1), 8), {}),
+    "tex-one-row": ((2, 15, 21, (1, 17), 9), {"edges": True}),
+    "uncovered": ((1, 12, 20, (9, 11), 10), {"cover": 0.0}),
+    "covered": ((3, 21, 27, (12, 10), 11), {"cover": 1.0}),
+}
+
+
+def _fs_args(case, dev):
+    """The shader's arguments of ``case`` on ``dev``: float32 tensors, the
+    mask bool, the spacing a number in the "numeric" case."""
+    pos, kw = FS_CASES[case]
+    a = _fs_inputs(*pos, **kw)
+    t = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+    return (*(t(x) for x in a[:3]), torch.as_tensor(a[3], device=dev),
+            *(t(x) for x in a[4:10]), a[10] if case == "numeric" else t(a[10]), t(a[11]))
+
+
+def _fs_plain(args):
+    """terrain_fs_extended_plain of the same arguments, a numeric spacing
+    as a tensor on their device."""
+    *rest, sp, ex = args
+    if not isinstance(sp, torch.Tensor):
+        sp = torch.tensor(sp, dtype=torch.float32, device=args[0].device)
+    return fragment.terrain_fs_extended_plain(*rest, sp, ex)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FS_CASES))
+def test_fs_extended_kernel_matches_plain(cuda, case):
+    """vf_terrain_fs_extended's words equal terrain_fs_extended_plain's on
+    the same CUDA tensors bit for bit, in one launch."""
+    args = _fs_args(case, cuda)
+    n = kernels.terrain_fs_extended.launches
+    got = fragment.terrain_fs_extended(*args)
+    torch.cuda.synchronize()
+    assert kernels.terrain_fs_extended.launches == n + 1
+    want = _fs_plain(args)
+    assert got.dtype == torch.uint32 and got.shape == args[0].shape
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_fs_extended_kernel_takes_unaligned_planes(cuda):
+    """Planes that start off a 16-byte boundary (the pixel-by-pixel path)
+    give the same words as aligned ones."""
+    args = _fs_args("b4-wide-tex", cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        return buf[1:].view(t.shape).copy_(t)
+
+    moved = (*(shifted(t) for t in args[:4]), *args[4:])
+    assert moved[0].data_ptr() % 16 and moved[3].data_ptr() % 4
+    assert _bits_equal(kernels.terrain_fs_extended(*moved), _fs_plain(args))
+
+
+@pytest.mark.gpu
+def test_fs_extended_kernel_rejects_bad_layouts(cuda):
+    args = _fs_args("b1-odd", cuda)
+    with pytest.raises(ValueError, match="h must be contiguous"):
+        kernels.terrain_fs_extended(args[0].transpose(1, 2), *(
+            a.transpose(1, 2) for a in args[1:4]), *args[4:])
+    with pytest.raises(ValueError, match="heights must be contiguous"):
+        kernels.terrain_fs_extended(*args[:5], args[5].t(), *args[6:])
+    with pytest.raises(ValueError, match="exposure is on cpu"):
+        kernels.terrain_fs_extended(*args[:8], args[8].cpu(), *args[9:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(800, 600), (7680, 4320)])
+def test_renderer_frame_equals_the_torch_shader(cuda, size, monkeypatch):
+    """A Renderer frame through the kernel (the indexed route at 800x600,
+    the segment walk at 7680x4320) has the bytes of the same frame shaded
+    by the torch shader, terrain_fs_extended_plain."""
+    W, H = size
+    r = vt.Renderer(W, H, device=cuda)
+    r.add_terrain(_dem(257, 257, 11), (30.0, 30.0), 1.5, "terrain")
+    r.upload_height_r32f()
+    r.set_sun(35.0, 120.0)
+    r.set_exposure(1.2)
+    n = kernels.terrain_fs_extended.launches
+    got = r.render_rgba()
+    assert kernels.terrain_fs_extended.launches == n + 1
+    monkeypatch.setattr(fragment, "terrain_fs_extended", lambda *a: _fs_plain(a))
+    want = r.render_rgba()
+    assert kernels.terrain_fs_extended.launches == n + 1
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(FS_CASES))
+def test_fs_extended_cpu_takes_the_plain_version(case, monkeypatch):
+    """CPU tensors go through fragment.terrain_fs_extended to
+    terrain_fs_extended_plain unchanged (a numeric spacing as a float32
+    tensor): no library is loaded and no launch is counted."""
+    monkeypatch.setattr(kernels, "load", lambda: pytest.fail("the CPU path loaded the library"))
+    args = _fs_args(case, "cpu")
+    n = kernels.terrain_fs_extended.launches
+    got = fragment.terrain_fs_extended(*args)
+    assert kernels.terrain_fs_extended.launches == n
+    assert got.dtype == torch.uint32 and got.shape == args[0].shape
+    assert _bits_equal(got, _fs_plain(args))
+
+
+# g-buffers with no pixel: empty words, nothing launched.
+FS_EMPTY = {"no-frame": lambda t: t[:0], "no-row": lambda t: t[:, :0],
+            "no-column": lambda t: t[:, :, :0]}
+
+
+def _fs_empty(case, dev, monkeypatch):
+    monkeypatch.setattr(kernels, "load", lambda: pytest.fail("an empty call loaded the library"))
+    args = _fs_args("b4-wide-tex", dev)
+    args = (*(FS_EMPTY[case](t) for t in args[:4]), *args[4:])
+    n = kernels.terrain_fs_extended.launches
+    got = kernels.terrain_fs_extended(*args)
+    assert kernels.terrain_fs_extended.launches == n
+    assert got.device == args[0].device and got.dtype == torch.uint32
+    assert got.shape == args[0].shape and got.numel() == 0
+
+
+@pytest.mark.parametrize("case", sorted(FS_EMPTY))
+def test_fs_extended_empty_counts_no_launch(case, monkeypatch):
+    _fs_empty(case, "cpu", monkeypatch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FS_EMPTY))
+def test_fs_extended_kernel_empty_counts_no_launch(cuda, case, monkeypatch):
+    _fs_empty(case, cuda, monkeypatch)
+
+
+def _fs_swap(i, f):
+    """A change of argument ``i`` of the shader's arguments by ``f``."""
+    return lambda a: (*a[:i], f(a[i]), *a[i + 1:])
+
+
+FS_REFUSALS = {
+    "h-f64": (_fs_swap(0, lambda t: t.double()), "h must be a float32"),
+    "mask-u8": (_fs_swap(3, lambda t: t.to(torch.uint8)), "mask must be a bool"),
+    "u-shape": (_fs_swap(1, lambda t: t[..., :-1]), "share one shape"),
+    "mask-shape": (_fs_swap(3, lambda t: t[:1]), "share one shape"),
+    "lut-256x3": (_fs_swap(4, lambda t: t[:, :3]), r"lut must be float32 \(256, 4\)"),
+    "lut-f64": (_fs_swap(4, lambda t: t.double()), "lut must be a float32"),
+    "heights-1d": (_fs_swap(5, lambda t: t.reshape(-1)), "heights must be a non-empty"),
+    "heights-empty": (_fs_swap(5, lambda t: t[:0]), "heights must be a non-empty"),
+    "sun-2": (_fs_swap(9, lambda t: t[:2]), "sun_dir must hold 3"),
+    "h_min-2": (_fs_swap(6, lambda t: t.repeat(2)), "one value each"),
+    "spacing-f64": (_fs_swap(10, lambda t: t.double()), "spacing must be a float32"),
+    "exaggeration-float": (_fs_swap(11, lambda t: 1.2), "exaggeration must be a float32"),
+    "lut-meta": (_fs_swap(4, lambda t: t.to("meta")), "lut is on meta"),
+    "meta": (lambda a: tuple(t.to("meta") for t in a), "unsupported device"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FS_REFUSALS))
+def test_fs_extended_rejects_bad_inputs(case):
+    change, match = FS_REFUSALS[case]
+    with pytest.raises(ValueError, match=match):
+        kernels.terrain_fs_extended(*change(_fs_args("b4-wide-tex", "cpu")))
+
+
+@pytest.mark.parametrize("case", ["b1-odd", "uv-edges", "tex-one-row", "uncovered"])
+def test_fs_bound_counts_what_the_covered_pixels_read(case):
+    """chip_smoke's bound of the shader: 17 bytes a pixel, the LUT, and the
+    distinct texels the covered pixels' central differences read (a brute
+    count here); the benchmark's operations a covered pixel."""
+    import chip_smoke
+    from vfbench import roofline
+    args = _fs_args(case, "cpu")
+    _, u, v, mask = (a.numpy() for a in args[:4])
+    ht, wt = args[5].shape
+    texels = set()
+    for uu, vv in zip(u[mask], v[mask]):
+        tx = int(np.clip(np.floor(uu * np.float32(wt)), 0, wt - 1))
+        ty = int(np.clip(np.floor(vv * np.float32(ht)), 0, ht - 1))
+        texels |= {(ty, min(tx + 1, wt - 1)), (ty, max(tx - 1, 0)),
+                   (min(ty + 1, ht - 1), tx), (max(ty - 1, 0), tx)}
+    got = chip_smoke.fs_bound(args[:4], args[4:])
+    assert chip_smoke.FS_OPS == roofline.EXTENDED_SHADE_OPS
+    assert (got["covered"], got["texels"]) == (int(mask.sum()), len(texels))
+    assert got["bytes"] == mask.size * 17 + 256 * 16 + 4 * len(texels)
+    assert got["ops"] == int(mask.sum()) * roofline.EXTENDED_SHADE_OPS

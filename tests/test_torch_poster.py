@@ -146,7 +146,7 @@ def cuda():
 # in vf.seg.bin, and the marked ones above, but for the set-up: on the
 # card its kernels (kernels.seg_setup) read the valid count and both
 # axes' estimates back in one read, where the plain version reads 13 times.
-TALL_SYNCS = {"vf.inputs": 9, "vf.seg.bin": 3, "vf.raster": 2, "vf.shade": 2,
+TALL_SYNCS = {"vf.inputs": 9, "vf.seg.bin": 3, "vf.raster": 2,
               "vf.Renderer.render_rgba": 1, "vf.readback": 1}
 
 

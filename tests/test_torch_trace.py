@@ -186,8 +186,8 @@ def cuda():
     return torch.device("cuda")
 
 
-RELIGHT_SYNCS = {"vf.inputs": 9, "vf.raster": 2, "vf.shade": 2,
-                 "vf.Renderer.render_rgba": 1, "vf.readback": 1}
+RELIGHT_SYNCS = {"vf.inputs": 9, "vf.raster": 2, "vf.Renderer.render_rgba": 1,
+                 "vf.readback": 1}
 
 
 @pytest.mark.gpu
@@ -221,8 +221,8 @@ def test_relight_call_on_the_card(cuda):
     d2h = sum(c.get("d2h_bytes", 0) for c in snap["counters"].values())
     h2d = sum(c.get("h2d_bytes", 0) for c in snap["counters"].values())
     assert d2h == w * h * 4 + 2 * 4                           # the frame, the index range
-    # views, projs; the LUT; six scalars; the sun; the clear colour
-    assert h2d == 2 * 64 + 4096 + 6 * 4 + 12 + 12
+    # views, projs; the LUT; five scalars; the sun (vf.shade uploads nothing)
+    assert h2d == 2 * 64 + 4096 + 5 * 4 + 12
     stage_ms = sum(snap["spans"][s]["stream_ms"] for s in STAGES)
     assert stage_ms <= snap["spans"]["vf.Renderer.render_rgba"]["host_s"] * 1e3
 

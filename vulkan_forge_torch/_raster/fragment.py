@@ -9,8 +9,9 @@ Port of ``vulkan_forge/_raster/fragment.py:28-70, 151-214``:
     runs the same ops in the same order per pixel.
   - ``terrain_fs_extended``: the documented extended pipeline
     (central-difference normals from the height texture, Reinhard tonemap).
-    It is XLA code in the JAX package, with no Pallas kernel, and plain
-    torch here on both devices.
+    It is XLA code in the JAX package, with no Pallas kernel; here CUDA
+    tensors take the kernel ``vf_terrain_fs_extended`` (csrc/fragment.cu)
+    and CPU tensors its plain version, ``terrain_fs_extended_plain``.
   - ``triangle_fs``: the gradient triangle's shader.
 
 ``lut`` is the pre-decoded linear (256, 4) float32 table (_colormap).
@@ -21,6 +22,7 @@ import torch
 
 from .. import _trace
 from .._formats import pack_rgba_u32, srgb_encode
+from . import kernels
 
 
 def sample_lut_bilinear(lut: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -80,12 +82,28 @@ def terrain_fs_extended(h, u, v, mask, lut, heights, h_min, h_max, exposure,
     """Extended terrain shader: finite-difference normals + Reinhard tonemap.
 
     h, u, v: (..., H, W) interpolated varyings (height, texture u, v);
-    heights: the (Ht, Wt) height texture; the scalars are 0-d f32 tensors.
+    mask: (..., H, W) coverage; heights: the (Ht, Wt) height texture; the
+    scalars are 0-d f32 tensors, and ``spacing`` may be a number. Returns
+    (..., H, W) uint32 packed RGBA.
+
+    CPU tensors: ``terrain_fs_extended_plain``. CUDA tensors:
+    ``kernels.terrain_fs_extended`` (``vf_terrain_fs_extended``), bit-equal
+    to it.
+    """
+    return kernels.terrain_fs_extended(h, u, v, mask, lut, heights, h_min, h_max, exposure,
+                                       sun_dir, spacing, exaggeration)
+
+
+def terrain_fs_extended_plain(h, u, v, mask, lut, heights, h_min, h_max, exposure,
+                              sun_dir, spacing, exaggeration):
+    """``terrain_fs_extended`` as torch ops, the specification
+    ``vf_terrain_fs_extended`` is held to; ``spacing`` a 0-d f32 tensor.
+
     Ops in the order of ``vulkan_forge/_raster/fragment.py:151-201``:
     heights normalize into [0, 1] through [h_min, h_max], normals are
     central differences of the texture at the pixel's uv (one-sided at the
     borders), scaled by spacing and exaggeration; Reinhard in linear, then
-    the target's sRGB encode. Returns (..., H, W) uint32 packed RGBA.
+    the target's sRGB encode.
     """
     ht, wt = heights.shape
     t = torch.clamp((h - h_min) / torch.clamp_min(h_max - h_min, 1e-8), 0.0, 1.0)

@@ -58,6 +58,11 @@ compaction), which replaces the route's torch set-up
 (``segments.setup_frame_plain``; no pallas_call: the JAX package's set-up
 is host and XLA work). ``pipeline.segment_frame`` calls it.
 
+``csrc/fragment.cu`` holds the extended fragment shader over a g-buffer,
+``terrain_fs_extended`` -> ``vf_terrain_fs_extended`` (no pallas_call: the
+JAX package's shader is XLA code); ``fragment.terrain_fs_extended``
+dispatches to it on every route that shades a g-buffer.
+
 The sources (and the header they share, ``csrc/raster_common.cuh``) are
 compiled on first use with ``nvcc``, one process per source started
 together, and linked into one shared library with a plain C interface,
@@ -84,13 +89,15 @@ from .setup import REC_WIDTH, TILE, Binning, tile_grid
 _PKG_DIR = Path(__file__).resolve().parents[1]
 _CSRC = _PKG_DIR / "csrc"
 _SOURCES = (_CSRC / "raster.cu", _CSRC / "vtx.cu", _CSRC / "packed.cu",
-            _CSRC / "segments.cu")
+            _CSRC / "segments.cu", _CSRC / "fragment.cu")
 _HEADERS = (_CSRC / "raster_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "vf_raster_gbuffer": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "vf_raster_gbuffer_hw": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -132,6 +139,8 @@ _SIGNATURES = {
     "vf_seg_setup_prefix": [_I, _I, _P, _P, _P, _P, _P],
     "vf_seg_setup_compact": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                              _P],
+    "vf_terrain_fs_extended": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _P, _P, _P, _P, _P, _F, _P,
+                               _I, _P, _P],
 }
 
 # Stream positions of one block of the set-up's scan: kScanBlock in
@@ -926,3 +935,78 @@ def seg_setup(fields: torch.Tensor, indices, grid_n, width: int, height: int,
 
 
 seg_setup.launches = 0
+
+
+# ---------------- the extended fragment shader (csrc/fragment.cu) ----------------
+
+def _check_fs_extended(h, u, v, mask, lut, heights, h_min, h_max, exposure, sun_dir,
+                       spacing, exaggeration) -> None:
+    scalars = (("h_min", h_min), ("h_max", h_max), ("exposure", exposure),
+               ("exaggeration", exaggeration))
+    if isinstance(spacing, torch.Tensor):
+        scalars += (("spacing", spacing),)
+    tensors = (("h", h), ("u", u), ("v", v), ("lut", lut), ("heights", heights),
+               ("sun_dir", sun_dir)) + scalars
+    for name, t in tensors:
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be a float32 tensor, got "
+                             f"{getattr(t, 'dtype', type(t).__name__)}")
+    if not isinstance(mask, torch.Tensor) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be a bool tensor, got "
+                         f"{getattr(mask, 'dtype', type(mask).__name__)}")
+    for name, t in tensors + (("mask", mask),):
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+    if not h.shape == u.shape == v.shape == mask.shape:
+        raise ValueError(f"h, u, v and mask must share one shape, got {tuple(h.shape)}, "
+                         f"{tuple(u.shape)}, {tuple(v.shape)} and {tuple(mask.shape)}")
+    if lut.shape != (256, 4):
+        raise ValueError(f"lut must be float32 (256, 4), got {tuple(lut.shape)}")
+    if heights.dim() != 2 or heights.numel() == 0:
+        raise ValueError(f"heights must be a non-empty (Ht, Wt), got {tuple(heights.shape)}")
+    if sun_dir.numel() != 3:
+        raise ValueError(f"sun_dir must hold 3 values, got {sun_dir.numel()}")
+    if any(t.numel() != 1 for _, t in scalars):
+        raise ValueError("h_min, h_max, exposure, spacing and exaggeration must hold one "
+                         "value each")
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {h.device}")
+
+
+def terrain_fs_extended(h, u, v, mask, lut, heights, h_min, h_max, exposure, sun_dir,
+                        spacing, exaggeration) -> torch.Tensor:
+    """The extended fragment shader over a g-buffer: (..., H, W) uint32
+    RGBA words (arguments as ``fragment.terrain_fs_extended``; ``spacing``
+    a float32 tensor of one value or a number).
+
+    CPU tensors: fragment.terrain_fs_extended_plain. CUDA tensors:
+    ``vf_terrain_fs_extended``, one launch, which reads the scalars on the
+    device and takes a numeric spacing by value. No pixel: the empty words,
+    on either device, with nothing launched or counted.
+    """
+    _check_fs_extended(h, u, v, mask, lut, heights, h_min, h_max, exposure, sun_dir,
+                       spacing, exaggeration)
+    numeric = not isinstance(spacing, torch.Tensor)
+    if h.device.type == "cpu":
+        sp = torch.tensor(float(spacing), dtype=torch.float32) if numeric else spacing
+        return fragment.terrain_fs_extended_plain(h, u, v, mask, lut, heights, h_min, h_max,
+                                                  exposure, sun_dir, sp, exaggeration)
+    out = torch.empty(h.shape, dtype=torch.int32, device=h.device)
+    if h.numel() == 0:
+        return out.view(torch.uint32)
+    for name, t in (("h", h), ("u", u), ("v", v), ("mask", mask), ("lut", lut),
+                    ("heights", heights), ("sun_dir", sun_dir)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    # Four pixels a thread load and store as vectors where the planes allow.
+    vec = all(t.data_ptr() % 16 == 0 for t in (h, u, v, out)) and mask.data_ptr() % 4 == 0
+    _build.launch(terrain_fs_extended, load().vf_terrain_fs_extended, h, h.data_ptr(),
+                  u.data_ptr(), v.data_ptr(), mask.data_ptr(), h.numel(), lut.data_ptr(),
+                  heights.data_ptr(), heights.shape[0], heights.shape[1], h_min.data_ptr(),
+                  h_max.data_ptr(), exposure.data_ptr(), sun_dir.data_ptr(),
+                  None if numeric else spacing.data_ptr(), float(spacing) if numeric else 0.0,
+                  exaggeration.data_ptr(), int(vec), out.data_ptr())
+    return out.view(torch.uint32)
+
+
+terrain_fs_extended.launches = 0

@@ -34,11 +34,13 @@ Four routes for terrain, picked by ``use_segment_route``,
     Passing ``grid_n=None`` takes a shipped grid mesh through it.
 
 The shipped shader runs inside the last kernel of each route; the
-extended shader (``fragment.terrain_fs_extended``) runs in torch after the
-route's g-buffer kernel. On the CPU every kernel is its plain version
-(kernels.py). The TPU routing thresholds (VMEM sizing) and experiment
-knobs of the JAX pipeline are not carried over, except the tall-frame
-condition, which the port copies so that the same frames walk segments
+extended shader (``fragment.terrain_fs_extended``, the kernel
+``vf_terrain_fs_extended`` on the card) runs after the route's g-buffer
+kernel, with a numeric ``normal_spacing`` passed by value. On the CPU
+every kernel is its plain version (kernels.py). The TPU routing
+thresholds (VMEM sizing) and experiment knobs of the JAX pipeline are
+not carried over, except the tall-frame condition, which the port
+copies so that the same frames walk segments
 (the reference's narrow-frame exception, ``_vtx_ok`` admitting W <= 128
 up to H ~ 4915, is VMEM sizing and is not copied).
 
@@ -260,7 +262,7 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
                              h_max - h_min, exposure, sun_dir)
             gbuf = _gbuffer_kernel(hw)(records, binning, n_frames, width, height)
     with _trace.span("vf.shade", dev):
-        nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
+        nsp = spacing if normal_spacing is None else normal_spacing
         return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,
                                             sun_dir, nsp, exaggeration)
 
@@ -366,7 +368,7 @@ def render_terrain_segments_u32(xyuv, indices, heights, view, proj, *, spacing,
         gbuf = segments.render_gbuffer_segments_batch(*frame, 1, width, height, evaluated)
         del frame                    # free the records before the shader allocates
     with _trace.span("vf.shade", dev):
-        nsp = spacing if normal_spacing is None else _f32(normal_spacing, dev)
+        nsp = spacing if normal_spacing is None else normal_spacing
         return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,
                                             sun_dir, nsp, exaggeration)[0]
 
