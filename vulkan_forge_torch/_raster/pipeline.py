@@ -62,7 +62,7 @@ from .. import _formats, _trace
 from .._device import resolve_device
 from . import fragment, kernels, packed, segments, transform, vtx
 from .setup import (FILL_RULES, REC_WIDTH, bin_tiles, check_fill_rule, clip_to_fb,
-                    triangle_setup)
+                    tile_grid, triangle_setup)
 
 # Fixed geometry (src/lib.rs:73-78): CCW, u16 indices [0,1,2].
 _TRI_POS = np.array([[-0.8, -0.8], [0.8, -0.8], [0.0, 0.8]], dtype=np.float32)
@@ -173,7 +173,8 @@ def _gbuffer_kernel(hw: bool):
 def terrain_records(xyuv, indices, heights, views, projs, spacing,
                     exaggeration, width: int, height: int,
                     fs_mode: str = "shipped", fill_rule: str = "inclusive"):
-    """Vertex stage + setup + binning for B cameras of one terrain.
+    """Vertex stage + setup + binning for B cameras of one terrain, the
+    setup and binning in the span ``vf.rec.setup``.
 
     All tensors on one device; views/projs (B, 4, 4). Returns
     (records (B*(T+1), REC_WIDTH), binning), the records set up under
@@ -182,9 +183,23 @@ def terrain_records(xyuv, indices, heights, views, projs, spacing,
     vs = transform.terrain_vs if fs_mode == "shipped" else transform.terrain_vs_extended
     clip, varyings = vs(xyuv, heights, views, projs, spacing, exaggeration)
     x, y, z, w = clip_to_fb(clip, width, height)
-    records, bbox = triangle_setup(x, y, z, w, varyings, indices, width, height,
-                                   fill_rule)
-    return records.reshape(-1, REC_WIDTH), bin_tiles(bbox, width, height)
+    with _trace.span("vf.rec.setup", x.device):
+        records, bbox = triangle_setup(x, y, z, w, varyings, indices, width, height,
+                                       fill_rule)
+        binning = bin_tiles(bbox, width, height)
+        if _trace.on():
+            _record_counters(bbox, binning, views.shape[0] * width * height)
+    return records.reshape(-1, REC_WIDTH), binning
+
+
+def _record_counters(bbox, binning, pixels: int) -> None:
+    """Tally a traced frame batch's record-route counters: the binned
+    records, kept on the device, and the pairs, the offsets and the
+    frames' ``pixels``, known on the host."""
+    _trace.device_sum("rec_binned", (bbox[..., 1] >= bbox[..., 0]).sum())
+    _trace.count("rec_pairs", binning.rows.numel())
+    _trace.count("rec_offsets", binning.offsets.numel())
+    _trace.count("rec_pixels", pixels)
 
 
 def _frame_inputs(fs_mode, fill_rule, device, xyuv, heights, views, projs, *scalars):
@@ -260,7 +275,11 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
                          else kernels.raster_shade_shipped)
                 return shade(records, binning, n_frames, width, height, lut,
                              h_max - h_min, exposure, sun_dir)
-            gbuf = _gbuffer_kernel(hw)(records, binning, n_frames, width, height)
+            ntx, nty = tile_grid(width, height)
+            evaluated = _trace.device_count("rec_items", (n_frames, nty * ntx), dev)
+            gbuf = _gbuffer_kernel(hw)(records, binning, n_frames, width, height, evaluated)
+            if evaluated is not None:
+                _trace.device_sum("rec_covered", gbuf[3].sum())
     with _trace.span("vf.shade", dev):
         nsp = spacing if normal_spacing is None else normal_spacing
         return fragment.terrain_fs_extended(*gbuf, lut, heights, h_min, h_max, exposure,

@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _trace
+
 REC_WIDTH = 40
 NUM_COLS = 31
 
@@ -472,7 +474,9 @@ def bin_tiles(bbox: torch.Tensor, width: int, height: int) -> Binning:
     valid triangle emits one (tile, id) pair per tile its bbox spans, in
     triangle order; a stable sort on the tile key keeps each tile's ids
     ascending, and each pair's box goes with it. Deterministic, and no
-    atomics anywhere.
+    atomics anywhere. On a card it reads the device back three times,
+    each a ``_trace`` site: the pair count, and ``bincount``'s min and max
+    of the keys.
     """
     if bbox.dim() == 2:
         bbox = bbox[None]
@@ -488,7 +492,7 @@ def bin_tiles(bbox: torch.Tensor, width: int, height: int) -> Binning:
     sy = torch.where(valid, torch.div(b[:, 3], TILE, rounding_mode="floor") - ty0 + 1, 0)
     n = sx * sy
     ends = torch.cumsum(n, 0)
-    total = int(ends[-1].item()) if n.numel() else 0
+    total = int(_trace.d2h(ends[-1]).item()) if n.numel() else 0
 
     tri = torch.repeat_interleave(torch.arange(B * T, device=dev), n,
                                   output_size=total)
@@ -508,7 +512,7 @@ def bin_tiles(bbox: torch.Tensor, width: int, height: int) -> Binning:
     key_sorted, order = torch.sort(key, stable=True)
     rows = (tri + frame)[order]          # frame*(T+1) + id
     boxes = box[order].to(torch.int32)
-    counts = torch.bincount(key_sorted, minlength=B * nt)
+    counts = torch.bincount(_trace.sync(key_sorted, 2), minlength=B * nt)  # min and max
     offsets = torch.zeros(B * nt + 1, dtype=torch.long, device=dev)
     offsets[1:] = torch.cumsum(counts, 0)
     return Binning(rows=rows.to(torch.int32), offsets=offsets.to(torch.int32), boxes=boxes)

@@ -10,7 +10,9 @@ spans, in the order it runs:
     the parameters' uploads, everything before the first vertex-stage op
     (it may open more than once in a call; the times add);
   - ``vf.vertex``: the vertex shader, ``clip_to_fb``, the fields' stacking
-    or the records' setup and binning;
+    or the records' setup and binning; on the record route it holds
+    ``vf.rec.setup``, the records' setup and binning after the vertex
+    shader;
   - ``vf.raster``: the route's kernel chain with its arguments (the
     indexed route's index check included), allocations and fills; on the
     segment-walk route it holds ``vf.seg.bin``, the walk's set-up before
@@ -32,20 +34,27 @@ at entry and at exit. Its stream ms run from when the stream reached the
 stage to when the stage's last op finished: the stage's device work plus
 the time the device waited for the host inside the stage. A call's stages
 follow one another on a stream, so they tile its timeline without
-overlap; a span nested in a stage (``vf.seg.bin``) is part of its time. Pairs whose end event has completed are resolved as later spans
-open; ``snapshot`` waits for the rest.
+overlap; a span nested in a stage (``vf.seg.bin``, ``vf.rec.setup``) is
+part of its time. Pairs whose end event has completed are resolved as
+later spans open; ``snapshot`` waits for the rest.
 
-Counters (``count``, ``h2d``, ``d2h``, ``sync``, ``device_count``) tally
-against the innermost open span while on: ``syncs``, every blocking wait
-for the device (a synchronize, a host read of a CUDA tensor, a blocking
-host-to-device copy, a torch op that reads a size back, as
-``torch.nonzero`` does), and ``h2d_bytes`` and ``d2h_bytes``, the bytes
-moved each way. The segment-walk route adds ``seg_records``,
-``seg_table_bytes`` and ``seg_pixels`` (what its kernel reads and
-writes, known on the host) and ``seg_pairs`` (the (tile, record) pairs
-its kernel evaluates, which the kernel counts on the device: the record
-keeps the kernel's output and sums it when it is snapshot, so the call
-reads nothing back for it).
+Counters (``count``, ``h2d``, ``d2h``, ``sync``, ``device_count``,
+``device_sum``) tally against the innermost open span while on:
+``syncs``, every blocking wait for the device (a synchronize, a host read
+of a CUDA tensor, a blocking host-to-device copy, a torch op that reads a
+size back, as ``torch.nonzero`` does), and ``h2d_bytes`` and
+``d2h_bytes``, the bytes moved each way. The segment-walk route adds
+``seg_records``, ``seg_table_bytes`` and ``seg_pixels`` (what its kernel
+reads and writes, known on the host) and ``seg_pairs`` (the (tile,
+record) pairs its kernel evaluates, which the kernel counts on the
+device: the record keeps the kernel's output and sums it when it is
+snapshot, so the call reads nothing back for it). The record route adds
+``rec_pairs``, ``rec_offsets`` and ``rec_pixels`` (the binned (tile,
+record) pairs, the entries of the tiles' offsets and the frames' pixels,
+known on the host) and ``rec_binned`` (the records with a pair, kept on
+the device in the same way), and on its g-buffer frames ``rec_items``
+(the (pair, pixel) items its kernel walks, the kernel's own count) and
+``rec_covered`` (the covered pixels), kept on the device too.
 
 Set-up spans (``setup``: ``vf.setup.load``, ``vf.Renderer.add_terrain``,
 ``vf.Renderer.upload_height_r32f``, ``vf.mesh``) wrap one-off work and
@@ -244,15 +253,22 @@ def sync(t: torch.Tensor, n: int = 1) -> torch.Tensor:
     return t
 
 
+def device_sum(kind: str, t: torch.Tensor) -> None:
+    """While on, keep the tensor ``t``, whose sum tallies as ``kind``
+    against the innermost open span when the record is snapshot: the call
+    reads nothing back for it."""
+    if on() and RECORD.stack:
+        RECORD.on_device.append((RECORD.stack[-1], kind, t))
+
+
 def device_count(kind: str, shape, device):
     """While on, a zeroed int32 tensor of ``shape`` on ``device`` for a
-    kernel to count into, whose sum tallies as ``kind`` against the
-    innermost open span when the record is snapshot; None while off."""
+    kernel to count into, whose sum tallies as ``kind`` (``device_sum``);
+    None while off."""
     if not on():
         return None
     t = torch.zeros(shape, dtype=torch.int32, device=device)
-    if RECORD.stack:
-        RECORD.on_device.append((RECORD.stack[-1], kind, t))
+    device_sum(kind, t)
     return t
 
 
