@@ -6,8 +6,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py [--profile]
 Phases, each printing one line, in order:
   0. card: name and power limit (nvidia-smi), torch/CUDA/nvcc versions, TF32
      flags; requires a CUDA device of compute capability 9.0.
-  1. build: compiles csrc/raster.cu, vtx.cu, packed.cu and segments.cu with
-     nvcc (one process per source, started together) and prints the seconds and, per kernel,
+  1. build: compiles csrc/raster.cu, vtx.cu, packed.cu, segments.cu,
+     fragment.cu and records.cu with nvcc (one process per source, started
+     together) and prints the seconds and, per kernel,
      the registers, shared memory, stack and spills ptxas reports and the
      blocks per SM they allow; then the host core, csrc/host.cpp, with g++
      (-ffp-contract=off), and its seconds and library path.
@@ -81,9 +82,13 @@ Phases, each printing one line, in order:
      and take the vtx route --, render_triangle_rgba(800,600),
      and the batched entry without grid_n, which takes any mesh through the
      record route, 2 cameras at g128); both record kernels' launch counters
-     must advance, and vf_vs_fields' must read 3 (the vtx route's frames;
-     in every main-path slice it reads one launch per frame batch on the
-     vtx, indexed and segment routes, and none on the record route;
+     must advance, and vf_vs_fields' must read 4 (the vtx route's frames
+     and the batch; in every main-path slice it reads one launch per frame
+     batch on every route, the triangle's but, whose three vertices the
+     record route's set-up takes as they are; the record set-up's chain,
+     vf_rec_setup, launches exactly as kernels.rec_setup_launches says for
+     each record frame batch, here the triangle and the batch, in 3d its
+     three frames, in 3b, 3c and 3e never;
      vf_terrain_fs_extended's reads one launch per extended frame batch
      on every route: 0 here, 1 in 3b, 3 in 3c, 1 in 3d, 2 in 3e); each
      image is held to the same call on device="cpu"
@@ -107,7 +112,9 @@ Phases, each printing one line, in order:
      restored after) render_triangle_rgba(800,600),
      make_terrain(800,600,1024).render_rgba() and the Renderer's DEM-2048
      render_rgba() on device="cuda"; both hw kernels' counters must advance
-     and no other kernel may launch (vf_vs_fields 0). The triangle and a Scene 160x120 g32
+     and no other kernel may launch but the record route's vertex stage and
+     set-up (vf_vs_fields 2, vf_rec_setup its chain three times). The
+     triangle and a Scene 160x120 g32
      are held to device="cpu" under the FS policy; after the counts are
      read, the three frames' hw records with evaluated items equal to the
      mirror's.
@@ -229,6 +236,16 @@ Phases, each printing one line, in order:
      g-buffers, as 4f times the vertex stage; the bound: 13 bytes of
      g-buffer and a 4-byte word a pixel, the LUT, the distinct texels the
      covered pixels read; 126 f32 operations a covered pixel.
+  4i. the record route's set-up (kernels.rec_setup, the vf_rec_* kernels
+     of csrc/records.cu) under the hw rule at the srtm1.relight_hw cell's
+     frame (a Renderer DEM-3601 at 800x600, its default camera, the int32
+     index buffer) and at make_terrain(800,600,1024)'s shipped frame (int64
+     indices): held byte for byte to setup.rec_setup_plain on the same card
+     tensors (records' bits, rows, offsets, boxes), its launches exactly as
+     kernels.rec_setup_launches says; at the cell's frame each kernel's
+     device ms (torch.profiler, per call it kept of 5) and the chain's ms
+     between CUDA events (its one host read included) against its byte
+     bound (rec_setup_bound), and the plain version's ms.
   5. profile, only with --profile: torch.profiler over 3 batches of each
      headline path (32 cameras g128 on the record route, 4 cameras g1024 on
      the vtx route); the device's busy share and the ops with the most
@@ -244,13 +261,15 @@ Phases, each printing one line, in order:
      held to one JSON line with bench.py's metric for its environment, the
      route that ran (vtx, or record), device cuda, the card's nvidia-smi
      line, 5 reps, and its launches (counted in the process: each route
-     kernel once per camera set, 6, vf_vs_fields too on the vtx route, no
-     other kernel); then the five example
+     kernel once per camera set, 6, vf_vs_fields too, and on the record
+     route the set-up's chain, kernels.rec_setup_launches a set, no other
+     kernel); then the five example
      twins (python -m vulkan_forge_torch.examples.<name> --device cuda)
      together in a temporary directory and again in-process in another:
      exit 0, the same printed lines (but the Renderer's timing metrics),
      PNG pixels equal, and the launches each twin makes (the triangles 2 of
-     vf_raster_gbuffer, terrain 1 and terrain_normals_flip 2 of each indexed
+     vf_raster_gbuffer and 2 of the set-up's chain, terrain 1 and
+     terrain_normals_flip 2 of each indexed
      kernel, of vf_vs_fields and of vf_terrain_fs_extended, add_terrain
      none) in both runs.
 
@@ -580,7 +599,20 @@ ENTRIES = (("raster_kernelILb0ELb0", "vf_raster_gbuffer"),
            ("seg_compact_kernelILb1ELb0", "vf_seg_setup_compact, columns, indexed"),
            ("seg_compact_kernelILb1ELb1", "vf_seg_setup_compact, columns, grid"),
            ("terrain_fs_extended_kernelILb0", "vf_terrain_fs_extended, by pixel"),
-           ("terrain_fs_extended_kernelILb1", "vf_terrain_fs_extended, vectors"))
+           ("terrain_fs_extended_kernelILb1", "vf_terrain_fs_extended, vectors"),
+           ("rec_count_kernelIiLb0E", "vf_rec_setup_count, int32, inclusive"),
+           ("rec_count_kernelIiLb1E", "vf_rec_setup_count, int32, hw"),
+           ("rec_count_kernelIxLb0E", "vf_rec_setup_count, int64, inclusive"),
+           ("rec_count_kernelIxLb1E", "vf_rec_setup_count, int64, hw"),
+           ("rec_totals_kernel", "vf_rec_setup_totals (1024 threads)"),
+           ("rec_emit_kernelIiLb0E", "vf_rec_setup_emit, int32, inclusive"),
+           ("rec_emit_kernelIiLb1E", "vf_rec_setup_emit, int32, hw"),
+           ("rec_emit_kernelIxLb0E", "vf_rec_setup_emit, int64, inclusive"),
+           ("rec_emit_kernelIxLb1E", "vf_rec_setup_emit, int64, hw"),
+           ("rec_sort_count_kernel", "vf_rec_sort_count"),
+           ("rec_sort_scan_kernel", "vf_rec_sort_scan (1024 threads)"),
+           ("rec_sort_scatter_kernel", "vf_rec_sort_scatter"),
+           ("rec_offsets_kernel", "vf_rec_setup_offsets"))
 
 
 def blocks_per_sm(registers, smem_bytes, threads=256):
@@ -920,7 +952,7 @@ def phase3_main_path():
     """The public API on the card; returns the main path's launch counts."""
     os.makedirs(OUT_DIR, exist_ok=True)
     png = os.path.join(OUT_DIR, "spike_800x600_g128.png")
-    every = RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS + FS_KERNELS
+    every = RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS + FS_KERNELS + REC_SETUP_KERNELS
     for _, fn in every:
         fn.launches = 0
 
@@ -950,8 +982,10 @@ def phase3_main_path():
         if launches[name] != 0:
             raise AssertionError(f"slice 1's main path launched {name}")
     # The vtx route's frames: the spike's render_rgba and render_png and the
-    # Scene's; the triangle and the batch without grid_n take the record route.
-    check_vs_launches(launches, 3, "slice 1's main path")
+    # Scene's; the batch without grid_n takes the record route after the
+    # same vertex stage, the triangle that route without it.
+    check_vs_launches(launches, 4, "slice 1's main path")
+    check_rec_setup_launches(launches, [1, 2], "slice 1's main path")
     check_fs_launches(launches, 0, "slice 1's main path")    # shipped frames only
     # The record frames of this phase again, with the kernels' evaluated
     # items held to the mirror's (after the launch counts were read).
@@ -994,10 +1028,12 @@ VTX_KERNELS = (("vf_vtx_cover", kernels.vtx_cover),
                ("vf_vtx_resolve_shade_shipped", kernels.vtx_resolve_shade_shipped))
 RECORD_KERNELS = (("vf_raster_gbuffer", kernels.raster_gbuffer),
                   ("vf_raster_shade_shipped", kernels.raster_shade_shipped))
-# The vertex stage of the vtx, indexed and segment routes (csrc/vtx.cu):
-# one launch per frame batch on each; the record route keeps the torch
-# vertex shader and never launches it.
+# The vertex stage of every terrain route (csrc/vtx.cu): one launch per
+# frame batch on each; the triangle's three vertices skip it.
 VS_KERNELS = (("vf_vs_fields", kernels.vs_fields),)
+# The record route's set-up (csrc/records.cu): kernels.rec_setup_launches
+# per record frame batch.
+REC_SETUP_KERNELS = (("vf_rec_setup", kernels.rec_setup),)
 # The extended fragment shader: once per extended frame batch, on every
 # route (the shipped shader is fused into each route's last kernel).
 FS_KERNELS = (("vf_terrain_fs_extended", kernels.terrain_fs_extended),)
@@ -1031,7 +1067,8 @@ def phase3b_vtx_main_path(dev):
     ext_h = dem(257, 257, seed=1)
     ext_args = dict(batch_args(dev), fs_mode="extended", grid_n=VGRID)
     ext_args.update(h_min=float(ext_h.min()), h_max=float(ext_h.max()))
-    every = VTX_KERNELS + RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS + FS_KERNELS
+    every = (VTX_KERNELS + RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS + FS_KERNELS
+             + REC_SETUP_KERNELS)
     for _, fn in every:
         fn.launches = 0
 
@@ -1045,7 +1082,7 @@ def phase3b_vtx_main_path(dev):
     for name, _ in VTX_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"slice 2's main path never launched {name}")
-    for name, _ in RECORD_KERNELS + SEG_SETUP_KERNELS:
+    for name, _ in RECORD_KERNELS + SEG_SETUP_KERNELS + REC_SETUP_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 2's main path launched the record kernel {name}")
     check_vs_launches(launches, 3, "slice 2's main path")    # frame, batch, extended frame
@@ -1750,7 +1787,7 @@ def phase3c_renderer_main_path(dev):
     main = make_renderer(DEM_MAIN, dev)
     srtm = make_renderer(SRTM, dev, seed=1)
     every = (PACKED_KERNELS + VTX_KERNELS + RECORD_KERNELS + VS_KERNELS + SEG_SETUP_KERNELS
-             + FS_KERNELS)
+             + FS_KERNELS + REC_SETUP_KERNELS)
     for _, fn in every:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1767,7 +1804,7 @@ def phase3c_renderer_main_path(dev):
     for name, _ in PACKED_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"slice 3's main path never launched {name}")
-    for name, _ in VTX_KERNELS + RECORD_KERNELS + SEG_SETUP_KERNELS:
+    for name, _ in VTX_KERNELS + RECORD_KERNELS + SEG_SETUP_KERNELS + REC_SETUP_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 3's main path launched {name}")
     # DEM-2048's render_rgba and render_png, the SRTM tile's render_rgba.
@@ -2235,7 +2272,7 @@ def phase3d_hw_main_path(dev):
     spike = vt.make_terrain(W, H, VGRID, device=dev)
     main = make_renderer(DEM_MAIN, dev)
     every = (HW_KERNELS + RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS + VS_KERNELS
-             + SEG_SETUP_KERNELS + FS_KERNELS)
+             + SEG_SETUP_KERNELS + FS_KERNELS + REC_SETUP_KERNELS)
     previous = os.environ.get("VF_FILL_RULE")
     os.environ["VF_FILL_RULE"] = "hw"
     try:
@@ -2264,7 +2301,9 @@ def phase3d_hw_main_path(dev):
     for name, _ in RECORD_KERNELS + VTX_KERNELS + PACKED_KERNELS + SEG_SETUP_KERNELS:
         if launches[name] != 0:
             raise AssertionError(f"slice 4's main path launched {name}")
-    check_vs_launches(launches, 0, "slice 4's main path")   # hw: the record route alone
+    # hw: the record route alone, the vertex stage but for the triangle.
+    check_vs_launches(launches, 2, "slice 4's main path")
+    check_rec_setup_launches(launches, [1, 1, 1], "slice 4's main path")
     check_fs_launches(launches, 1, "slice 4's main path")   # the Renderer's frame
     # The three frames' hw records again, with the kernels' evaluated items
     # held to the mirror's (after the launch counts were read).
@@ -2365,7 +2404,7 @@ def phase4d_hw_timing(smi, dev):
     # makes every frame, setup and binning, the kernel, the readback.
     g = spike._globals
     t = lambda a: tensor(a, dev)
-    mesh = lambda: (pipeline._f32(spike._xyuv, dev), pipeline._tri_indices(spike._indices, dev))
+    mesh = lambda: (pipeline._f32(spike._xyuv, dev), pipeline._rec_indices(spike._indices, dev))
     xyuv, tris = mesh()
     records = lambda: pipeline.terrain_records(
         xyuv, tris, t(spike._heights), t(spike._view)[None], t(spike._proj)[None],
@@ -2473,7 +2512,7 @@ LAB_KERNELS = (("vf_lab_fs_ops", lab_kernels.fs_ops),
                ("vf_lab_onehot_dot", lab_kernels.onehot_dot),
                ("vf_lab_lane_ops", lab_kernels.lane_ops))
 ALL_KERNELS = (VTX_KERNELS + RECORD_KERNELS + PACKED_KERNELS + HW_KERNELS + SEG_KERNELS
-               + SEG_SETUP_KERNELS + VS_KERNELS + FS_KERNELS + LAB_KERNELS)
+               + SEG_SETUP_KERNELS + VS_KERNELS + FS_KERNELS + REC_SETUP_KERNELS + LAB_KERNELS)
 POSTER = (7680, 4320)                      # 8K UHD: a print-size poster
 MAP_TILE = (4096, 4096)                    # a 4096^2 map tile
 SEG_CHECK = (256, 4352)                    # tall, yet small enough for the plain walk
@@ -2773,7 +2812,7 @@ def phase3e_seg_main_path(dev):
     w, h = POSTER
     frames = poster_frames(dev)
     every = (SEG_KERNELS + SEG_SETUP_KERNELS + RECORD_KERNELS + HW_KERNELS + VTX_KERNELS
-             + PACKED_KERNELS + VS_KERNELS + FS_KERNELS)
+             + PACKED_KERNELS + VS_KERNELS + FS_KERNELS + REC_SETUP_KERNELS)
     out, peak, band, setup_launches = {}, {}, {}, {}
     for _, fn in every:
         fn.launches = 0
@@ -2789,7 +2828,8 @@ def phase3e_seg_main_path(dev):
     for name, _ in SEG_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"slice 5's main path never launched {name}")
-    for name, _ in RECORD_KERNELS + HW_KERNELS + VTX_KERNELS + PACKED_KERNELS:
+    for name, _ in (RECORD_KERNELS + HW_KERNELS + VTX_KERNELS + PACKED_KERNELS
+                    + REC_SETUP_KERNELS):
         if launches[name] != 0:
             raise AssertionError(f"slice 5's main path launched {name}")
     check_vs_launches(launches, len(frames), "slice 5's main path")
@@ -3132,11 +3172,21 @@ VS_OPS_VERTEX, VS_OPS_RELIEF, VS_OPS_FRAME = 15, 8, 67
 
 
 def check_vs_launches(launches, calls, label):
-    """vf_vs_fields launched once per frame batch on the vtx, indexed and
-    segment routes, ``calls`` of them, and never on the record route."""
+    """vf_vs_fields launched once per terrain frame batch, ``calls`` of them
+    (the triangle's vertices skip it)."""
     if launches["vf_vs_fields"] != calls:
         raise AssertionError(f"{label}: vf_vs_fields launched {launches['vf_vs_fields']} "
                              f"times, expected {calls}")
+
+
+def check_rec_setup_launches(launches, batches, label):
+    """The record set-up's chain launched as kernels.rec_setup_launches says
+    for record frame batches of ``batches`` frames at W x H, each with a
+    binned triangle."""
+    want = sum(kernels.rec_setup_launches(b, W, H, True) for b in batches)
+    if launches["vf_rec_setup"] != want:
+        raise AssertionError(f"{label}: vf_rec_setup launched {launches['vf_rec_setup']} "
+                             f"times, expected {want}")
 
 
 def vs_shapes(dev):
@@ -3358,6 +3408,116 @@ def phase4h_fs_timing(smi, dev):
         f"device_ms: torch.profiler per launch; plain: terrain_fs_extended_plain, median of "
         f"{REPS} calls", kernel_ms=cases)
     return {**cases[at], "at": at, "cases": cases}
+
+
+# ---------------- the record route's set-up (vf_rec_*) ----------------
+
+REC_SETUP_NAMES = ("rec_count_kernel", "rec_totals_kernel", "rec_emit_kernel",
+                   "rec_sort_count_kernel", "rec_sort_scan_kernel", "rec_sort_scatter_kernel",
+                   "rec_offsets_kernel")
+
+
+def rec_setup_bound(fields, indices, records, binning, passes):
+    """The record set-up's least time: its inputs read once (the index
+    buffer, the four position planes, the binned triangles' varyings) and
+    its outputs written once (the records, each pair's row and box, the
+    offsets), at HBM's rate; and the bytes its chain moves
+    (``design_bytes``): besides, the binned triangles' corners and indices
+    read again, the binned bits written and read, and the pairs' keys, rows
+    and boxes read and written once a sort pass."""
+    n_tris, nv = indices.shape[0], fields.shape[2]
+    frames, binned, pairs = fields.shape[0], records.shape[0], binning.rows.numel()
+    idx_row = 3 * indices.element_size()
+    inputs = frames * (4 * 4 * nv + idx_row * n_tris) + binned * 3 * 3 * 4
+    outputs = binned * setup.REC_WIDTH * 4 + pairs * 8 + binning.offsets.numel() * 4
+    chain = (inputs + binned * (idx_row + 3 * vtx.FIELDS * 4) + 2 * frames * n_tris // 8
+             + pairs * 4 + passes * pairs * (4 + 2 * 12) + outputs)
+    return {**bound_of(inputs + outputs, 0), "design_bytes": chain}
+
+
+def rec_setup_against_plain(args, label):
+    """kernels.rec_setup(*args) held byte for byte to setup.rec_setup_plain(
+    *args) on the same card tensors (records' bits, rows, offsets, boxes)
+    and its launches to kernels.rec_setup_launches. Returns (binned
+    records, pairs, launches)."""
+    fields, indices, w, h, rule = args
+    n = kernels.rec_setup.launches
+    got = kernels.rec_setup(*args)
+    sync()
+    launches = kernels.rec_setup.launches - n
+    want = setup.rec_setup_plain(*args)
+    sync()
+    pairs = [("records", got[0], want[0])] + [
+        (name, getattr(got[1], name), getattr(want[1], name)) for name in setup.Binning._fields]
+    equal = {name: a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        *(x.view(torch.int32) if x.dtype == torch.float32 else x for x in (a, b)))
+        for name, a, b in pairs}
+    if not all(equal.values()):
+        raise AssertionError(f"{label}: the record set-up differs from the plain version: "
+                             f"{equal}")
+    binned = got[0].shape[0]
+    expected = kernels.rec_setup_launches(fields.shape[0], w, h, binned > 0)
+    if launches != expected:
+        raise AssertionError(f"{label}: vf_rec_setup launched {launches} times, "
+                             f"expected {expected}")
+    out = binned, got[1].rows.numel(), launches
+    del got, want, pairs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase4i_rec_setup(smi, dev):
+    """The record route's set-up under the hw rule at the srtm1.relight_hw
+    cell's frame (a Renderer DEM-3601 at 800x600, its int32 index buffer)
+    and at make_terrain(800,600,1024)'s shipped frame (int64 indices): held
+    to its plain version; its kernels' and its chain's time at the cell's
+    frame against its bound and the plain version's. Returns the kernels
+    line's record."""
+    spike = vt.make_terrain(W, H, VGRID, device=dev)
+    idx = torch.as_tensor(spike._indices.astype(np.int64).reshape(-1, 3), device=dev)
+    cases = {f"spike g{VGRID} shipped": rec_setup_against_plain(
+        (spike_fields(spike, dev), idx, W, H, "hw"), f"spike g{VGRID} shipped")}
+    del spike, idx
+    xyuv, tris, heights, views, projs = renderer_frame(make_renderer(SRTM, dev, seed=1))
+    fields = frame_fields(xyuv, heights, views, projs)
+    del xyuv, heights
+    args = (fields, tris, W, H, "hw")
+    label = f"Renderer DEM-{SRTM}"
+    cases[label] = rec_setup_against_plain(args, label)
+
+    from torch.profiler import ProfilerActivity, profile
+    calls = 5
+    records, binning = kernels.rec_setup(*args)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernels.rec_setup(*args)
+        sync()
+    total = {k: 0.0 for k in REC_SETUP_NAMES}
+    seen = {k: 0 for k in REC_SETUP_NAMES}
+    for a in prof.key_averages():
+        for k in REC_SETUP_NAMES:
+            if k in a.key:
+                total[k] += a.self_device_time_total / 1e3
+                seen[k] += a.count
+    # Per call over the calls the trace kept (one count pass a call).
+    kept = seen["rec_count_kernel"]
+    per = {k: t / kept for k, t in total.items()} if kept else {}
+    chain_ms = cuda_ms(lambda: kernels.rec_setup(*args), reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: setup.rec_setup_plain(*args), reps=3, warmup=1)
+    ntx, nty = setup.tile_grid(W, H)
+    bound = rec_setup_bound(fields, tris, records, binning, kernels.rec_sort_passes(ntx * nty))
+    del fields, tris, args, records, binning
+    torch.cuda.empty_cache()
+    device_ms = sum(per.values())
+    rec = {"ms": chain_ms, "device_ms": device_ms, "plain_ms": plain_ms, **bound,
+           "bound_share": bound["bound_ms"] / device_ms if device_ms else None,
+           "at": f"Renderer({W},{H}) DEM-{SRTM} under hw, default camera, int32 indices"}
+    say("rec_setup", card=smi, config=rec["at"], cases={
+        k: {"equal": True, "binned": b, "pairs": p, "launches": n}
+        for k, (b, p, n) in cases.items()},
+        kernel_device_ms=per, kernel_launches_seen=seen, calls=calls, calls_kept=kept, **rec)
+    return rec
 
 
 # ---------------- slice 11: the public surface on the card ----------------
@@ -3691,17 +3851,21 @@ BENCH_RUNS = (("headline", {}, "vtx"),
               ("g128", {"VF_BENCH_GRID": "128"}, "vtx"),
               ("dem2048", {"VF_BENCH_DEM": "2048"}, "vtx"),
               ("record_g128", {"VF_BENCH_GRID": "128", "VF_DENSE": "record"}, "record"))
-# The kernels of each route's shaded batch, one launch per camera set.
-ROUTE_KERNELS = {"vtx": ("vf_vs_fields", "vf_vtx_cover", "vf_vtx_cover_big",
-                         "vf_vtx_resolve_shade_shipped"),
-                 "record": ("vf_raster_shade_shipped",)}
+# The launches of each route's shaded batch per camera set: one of each
+# kernel, and the record set-up's chain over the g128 batch of BATCH frames.
+ROUTE_KERNELS = {"vtx": dict.fromkeys(("vf_vs_fields", "vf_vtx_cover", "vf_vtx_cover_big",
+                                       "vf_vtx_resolve_shade_shipped"), 1),
+                 "record": {"vf_vs_fields": 1, "vf_raster_shade_shipped": 1,
+                            "vf_rec_setup": kernels.rec_setup_launches(BATCH, W, H, True)}}
 # The example twins and the launches each makes (none: add_terrain renders
 # nothing; the Renderer's frames take the indexed route, one launch of each
 # of its kernels, the vertex stage's and the extended shader's included).
 INDEXED_NAMES = (("vf_vs_fields", "vf_terrain_fs_extended")
                  + tuple(name for name, _ in PACKED_KERNELS))
-EXAMPLES = {"triangle": {"vf_raster_gbuffer": 2},
-            "two_triangles": {"vf_raster_gbuffer": 2},
+EXAMPLES = {"triangle": {"vf_raster_gbuffer": 2,
+                         "vf_rec_setup": 2 * kernels.rec_setup_launches(1, 512, 512, True)},
+            "two_triangles": {"vf_raster_gbuffer": 2,
+                              "vf_rec_setup": 2 * kernels.rec_setup_launches(1, 256, 256, True)},
             "terrain": dict.fromkeys(INDEXED_NAMES, 1),
             "add_terrain": {},
             "terrain_normals_flip": dict.fromkeys(INDEXED_NAMES, 2)}
@@ -3801,7 +3965,7 @@ def bench_run(label, extra, route, smi):
         raise AssertionError(f"bench {label}: line {line} breaks the contract "
                              f"(metric {metric}, path {route}, card {smi!r})")
     diag = json.loads([e for e in err.splitlines() if e.startswith('{"bench"')][-1])
-    used = check_launches(launches, dict.fromkeys(ROUTE_KERNELS[route], REPS + 1),
+    used = check_launches(launches, {k: n * (REPS + 1) for k, n in ROUTE_KERNELS[route].items()},
                           f"bench {label}")
     return line, diag["times_ms"], used
 
@@ -4725,10 +4889,11 @@ def main() -> int:
     sync()
     hw_launches = phase3d_hw_main_path(dev)
     launches.update({name: hw_launches[name] for name, _ in HW_KERNELS})
+    launches["vf_rec_setup"] += hw_launches["vf_rec_setup"]
     sync()
     seg_launches, seg_band = phase3e_seg_main_path(dev)
     launches.update({name: seg_launches[name] for name, _ in SEG_KERNELS + SEG_SETUP_KERNELS})
-    # The vertex stage runs on every main path but the record route's.
+    # The vertex stage runs on every main path (not for the triangle).
     launches["vf_vs_fields"] = vs_launches + sum(
         d["vf_vs_fields"] for d in (vtx_launches, packed_launches, hw_launches, seg_launches))
     # The extended shader runs on every route that shades a g-buffer.
@@ -4756,6 +4921,8 @@ def main() -> int:
     vs_rec = phase4f_vs_timing(smi, dev)
     sync()
     fs_rec = phase4h_fs_timing(smi, dev)
+    sync()
+    rec_setup_rec = phase4i_rec_setup(smi, dev)
     sync()
     if opts.profile:
         phase5_profile(dev)
@@ -4847,6 +5014,16 @@ def main() -> int:
                  "replaces": "vulkan_forge/_raster/fragment.py:151-201",
                  "launches": launches["vf_terrain_fs_extended"], "max_abs_err": fs_err,
                  **{k: fs_rec[k] for k in keys + ("device_ms", "bound_share", "at", "cases")},
+                 "library_ms": None})
+    # The record route's set-up and binning: the JAX package's
+    # triangle_setup and bin_triangles (XLA work, no pallas_call);
+    # byte-equal to the plain version (4i); the launches are 3's and 3d's,
+    # the times at the srtm1.relight_hw cell's frame (4i).
+    line.append({"name": "vf_rec_setup", "route": "cuda",
+                 "source": "vulkan_forge_torch/csrc/records.cu",
+                 "replaces": "vulkan_forge/_raster/setup.py:450-584",
+                 "launches": launches["vf_rec_setup"], "max_abs_err": 0,
+                 **{k: rec_setup_rec[k] for k in keys + ("device_ms", "bound_share", "at")},
                  "library_ms": None})
     # The lab kernels (csrc/lab.cu): each replaces the kernel a probe script
     # launches; the times are at the twins' shapes (phase 7).

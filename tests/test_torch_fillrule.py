@@ -254,12 +254,14 @@ def _record(monkeypatch, name, calls):
 def test_hw_routes_every_frame_to_records(monkeypatch):
     """Under hw a grid mesh (with grid_n), the extended shader on a grid
     and a Renderer frame never reach the vtx or indexed routes, whose
-    in-register setup has no thresholds (cf. tests/test_fillrule.py:153-213)."""
+    in-register setup has no thresholds (cf. tests/test_fillrule.py:153-213):
+    each is set up by the record route's ``rec_setup`` (after the vertex
+    stage every route shares) and drawn by its hw kernels."""
     hits, calls = [], []
-    for name in ("vs_fields", "render_image_vtx_batch", "render_gbuffer_vtx_batch"):
+    for name in ("render_image_vtx_batch", "render_gbuffer_vtx_batch"):
         _forbid(monkeypatch, vtx, name, hits)
     _forbid(monkeypatch, packed, "render_gbuffer_packed_batch", hits)
-    for name in ("raster_gbuffer_hw", "raster_shade_shipped_hw"):
+    for name in ("rec_setup", "raster_gbuffer_hw", "raster_shade_shipped_hw"):
         _record(monkeypatch, name, calls)
     monkeypatch.setenv("VF_FILL_RULE", "hw")
 
@@ -276,7 +278,8 @@ def test_hw_routes_every_frame_to_records(monkeypatch):
     r.upload_height_r32f()
     frame = r.render_rgba()
     assert hits == [] and img.shape == frame.shape == (32, 48, 4)
-    assert calls == ["raster_shade_shipped_hw", "raster_gbuffer_hw", "raster_gbuffer_hw"]
+    assert calls == ["rec_setup", "raster_shade_shipped_hw", "rec_setup", "raster_gbuffer_hw",
+                     "rec_setup", "raster_gbuffer_hw"]
 
 
 def test_batch_entry_ignores_fill_rule_env(monkeypatch):

@@ -278,7 +278,7 @@ def test_session_records_the_record_route(tiny, monkeypatch):
     assert setup_counters["rec_offsets"] == binning.offsets.numel()
     assert setup_counters["rec_pixels"] == w * h
     assert [(name, kind) for name, kind, _ in rec.on_device] == [
-        ("vf.rec.setup", "rec_binned"), ("vf.raster", "rec_items"), ("vf.raster", "rec_covered")]
+        ("vf.raster", "rec_items"), ("vf.raster", "rec_covered")]
     rec.settle()
     assert rec.on_device == []
     raster_counters = rec.counters["vf.raster"]
@@ -320,15 +320,17 @@ def _launches():
 
 # Every blocking wait of an hw Renderer call on the card, by innermost
 # span: relight's (test_torch_trace.RELIGHT_SYNCS) without the index range
-# check, which the record route does not make, and with bin_tiles' three.
-HW_SYNCS = {"vf.inputs": 9, "vf.rec.setup": 3, "vf.Renderer.render_rgba": 1,
+# check, which the record route's set-up makes on the card, and with that
+# set-up's one read of its totals and the check's flag.
+HW_SYNCS = {"vf.inputs": 9, "vf.rec.setup": 1, "vf.Renderer.render_rgba": 1,
             "vf.readback": 1}
 
 
 @pytest.mark.gpu
 def test_hw_call_at_the_cells_size_on_the_card(cuda, monkeypatch):
-    """One DEM-3601 800x600 hw call: it launches the record route's hw
-    kernel and the shader alone; the syncs, span by span, are those
+    """One DEM-3601 800x600 hw call: it launches the vertex kernel, the
+    record set-up's chain, the record route's hw kernel and the shader
+    alone; the syncs, span by span, are those
     counted, and torch's detector sees as many implicit ones; rec_items
     is the (pair, pixel) items ``tiles.tile_work`` finds in the frame's
     binning; the frame is the one drawn with no session, and equal to the
@@ -339,9 +341,10 @@ def test_hw_call_at_the_cells_size_on_the_card(cuda, monkeypatch):
     off = _hw_frame(r)
     torch.cuda.synchronize()
     after = _launches()
-    # The record route's hw kernel and the extended shader, once each;
-    # none of the other routes' kernels.
+    # The vertex kernel, the set-up's chain, the record route's hw kernel
+    # and the extended shader; none of the other routes' kernels.
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "vs_fields": 1, "rec_setup": kernels.rec_setup_launches(1, w, h, True),
         "raster_gbuffer_hw": 1, "terrain_fs_extended": 1}
     kept = _Kept(monkeypatch)
     _trace.reset()
@@ -363,8 +366,11 @@ def test_hw_call_at_the_cells_size_on_the_card(cuda, monkeypatch):
     _, binning = kept.calls[0]
     counters = snap["counters"]
     assert counters["vf.raster"]["rec_items"] == int(tiles.tile_work(binning).sum()) > 0
-    assert counters["vf.rec.setup"]["rec_binned"] == torch.unique(binning.rows).numel()
-    del kept, binning
+    # The records are the binned triangles' alone, each with a pair.
+    records, _ = kept.calls[0]
+    assert counters["vf.rec.setup"]["rec_binned"] == records.shape[0] \
+        == torch.unique(binning.rows).numel() == int(binning.rows.max()) + 1
+    del kept, binning, records
     want = raster_hw.renderer_frame_hw(inputs.dem_tile(n, SEED, 0, cuda), SPACING,
                                        EXAGGERATION, COLORMAP, SUN, EXPOSURE, w, h, cuda)
     got = check.compare([(off[None], want)])

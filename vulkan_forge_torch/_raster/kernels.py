@@ -58,6 +58,15 @@ compaction), which replaces the route's torch set-up
 (``segments.setup_frame_plain``; no pallas_call: the JAX package's set-up
 is host and XLA work). ``pipeline.segment_frame`` calls it.
 
+``csrc/records.cu`` holds the record route's set-up and binning,
+``rec_setup`` -> ``vf_rec_setup_*`` and ``vf_rec_sort_*`` (the corners'
+bbox test and counts, their scan, the binned triangles' records and
+pairs, a radix sort of the pairs by tile, the tiles' offsets), which
+replaces the route's torch set-up (``setup.rec_setup_plain``:
+``triangle_setup`` and ``bin_tiles``; no pallas_call: the JAX package's
+set-up is XLA work). ``pipeline.terrain_records`` and
+``pipeline.triangle_records`` call it.
+
 ``csrc/fragment.cu`` holds the extended fragment shader over a g-buffer,
 ``terrain_fs_extended`` -> ``vf_terrain_fs_extended`` (no pallas_call: the
 JAX package's shader is XLA code); ``fragment.terrain_fs_extended``
@@ -71,7 +80,7 @@ together, and linked into one shared library with a plain C interface,
 ``_build.launch`` and never synchronise.
 
 Each wrapper takes a CPU tensor to its plain PyTorch version (tiles.py,
-fragment.py, vtx.py, packed.py, segments.py) and launches the kernel for a
+fragment.py, vtx.py, packed.py, segments.py, setup.py) and launches the kernel for a
 CUDA tensor, or raises; it counts its kernel launches in
 ``<wrapper>.launches``.
 """
@@ -83,13 +92,13 @@ from pathlib import Path
 import torch
 
 from .. import _build, _trace
-from . import fragment, packed, segments, tiles, vtx
+from . import fragment, packed, segments, setup, tiles, vtx
 from .setup import REC_WIDTH, TILE, Binning, tile_grid
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 _CSRC = _PKG_DIR / "csrc"
 _SOURCES = (_CSRC / "raster.cu", _CSRC / "vtx.cu", _CSRC / "packed.cu",
-            _CSRC / "segments.cu", _CSRC / "fragment.cu")
+            _CSRC / "segments.cu", _CSRC / "fragment.cu", _CSRC / "records.cu")
 _HEADERS = (_CSRC / "raster_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -139,6 +148,19 @@ _SIGNATURES = {
     "vf_seg_setup_prefix": [_I, _I, _P, _P, _P, _P, _P],
     "vf_seg_setup_compact": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                              _P],
+    "vf_rec_block": [],
+    "vf_rec_sort_block": [],
+    "vf_rec_digit_bits": [],
+    "vf_rec_tile": [],
+    "vf_rec_width": [],
+    "vf_rec_setup_count": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "vf_rec_setup_totals": [_P, _P, _P, _I, _P, _P, _P, _P],
+    "vf_rec_setup_emit": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _P],
+    "vf_rec_sort_count": [_P, _I, _I, _P, _P],
+    "vf_rec_sort_scan": [_P, _I, _P, _P, _P],
+    "vf_rec_sort_scatter": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "vf_rec_setup_offsets": [_P, _I, _I, _P, _P],
     "vf_terrain_fs_extended": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _P, _P, _P, _P, _P, _F, _P,
                                _I, _P, _P],
 }
@@ -146,6 +168,10 @@ _SIGNATURES = {
 # Stream positions of one block of the set-up's scan: kScanBlock in
 # csrc/segments.cu.
 SEG_SCAN_BLOCK = 1024
+# The record set-up's blocks (csrc/records.cu): triangles of one frame a
+# block of its counts (kBlock), pairs a block of its sort (kSortBlock), and
+# the key bits a sort pass orders (kDigitBits).
+REC_BLOCK, REC_SORT_BLOCK, REC_DIGIT_BITS = 1024, 2048, 8
 
 
 def _contract():
@@ -160,7 +186,12 @@ def _contract():
             ("vf_seg_tile_h", "segments.cu", "segments.TILE_H", segments.TILE_H),
             ("vf_seg_tile_w", "segments.cu", "segments.TILE_W", segments.TILE_W),
             ("vf_seg_scan_block", "segments.cu", "kernels.SEG_SCAN_BLOCK", SEG_SCAN_BLOCK),
-            ("vf_seg_rec_width", "segments.cu", "setup.REC_WIDTH", REC_WIDTH))
+            ("vf_seg_rec_width", "segments.cu", "setup.REC_WIDTH", REC_WIDTH),
+            ("vf_rec_block", "records.cu", "kernels.REC_BLOCK", REC_BLOCK),
+            ("vf_rec_sort_block", "records.cu", "kernels.REC_SORT_BLOCK", REC_SORT_BLOCK),
+            ("vf_rec_digit_bits", "records.cu", "kernels.REC_DIGIT_BITS", REC_DIGIT_BITS),
+            ("vf_rec_tile", "records.cu", "setup.TILE", TILE),
+            ("vf_rec_width", "records.cu", "setup.REC_WIDTH", REC_WIDTH))
 
 
 _lib = None
@@ -935,6 +966,129 @@ def seg_setup(fields: torch.Tensor, indices, grid_n, width: int, height: int,
 
 
 seg_setup.launches = 0
+
+
+# ---------------- the record route's set-up (csrc/records.cu) ----------------
+
+def _check_rec_setup(fields: torch.Tensor, indices: torch.Tensor, width: int, height: int,
+                     fill_rule: str) -> None:
+    if fields.dtype != torch.float32 or fields.dim() != 3 \
+            or fields.shape[1] != vtx.FIELDS or not fields.is_contiguous():
+        raise ValueError(f"fields must be contiguous float32 (B, {vtx.FIELDS}, N), "
+                         f"got {fields.dtype} {tuple(fields.shape)}")
+    if indices.dtype not in (torch.int32, torch.int64) or indices.dim() != 2 \
+            or indices.shape[1] != 3 or not indices.is_contiguous():
+        raise ValueError(f"indices must be contiguous int32 or int64 (T, 3), got "
+                         f"{indices.dtype} {tuple(indices.shape)}")
+    if indices.device != fields.device:
+        raise ValueError(f"indices is on {indices.device}, fields on {fields.device}")
+    setup.check_fill_rule(fill_rule)
+    _check_frame(width, height)
+    ntx, nty = tile_grid(width, height)
+    B, _, nv = fields.shape
+    if B * indices.shape[0] >= 2**31 or nv >= 2**31 or B * ntx * nty >= 2**31:
+        raise ValueError("frames * triangles, vertices and frames * tiles must stay below "
+                         "2**31 (int32 rows and keys)")
+    if fields.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {fields.device}")
+
+
+def _index_error(nv: int, lo=None, hi=None) -> ValueError:
+    got = "" if lo is None else f", got [{lo}, {hi}]"
+    return ValueError(f"indices must lie in [0, {nv}){got}")
+
+
+def rec_setup(fields: torch.Tensor, indices: torch.Tensor, width: int, height: int,
+              fill_rule: str = "inclusive"):
+    """The record route's inputs from B frames' post-VS fields (B, 7, N):
+    the triangles of ``indices`` ((T, 3) int32 or int64, every index in
+    [0, N)) set up under ``fill_rule`` and binned into tiles. Returns
+    (records (R, REC_WIDTH) f32, Binning): the R binned triangles' records
+    in ascending (frame, id) order, and the tiles' lists of rows into them.
+
+    CPU tensors: setup.rec_setup_plain. CUDA tensors: the chain of
+    csrc/records.cu, 3 launches, one read of the totals and the index
+    check, then, where a triangle is binned, 1 + 3 a sort pass (one pass
+    per REC_DIGIT_BITS bits of the largest tile key); the same bytes. No
+    triangle or no frame: no record, empty lists, nothing launched. An
+    index outside [0, N) raises ValueError.
+    """
+    _check_rec_setup(fields, indices, width, height, fill_rule)
+    B, _, nv = fields.shape
+    T = indices.shape[0]
+    ntx, nty = tile_grid(width, height)
+    n_keys = B * ntx * nty
+    dev = fields.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    if B * T == 0:
+        return (torch.empty((0, REC_WIDTH), dtype=torch.float32, device=dev),
+                Binning(rows=torch.empty(0, **i32), offsets=torch.zeros(n_keys + 1, **i32),
+                        boxes=torch.empty(0, **i32)))
+    if dev.type == "cpu":
+        lo, hi = (int(v) for v in torch.aminmax(indices))
+        if lo < 0 or hi >= nv:
+            raise _index_error(nv, lo, hi)
+        return setup.rec_setup_plain(fields, indices, width, height, fill_rule)
+    lib = load()
+    frame_args = (fields.data_ptr(), nv, indices.data_ptr(), int(indices.dtype == torch.int64),
+                  T, B, width, height, int(fill_rule == "hw"))
+    blocks = B * -(-T // REC_BLOCK)
+    bits = torch.empty(blocks * REC_BLOCK // 32, **i32)
+    block_binned, block_bad, rec_first = (torch.empty(blocks, **i32) for _ in range(3))
+    block_pairs, pair_first = (torch.empty(blocks, dtype=torch.int64, device=dev)
+                               for _ in range(2))
+    info = torch.empty(3, dtype=torch.int64, device=dev)    # records, pairs, bad index
+    _build.launch(rec_setup, lib.vf_rec_setup_count, fields, *frame_args, bits.data_ptr(),
+                  block_binned.data_ptr(), block_pairs.data_ptr(), block_bad.data_ptr())
+    _build.launch(rec_setup, lib.vf_rec_setup_totals, fields, block_binned.data_ptr(),
+                  block_pairs.data_ptr(), block_bad.data_ptr(), blocks, rec_first.data_ptr(),
+                  pair_first.data_ptr(), info.data_ptr())
+    n_rec, n_pairs, bad = _trace.d2h(info).cpu().tolist()     # the one read
+    if bad:
+        raise _index_error(nv)
+    if n_pairs >= 2**31:
+        raise ValueError(f"{n_pairs} (tile, record) pairs: the lists' int32 offsets "
+                         "hold fewer than 2**31")
+    records = torch.empty((n_rec, REC_WIDTH), dtype=torch.float32, device=dev)
+    keys, rows, boxes = (torch.empty(n_pairs, **i32) for _ in range(3))
+    if n_rec:
+        _build.launch(rec_setup, lib.vf_rec_setup_emit, fields, *frame_args, bits.data_ptr(),
+                      rec_first.data_ptr(), pair_first.data_ptr(), records.data_ptr(),
+                      keys.data_ptr(), rows.data_ptr(), boxes.data_ptr())
+        passes = rec_sort_passes(n_keys)
+        hist, offs = (torch.empty((1 << REC_DIGIT_BITS) * -(-n_pairs // REC_SORT_BLOCK), **i32)
+                      for _ in range(2))
+        digit_total = torch.empty(1 << REC_DIGIT_BITS, **i32)
+        spare = [torch.empty(n_pairs, **i32) for _ in range(3)]
+        for shift in range(0, passes * REC_DIGIT_BITS, REC_DIGIT_BITS):
+            _build.launch(rec_setup, lib.vf_rec_sort_count, fields, keys.data_ptr(), n_pairs,
+                          shift, hist.data_ptr())
+            _build.launch(rec_setup, lib.vf_rec_sort_scan, fields, hist.data_ptr(), n_pairs,
+                          offs.data_ptr(), digit_total.data_ptr())
+            _build.launch(rec_setup, lib.vf_rec_sort_scatter, fields, keys.data_ptr(),
+                          rows.data_ptr(), boxes.data_ptr(), n_pairs, shift, offs.data_ptr(),
+                          digit_total.data_ptr(), *(t.data_ptr() for t in spare))
+            spare, (keys, rows, boxes) = [keys, rows, boxes], spare
+    offsets = torch.empty(n_keys + 1, **i32)
+    _build.launch(rec_setup, lib.vf_rec_setup_offsets, fields, keys.data_ptr(), n_pairs, n_keys,
+                  offsets.data_ptr())
+    return records, Binning(rows=rows, offsets=offsets, boxes=boxes)
+
+
+rec_setup.launches = 0
+
+
+def rec_sort_passes(n_keys: int) -> int:
+    """The radix passes that order tile keys 0..n_keys-1: one per
+    REC_DIGIT_BITS bits of the largest (none for a single tile)."""
+    return -(-(n_keys - 1).bit_length() // REC_DIGIT_BITS)
+
+
+def rec_setup_launches(n_frames: int, width: int, height: int, binned: bool) -> int:
+    """The launches ``rec_setup`` makes on the card for ``n_frames`` frames
+    of width x height with at least one triangle, some binned or none."""
+    ntx, nty = tile_grid(width, height)
+    return 3 + (1 + 3 * rec_sort_passes(n_frames * ntx * nty) if binned else 0)
 
 
 # ---------------- the extended fragment shader (csrc/fragment.cu) ----------------

@@ -29,8 +29,10 @@ Four routes for terrain, picked by ``use_segment_route``,
     ``csrc/packed.cu``, which read each triangle's corners through the
     int32 index buffer (packed.py);
   - record route (the rest: shipped-shader meshes without ``grid_n``, the
-    triangle): vertex shader (transform.py) -> clip_to_fb + triangle setup
-    + binning (setup.py) -> the raster kernels of ``csrc/raster.cu``.
+    triangle): the same per-vertex fields -> triangle setup and binning of
+    the binned triangles (``kernels.rec_setup``: ``csrc/records.cu`` on the
+    card, setup.py's ``rec_setup_plain`` on the CPU) -> the raster kernels
+    of ``csrc/raster.cu``.
     Passing ``grid_n=None`` takes a shipped grid mesh through it.
 
 The shipped shader runs inside the last kernel of each route; the
@@ -61,8 +63,7 @@ import torch
 from .. import _formats, _trace
 from .._device import resolve_device
 from . import fragment, kernels, packed, segments, transform, vtx
-from .setup import (FILL_RULES, REC_WIDTH, bin_tiles, check_fill_rule, clip_to_fb,
-                    tile_grid, triangle_setup)
+from .setup import FILL_RULES, check_fill_rule, clip_to_fb, tile_grid
 
 # Fixed geometry (src/lib.rs:73-78): CCW, u16 indices [0,1,2].
 _TRI_POS = np.array([[-0.8, -0.8], [0.8, -0.8], [0.0, 0.8]], dtype=np.float32)
@@ -102,11 +103,16 @@ def _f32(x, device) -> torch.Tensor:
     return _trace.h2d(x, torch.as_tensor(x, dtype=torch.float32, device=device))
 
 
-def _tri_indices(indices, device) -> torch.Tensor:
+def _rec_indices(indices, device) -> torch.Tensor:
+    """The record route's (T, 3) index buffer on ``device``: int32 and
+    int64 are kept (a tensor already there is used as it is), any other
+    integer type becomes int64; ``kernels.rec_setup`` checks the range."""
+    src = indices
     if not isinstance(indices, torch.Tensor):
-        indices = np.asarray(indices, dtype=np.int64)
-    return _trace.h2d(indices, torch.as_tensor(indices, dtype=torch.long,
-                                               device=device)).reshape(-1, 3)
+        indices = torch.as_tensor(np.asarray(indices))
+    if indices.dtype not in (torch.int32, torch.int64):
+        indices = indices.to(torch.long)
+    return _trace.h2d(src, indices.to(device)).reshape(-1, 3).contiguous()
 
 
 def _tri_indices_i32(indices, n_vertices: int, device) -> torch.Tensor:
@@ -173,30 +179,31 @@ def _gbuffer_kernel(hw: bool):
 def terrain_records(xyuv, indices, heights, views, projs, spacing,
                     exaggeration, width: int, height: int,
                     fs_mode: str = "shipped", fill_rule: str = "inclusive"):
-    """Vertex stage + setup + binning for B cameras of one terrain, the
-    setup and binning in the span ``vf.rec.setup``.
+    """Vertex stage + setup + binning for B cameras of one terrain: the
+    post-VS fields (``vtx.vs_fields``), then, in the span ``vf.rec.setup``,
+    ``kernels.rec_setup``.
 
-    All tensors on one device; views/projs (B, 4, 4). Returns
-    (records (B*(T+1), REC_WIDTH), binning), the records set up under
-    ``fill_rule``.
+    All tensors on one device; views/projs (B, 4, 4), spacing and
+    exaggeration float32 tensors; indices (T, 3) (``_rec_indices``).
+    Returns (records (R, REC_WIDTH), binning): the binned triangles'
+    records, set up under ``fill_rule``, in ascending (frame, id) order,
+    and the tiles' rows into them.
     """
-    vs = transform.terrain_vs if fs_mode == "shipped" else transform.terrain_vs_extended
-    clip, varyings = vs(xyuv, heights, views, projs, spacing, exaggeration)
-    x, y, z, w = clip_to_fb(clip, width, height)
-    with _trace.span("vf.rec.setup", x.device):
-        records, bbox = triangle_setup(x, y, z, w, varyings, indices, width, height,
-                                       fill_rule)
-        binning = bin_tiles(bbox, width, height)
+    fields = vtx.vs_fields(xyuv, heights, views, projs, spacing, exaggeration, width, height,
+                           fs_mode)
+    indices = _rec_indices(indices, fields.device)
+    with _trace.span("vf.rec.setup", fields.device):
+        records, binning = kernels.rec_setup(fields, indices, width, height, fill_rule)
         if _trace.on():
-            _record_counters(bbox, binning, views.shape[0] * width * height)
-    return records.reshape(-1, REC_WIDTH), binning
+            _record_counters(records, binning, views.shape[0] * width * height)
+    return records, binning
 
 
-def _record_counters(bbox, binning, pixels: int) -> None:
-    """Tally a traced frame batch's record-route counters: the binned
-    records, kept on the device, and the pairs, the offsets and the
-    frames' ``pixels``, known on the host."""
-    _trace.device_sum("rec_binned", (bbox[..., 1] >= bbox[..., 0]).sum())
+def _record_counters(records, binning, pixels: int) -> None:
+    """Tally a traced frame batch's record-route counters, all known on
+    the host: the binned records, the pairs, the offsets and the frames'
+    ``pixels``."""
+    _trace.count("rec_binned", records.shape[0])
     _trace.count("rec_pairs", binning.rows.numel())
     _trace.count("rec_offsets", binning.offsets.numel())
     _trace.count("rec_pixels", pixels)
@@ -267,8 +274,8 @@ def render_terrain_batch_u32(xyuv, indices, heights, views, projs, *,
     else:
         with _trace.span("vf.vertex", dev):
             records, binning = terrain_records(
-                xyuv, _tri_indices(indices, dev), heights, views, projs, spacing,
-                exaggeration, width, height, fs_mode, fill_rule)
+                xyuv, indices, heights, views, projs, spacing, exaggeration, width,
+                height, fs_mode, fill_rule)
         with _trace.span("vf.raster", dev):
             if fs_mode == "shipped":
                 shade = (kernels.raster_shade_shipped_hw if hw
@@ -392,14 +399,21 @@ def render_terrain_segments_u32(xyuv, indices, heights, view, proj, *, spacing,
                                             sun_dir, nsp, exaggeration)[0]
 
 
-def triangle_records(width: int, height: int, device, fill_rule: str = "inclusive"):
-    """The gradient triangle's (records (2, REC_WIDTH), binning) on
-    ``device``, set up under ``fill_rule``."""
+def triangle_fields(width: int, height: int, device):
+    """The gradient triangle's three vertices as (1, 7, 3) post-VS fields
+    and its (1, 3) index buffer on ``device``."""
     clip, colors = transform.triangle_vs(_f32(_TRI_POS, device), _f32(_TRI_COLOR, device))
     x, y, z, w = clip_to_fb(clip, width, height)
-    indices = _trace.h2d(None, torch.tensor([[0, 1, 2]], dtype=torch.long, device=device))
-    records, bbox = triangle_setup(x, y, z, w, colors, indices, width, height, fill_rule)
-    return records.reshape(-1, REC_WIDTH), bin_tiles(bbox, width, height)
+    fields = torch.stack([x, y, w, colors[:, 0], colors[:, 1], colors[:, 2], z])[None]
+    return fields, _trace.h2d(None, torch.tensor([[0, 1, 2]], dtype=torch.long, device=device))
+
+
+def triangle_records(width: int, height: int, device, fill_rule: str = "inclusive"):
+    """The gradient triangle's (records (1, REC_WIDTH), binning) on
+    ``device``, set up under ``fill_rule`` by ``kernels.rec_setup`` from
+    ``triangle_fields``."""
+    return kernels.rec_setup(*triangle_fields(width, height, device), width, height,
+                             fill_rule)
 
 
 def render_triangle_u8(width: int, height: int, device=None, as_device: bool = False):

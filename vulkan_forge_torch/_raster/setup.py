@@ -16,6 +16,9 @@ Binning is the port's own (``bin_tiles``): the JAX ``bin_triangles``
 builds a (tiles x triangles) overlap matrix with a static capacity because
 XLA needs static shapes; eager torch does not, so the port lists
 (tile, triangle) pairs in triangle order and sorts them stably by tile.
+The record route keeps the binned triangles' records alone
+(``rec_setup_plain``, the specification of ``kernels.rec_setup``, whose
+chain of CUDA kernels builds them on the card).
 """
 from __future__ import annotations
 
@@ -448,8 +451,10 @@ def triangle_setup(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
 class Binning(NamedTuple):
     """Per-tile triangle lists in CSR form.
 
-    rows: (P,) int32 record rows into the (B*(T+1), REC_WIDTH) flattened
-    records, tile by tile, ascending triangle id within a tile.
+    rows: (P,) int32 record rows, tile by tile, ascending triangle id
+    within a tile: ``bin_tiles``' into the (B*(T+1), REC_WIDTH) flattened
+    records, ``rec_setup_plain``'s (and ``kernels.rec_setup``'s) into the
+    binned triangles' records alone.
     offsets: (B*NT + 1,) int32 exclusive scan of the per-tile counts; tile
     ``b*NT + ty*NTX + tx`` owns rows[offsets[t]:offsets[t+1]].
     boxes: (P,) int32, beside rows: each pair's pixel bbox clipped to its
@@ -516,3 +521,24 @@ def bin_tiles(bbox: torch.Tensor, width: int, height: int) -> Binning:
     offsets = torch.zeros(B * nt + 1, dtype=torch.long, device=dev)
     offsets[1:] = torch.cumsum(counts, 0)
     return Binning(rows=rows.to(torch.int32), offsets=offsets.to(torch.int32), boxes=boxes)
+
+
+def rec_setup_plain(fields: torch.Tensor, indices: torch.Tensor, width: int, height: int,
+                    fill_rule: str = "inclusive"):
+    """``kernels.rec_setup`` as torch ops, the specification its chain is
+    held to: ``triangle_setup`` and ``bin_tiles`` over B frames' post-VS
+    fields (B, 7, N) (the field order of ``setup_fields_core``), then the
+    binned triangles' records alone, in ascending (frame, id) order, with
+    ``Binning.rows`` renumbered into them (each tile's rows still ascend).
+    Returns (records (R, REC_WIDTH), Binning)."""
+    T = indices.shape[0]
+    records, bbox = triangle_setup(fields[:, 0], fields[:, 1], fields[:, 6], fields[:, 2],
+                                   fields[:, 3:6].transpose(1, 2), indices, width, height,
+                                   fill_rule)
+    binning = bin_tiles(bbox, width, height)
+    binned = (bbox[..., 1] >= bbox[..., 0]).reshape(-1)
+    rank = torch.cumsum(binned, 0, dtype=torch.int32) - 1
+    old = binning.rows.long()                       # frame * (T + 1) + id
+    rows = rank[old - torch.div(old, T + 1, rounding_mode="floor")]
+    return (records[:, :T].reshape(-1, REC_WIDTH)[binned],
+            binning._replace(rows=rows.contiguous()))

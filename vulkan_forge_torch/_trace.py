@@ -12,7 +12,7 @@ spans, in the order it runs:
   - ``vf.vertex``: the vertex shader, ``clip_to_fb``, the fields' stacking
     or the records' setup and binning; on the record route it holds
     ``vf.rec.setup``, the records' setup and binning after the vertex
-    shader;
+    stage;
   - ``vf.raster``: the route's kernel chain with its arguments (the
     indexed route's index check included), allocations and fills; on the
     segment-walk route it holds ``vf.seg.bin``, the walk's set-up before
@@ -49,10 +49,10 @@ reads and writes, known on the host) and ``seg_pairs`` (the (tile,
 record) pairs its kernel evaluates, which the kernel counts on the
 device: the record keeps the kernel's output and sums it when it is
 snapshot, so the call reads nothing back for it). The record route adds
-``rec_pairs``, ``rec_offsets`` and ``rec_pixels`` (the binned (tile,
-record) pairs, the entries of the tiles' offsets and the frames' pixels,
-known on the host) and ``rec_binned`` (the records with a pair, kept on
-the device in the same way), and on its g-buffer frames ``rec_items``
+``rec_binned``, ``rec_pairs``, ``rec_offsets`` and ``rec_pixels`` (the
+records, each with a pair, the binned (tile, record) pairs, the entries
+of the tiles' offsets and the frames' pixels, known on the host once the
+set-up has read its totals back), and on its g-buffer frames ``rec_items``
 (the (pair, pixel) items its kernel walks, the kernel's own count) and
 ``rec_covered`` (the covered pixels), kept on the device too.
 
